@@ -1,0 +1,29 @@
+"""Parameters and batches between the JAX package and the port.
+
+The reference's trees are nested dicts of arrays (numpy, or anything
+``numpy.asarray`` accepts); the port's are nested dicts of tensors in the
+same layouts, so conversion is a leaf-wise copy and changes no value.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def to_torch(tree, device="cpu"):
+    """Nested dict of arrays -> nested dict of tensors on ``device``
+    (dtypes kept)."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device) for k, v in tree.items()}
+    return torch.as_tensor(np.array(tree), device=device)
+
+
+def to_numpy(tree):
+    """Nested dict of tensors -> nested dict of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        # numpy has no bfloat16; hand over the widened values
+        t = t.to(torch.float32)
+    return t.numpy()

@@ -1,0 +1,170 @@
+"""Bi-level clustered FL optimisation (paper §3.3, Algorithm 1 l.14-23).
+
+Client procedure (lines 20-23), E local steps:
+    θ ← θ − η (∇f_i(θ) + λ (θ − ω))
+    ω ← ω − η ∇f_i(ω)
+Server (lines 17-19): ω ← Aggregate([ωᵢ]) over all sampled clients;
+θ_k ← FedAvg([θᵢ], i ∈ c_k) per cluster.
+
+The cohort is the unit of work: clients are stacked on a leading axis, the
+per-client loss runs under ``torch.func.vmap``, and one ``autograd.grad``
+of the summed losses gives every client's gradient at once (client c's
+loss reads only client c's parameters). In the fused form θ and ω live in
+two contiguous (C, P) buffers, the gradients are taken with respect to
+those buffers directly, so they arrive flat, and one ``prox_update`` launch
+per local step updates the whole cohort in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+from torch.func import vmap
+
+from repro_torch.kernels import ops
+from repro_torch.utils import trees
+
+
+# ----------------------------------------------------------- flat views
+def flat_spec(tree):
+    """Unflatten recipe of a (per-client) tree: leaf paths, shapes and
+    sizes in sorted-key order."""
+    paths, shapes = [], []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+        else:
+            paths.append(path)
+            shapes.append(tuple(node.shape))
+
+    walk(tree, ())
+    return tuple(paths), tuple(shapes), tuple(math.prod(s) for s in shapes)
+
+
+def flatten_tree(tree, batch_dims: int = 0) -> torch.Tensor:
+    """Concatenate the leaves into a new ``(*lead, P)`` buffer, keeping the
+    first ``batch_dims`` axes (the client axis of a stacked cohort)."""
+    leaves = trees.leaves(tree)
+    lead = tuple(leaves[0].shape[:batch_dims])
+    return torch.cat([l.reshape(*lead, -1) for l in leaves], dim=-1)
+
+
+def unflatten_tree(vec: torch.Tensor, spec):
+    """Views of a ``(*lead, P)`` buffer as the tree ``spec`` describes, each
+    leaf shaped ``(*lead, *shape)``."""
+    paths, shapes, sizes = spec
+    lead = tuple(vec.shape[:-1])
+    out: dict = {}
+    for path, shape, part in zip(paths, shapes, torch.split(vec, sizes, dim=-1)):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = part.reshape(*lead, *shape)
+    return out
+
+
+def _cohort_loss(loss_fn, thetas, omegas, batches):
+    """Σ_c f_c(θ_c) + Σ_c f_c(ω_c) over the stacked cohort."""
+    per = vmap(loss_fn)
+    return per(thetas, batches).sum() + per(omegas, batches).sum()
+
+
+# ----------------------------------------------------------- client update
+def make_cohort_update(loss_fn: Callable, lr: float, lam: float,
+                       local_steps: int = 1, backend: str = "auto",
+                       fused: bool = False):
+    """Returns cohort_update(thetas, omega, batches) -> (thetas_i, omegas_i).
+
+    ``thetas`` and ``batches`` carry a leading client axis; ``omega`` is
+    shared and every client updates its own copy. E = ``local_steps``
+    full-batch SGD steps of the bi-level objective. ``fused=True`` runs
+    the flat (C, P) path with one ``ops.prox_update_flat`` call a step
+    (the kernel on CUDA under ``backend="auto"``); ``fused=False`` applies
+    ``ops.prox_update_tree`` leaf by leaf."""
+
+    def fused_update(thetas, omega, batches):
+        spec = flat_spec(omega)
+        th = flatten_tree(thetas, batch_dims=1)              # (C, P), new buffer
+        om = flatten_tree(omega).expand(th.shape[0], -1).contiguous()
+        for _ in range(local_steps):
+            th_v = th.detach().requires_grad_(True)
+            om_v = om.detach().requires_grad_(True)
+            with torch.enable_grad():
+                loss = _cohort_loss(loss_fn, unflatten_tree(th_v, spec),
+                                    unflatten_tree(om_v, spec), batches)
+                g_t, g_o = torch.autograd.grad(loss, (th_v, om_v))
+            ops.prox_update_flat(th.view(-1), om.view(-1), g_t.reshape(-1),
+                                 g_o.reshape(-1), lr, lam, backend=backend)
+        return unflatten_tree(th, spec), unflatten_tree(om, spec)
+
+    def tree_update(thetas, omega, batches):
+        c = trees.leaves(thetas)[0].shape[0]
+        th = trees.tree_map(lambda x: x.detach(), thetas)
+        om = trees.tree_map(lambda x: x.detach().expand(c, *x.shape), omega)
+        for _ in range(local_steps):
+            th_v = trees.tree_map(lambda x: x.detach().requires_grad_(True), th)
+            om_v = trees.tree_map(
+                lambda x: x.detach().contiguous().requires_grad_(True), om)
+            with torch.enable_grad():
+                loss = _cohort_loss(loss_fn, th_v, om_v, batches)
+                th_leaves, om_leaves = trees.leaves(th_v), trees.leaves(om_v)
+                grads = torch.autograd.grad(loss, th_leaves + om_leaves)
+            g_t = _like(th_v, grads[:len(th_leaves)])
+            g_o = _like(om_v, grads[len(th_leaves):])
+            th, om = ops.prox_update_tree(th, om, g_t, g_o, lr, lam,
+                                          backend=backend)
+        return th, om
+
+    return fused_update if fused else tree_update
+
+
+def _like(tree, flat_leaves):
+    """Rebuild ``tree``'s structure from leaves in sorted-key order."""
+    it = iter(flat_leaves)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return walk(tree)
+
+
+def make_client_update(loss_fn: Callable, lr: float, lam: float,
+                       local_steps: int = 1, backend: str = "auto",
+                       fused: bool = False):
+    """Returns client_update(theta, omega, batch) -> (theta_i, omega_i) for
+    one client: the cohort update over a cohort of one."""
+    cohort = make_cohort_update(loss_fn, lr, lam, local_steps, backend, fused)
+
+    def client_update(theta, omega, batch):
+        th, om = cohort(trees.tree_map(lambda x: x[None], theta), omega,
+                        trees.tree_map(lambda x: x[None], batch))
+        return (trees.tree_map(lambda x: x[0], th),
+                trees.tree_map(lambda x: x[0], om))
+
+    return client_update
+
+
+# ----------------------------------------------------------- server side
+def aggregate_segments(stacked, weights, segment_ids, num_segments: int):
+    """Per-cluster FedAvg as one batched op: the weighted mean over rows of
+    a stacked tree grouped by ``segment_ids`` (cohort row -> cluster
+    index). Segments with no rows come out as zero rows."""
+    x0 = trees.leaves(stacked)[0]
+    w = torch.as_tensor(weights, dtype=torch.float32, device=x0.device)
+    seg = torch.as_tensor(segment_ids, device=x0.device).long()
+    denom = torch.zeros((num_segments,), dtype=torch.float32,
+                        device=x0.device).index_add_(0, seg, w)
+    wn = w / denom[seg]
+
+    def leaf(x):
+        contrib = x * wn.reshape((-1,) + (1,) * (x.dim() - 1))
+        out = torch.zeros((num_segments,) + tuple(x.shape[1:]),
+                          dtype=contrib.dtype, device=x.device)
+        return out.index_add_(0, seg, contrib).to(x.dtype)
+
+    return trees.tree_map(leaf, stacked)

@@ -1,0 +1,110 @@
+"""Engine state: the federated server as a value.
+
+``ServerState`` is the only thing a strategy transition reads and the only
+thing it produces — transitions never mutate their input; they return a
+new state (``dataclasses.replace`` with copied containers).
+``EngineContext`` is the static world the state refers to: the loss and
+eval functions, the client datasets on the engine's device, the Ψ
+extractor and memoised cohort updates.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.clustering import ClusterState
+
+
+def resolve_device(device=None) -> torch.device:
+    """The engine's device: ``cuda`` unless the caller names another. With
+    no device given and no GPU present this raises — the engine never
+    falls back to the CPU unasked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                               "to run the engine on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """StoCFL's knobs: the JAX package's ``EngineConfig`` fields the port
+    implements so far. Partitions live in the host ``ClusterState``,
+    cohorts are drawn by the numpy bit-generator, and params run in fp32
+    (the reference's ``cluster_backend="numpy"``, ``rng_backend="numpy"``,
+    ``dtype="float32"``, ``project_dim=None``). ``fused_step`` routes the
+    local update through the flat (C, P) path and the ``prox_update``
+    kernel."""
+    tau: float = 0.5
+    lam: float = 0.05
+    lr: float = 0.1
+    local_steps: int = 5
+    sample_rate: float = 0.1
+    seed: int = 0
+    aggregator: str = "mean"          # G(·): mean | median | trimmed_mean | krum
+    fused_step: bool = False          # flat fused bilevel local update
+
+
+@dataclasses.dataclass
+class EngineContext:
+    """Static (non-checkpointed) world: functions, data, cached updates."""
+    loss_fn: Callable
+    init_params: Any
+    clients: List[dict]
+    cfg: EngineConfig
+    device: torch.device
+    eval_fn: Optional[Callable] = None
+    extractor: Optional[Callable] = None
+    cache: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def cached(self, key: str, builder: Callable) -> Callable:
+        """Memoise a built update under ``key`` (per-context cache)."""
+        if key not in self.cache:
+            self.cache[key] = builder()
+        return self.cache[key]
+
+
+@dataclasses.dataclass
+class ServerState:
+    """The federated server as a value: ``omega`` (global model) and
+    ``models`` (cluster models keyed by root) are trees of tensors on the
+    engine's device; the rest is host bookkeeping — strategy name, round
+    counter, numpy bit-generator state (so sampling is checkpoint-exact),
+    per-client sample counts, the departed set, the Ψ clustering state and
+    the metric history."""
+    ctx: EngineContext
+    strategy: str
+    round: int
+    rng_state: dict
+    sizes: Tuple[int, ...]
+    left: frozenset
+    omega: Any
+    models: Any
+    clusters: Optional[ClusterState] = None
+    history: Tuple[dict, ...] = ()
+
+    @property
+    def n_clients(self) -> int:
+        """Registered clients, departed included."""
+        return len(self.ctx.clients)
+
+    def cluster_model(self, root: int):
+        """θ_k for a cluster root (lazy: ω₀ until first aggregate)."""
+        return self.models.get(root, self.ctx.init_params)
+
+    def rng(self) -> np.random.Generator:
+        """The sampling generator at this state's position."""
+        g = np.random.default_rng(0)
+        g.bit_generator.state = self.rng_state
+        return g
+
+    def replace(self, **kw) -> "ServerState":
+        return dataclasses.replace(self, **kw)
+
+
+def fresh_rng_state(seed: int) -> dict:
+    return np.random.default_rng(seed).bit_generator.state

@@ -1,0 +1,129 @@
+"""Build the port's CUDA kernels at first use and bind them with ctypes.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into an
+object, all sources at once, and the objects are linked into one shared
+library with a plain C interface, cached under ``kernels/_build/`` (listed
+in ``.gitignore``) by a hash of the sources and flags. No PyTorch header is
+compiled, which keeps a build to seconds. A failed build raises.
+
+The wrappers call the exported C functions with raw pointers from
+``tensor.data_ptr()`` and the stream from
+``torch.cuda.current_stream().cuda_stream``; every C function returns the
+CUDA error of its launches (0 when they were accepted).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "prox_update_f32": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_float,
+                        ctypes.c_float, _P],
+    "prox_update_bf16": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_float,
+                         ctypes.c_float, _P],
+    "cosine_sim_f32": [_P, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_int, _P, _P, _P, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+last_build_log = ""
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then
+    ``/usr/local/cuda/bin``. Raises when there is none."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from kernels/csrc at first use")
+
+
+def sources():
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libreprotorch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile every source (in parallel, one ``nvcc`` each) and link the
+    shared library, unless the cached one for these sources exists.
+    ``verbose`` adds ``-Xptxas -v`` and keeps the compiler's report in
+    ``last_build_log``. Returns the library's path."""
+    global last_build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    exe = nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [exe, *NVCC_FLAGS, *extra, "-c", str(src), "-o", obj]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, _obj, p in procs:
+            log, _ = p.communicate()
+            logs.append(f"== {src.name}\n{log}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        last_build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{last_build_log}")
+        tmp_so = os.path.join(tmp, out.name)
+        link = subprocess.run(
+            [exe, *ARCH_FLAGS, "-shared", "-o", tmp_so,
+             *[obj for _src, obj, _p in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_so, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The bound kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a kernel's C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -1,0 +1,59 @@
+"""Public kernel entry points with backend selection.
+
+``backend="auto"`` hands the tensors to the kernel wrapper, which launches
+the CUDA kernel for a CUDA tensor and runs the plain version for a CPU
+tensor; ``backend="torch"`` forces the plain version on any device (the
+counterpart of the JAX package's ``backend="jnp"``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.cosine_sim import cosine_sim as _cosine_kernel
+from repro_torch.kernels.prox_update import prox_update_flat as _prox_kernel
+from repro_torch.utils import trees
+
+BACKENDS = ("auto", "torch")
+
+
+def _plain(backend: str) -> bool:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
+    return backend == "torch"
+
+
+def pairwise_cosine(x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """(N, D) representation matrix -> (N, N) cosine similarity."""
+    if _plain(backend):
+        return ref.cosine_sim_ref(x)
+    return _cosine_kernel(x)
+
+
+def prox_update_tree(theta, omega, g_theta, g_omega, eta, lam,
+                     backend: str = "auto"):
+    """Bi-level update applied leaf by leaf over parameter dicts; returns
+    new dicts ``(theta', omega')`` and leaves the inputs untouched."""
+    plain = _plain(backend)
+
+    def leaf(t, o, gt, go):
+        if plain:
+            return ref.prox_update_ref(t, o, gt, go, eta, lam)
+        t = t.clone(memory_format=torch.contiguous_format)
+        o = o.clone(memory_format=torch.contiguous_format)
+        _prox_kernel(t.view(-1), o.view(-1), gt.contiguous().view(-1),
+                     go.contiguous().view(-1), eta, lam)
+        return t, o
+
+    pairs = trees.tree_map(leaf, theta, omega, g_theta, g_omega)
+    return (trees.tree_map(lambda p: p[0], pairs),
+            trees.tree_map(lambda p: p[1], pairs))
+
+
+def prox_update_flat(theta, omega, g_theta, g_omega, eta, lam,
+                     backend: str = "auto"):
+    """Bi-level update on flat 1-D vectors (Algorithm 1 l.21-22), written
+    in place into ``theta`` and ``omega``; returns ``(theta, omega)``."""
+    if _plain(backend):
+        return ref.prox_update_ref_(theta, omega, g_theta, g_omega, eta, lam)
+    return _prox_kernel(theta, omega, g_theta, g_omega, eta, lam)

@@ -1,0 +1,37 @@
+"""Helpers over parameter trees: nested dicts of tensors.
+
+Leaves are visited in sorted-key order, the order JAX flattens a dict in,
+so a vector of the leaves concatenated in this order (Ψ, the fused
+step's flat buffers) lines up element for element with the JAX package's.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Sequence
+
+import torch
+
+
+def leaves(tree) -> List[torch.Tensor]:
+    """Leaves of a nested dict in sorted-key order (a bare tensor is its
+    own single leaf)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` leaf-wise over trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *[r[k] for r in rest]) for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_weighted_mean(trees: Sequence, weights):
+    """Weighted mean of a list of trees; ``weights`` are scalars."""
+    w = torch.as_tensor(weights, dtype=torch.float32)
+    w = w / torch.sum(w)
+    out = tree_map(lambda x: x * w[0].to(x.device), trees[0])
+    for i in range(1, len(trees)):
+        out = tree_map(lambda x, y, wi=w[i]: wi.to(x.device) * x + y,
+                       trees[i], out)
+    return out
