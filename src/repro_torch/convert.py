@@ -1,8 +1,11 @@
-"""Parameters and batches between the JAX package and the port.
+"""Parameters, batches and clustering state between the JAX package and
+the port.
 
 The reference's trees are nested dicts of arrays (numpy, or anything
 ``numpy.asarray`` accepts); the port's are nested dicts of tensors in the
-same layouts, so conversion is a leaf-wise copy and changes no value.
+same layouts, so conversion is a leaf-wise copy and changes no value. The
+reference's device clustering state travels as its ``DeviceClusters.arrays()``
+dict of numpy arrays.
 """
 from __future__ import annotations
 
@@ -27,3 +30,14 @@ def to_numpy(tree):
         # numpy has no bfloat16; hand over the widened values
         t = t.to(torch.float32)
     return t.numpy()
+
+
+def device_clusters(arrays, tau: float, device="cpu"):
+    """The port's ``DeviceClusters`` from the reference's
+    ``DeviceClusters.arrays()`` (numpy ``parent`` int32, ``live`` bool,
+    ``rep`` float32), so both packages can start from one clustering
+    state. The values are copied unchanged."""
+    from repro_torch.core.device_clustering import DeviceClusters
+    return DeviceClusters.from_arrays(tau, np.asarray(arrays["parent"]),
+                                      np.asarray(arrays["live"]),
+                                      np.asarray(arrays["rep"]), device=device)

@@ -149,6 +149,54 @@ def make_client_update(loss_fn: Callable, lr: float, lam: float,
     return client_update
 
 
+def chunk_map(fn: Callable, in_axes, chunk: int) -> Callable:
+    """Memory-flat cohort execution: run a cohort-stacked ``fn`` over the
+    cohort in fixed-size chunks, one call per chunk.
+
+    ``in_axes`` mirrors the reference's vmap spec (0 = stacked per-client
+    arg, None = shared arg). Cohorts of ≤ ``chunk`` clients run
+    unchunked; larger ones are padded to a chunk multiple by repeating
+    leading rows (the pad outputs are sliced off), so every call sees the
+    same ``chunk``-row shapes and peak activation memory is O(chunk), not
+    O(cohort). The reference's ``lax.map`` becomes a Python loop; the
+    outputs are concatenated on the client axis. ``chunk <= 0`` returns
+    ``fn`` unchanged."""
+    if not chunk or chunk <= 0:
+        return fn
+    mapped_pos = tuple(i for i, ax in enumerate(in_axes) if ax == 0)
+
+    def wrapper(*args):
+        c = trees.leaves(args[mapped_pos[0]])[0].shape[0]
+        if c <= chunk:
+            return fn(*args)
+        n_chunks = -(-c // chunk)
+        pad = n_chunks * chunk - c
+
+        def padded(x):
+            return torch.cat([x, x[:pad]]) if pad else x
+
+        stacked = {i: trees.tree_map(padded, args[i]) for i in mapped_pos}
+        outs = []
+        for k in range(n_chunks):
+            full = list(args)
+            for i in mapped_pos:
+                full[i] = trees.tree_map(lambda x: x[k * chunk:(k + 1) * chunk],
+                                         stacked[i])
+            outs.append(fn(*full))
+        return _cat_outputs(outs, c)
+
+    return wrapper
+
+
+def _cat_outputs(outs, c: int):
+    """Concatenate per-chunk outputs (tensors, dicts or tuples of them) on
+    the leading axis and keep the first ``c`` rows."""
+    first = outs[0]
+    if isinstance(first, tuple):
+        return tuple(_cat_outputs([o[i] for o in outs], c) for i in range(len(first)))
+    return trees.tree_map(lambda *xs: torch.cat(xs)[:c], *outs)
+
+
 # ----------------------------------------------------------- server side
 def aggregate_segments(stacked, weights, segment_ids, num_segments: int):
     """Per-cluster FedAvg as one batched op: the weighted mean over rows of

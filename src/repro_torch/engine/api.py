@@ -7,6 +7,7 @@
     state = engine.leave(state, cid)
     engine.evaluate(state, test_sets, true_cluster)
     engine.infer(state, unseen_batch)               # §4.4 cluster inference
+    engine.infer_batch(state, [b1, b2, b3])         # many at once
 
 The engine runs on ``cuda`` unless ``init`` is given another device
 (``device="cpu"``); with no GPU and no device given, ``init`` raises.
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.extractor import make_extractor
+from repro_torch.data.arena import ClientArena
 from repro_torch.engine.registry import get_strategy
 from repro_torch.engine.state import (EngineConfig, EngineContext, ServerState,
                                       resolve_device)
@@ -41,7 +43,7 @@ def _on_device(tree, device: torch.device):
 
 def init(strategy: str, loss_fn, init_params, clients,
          cfg: Optional[EngineConfig] = None, eval_fn=None,
-         device=None) -> ServerState:
+         device=None, arena: bool = False) -> ServerState:
     """Build the static context and the strategy's initial ``ServerState``.
 
     Args:
@@ -56,6 +58,11 @@ def init(strategy: str, loss_fn, init_params, clients,
       eval_fn: optional ``(params, batch) -> accuracy`` for ``evaluate``.
       device: where the engine runs; ``None`` means ``cuda`` and raises
         when no GPU is present.
+      arena: pack all client shards into a device-resident ``ClientArena``
+        so each round's cohort is one gather instead of a restack (ragged
+        shard sizes are pad-and-masked; the loss must then honour the
+        batch's ``"mask"`` leaf). ``cfg.cohort_chunk`` bounds how many
+        clients one cohort step runs (``bilevel.chunk_map``).
     """
     cfg = cfg or EngineConfig()
     dev = resolve_device(device)
@@ -63,6 +70,8 @@ def init(strategy: str, loss_fn, init_params, clients,
     ctx = EngineContext(loss_fn=loss_fn, init_params=params,
                         clients=[_on_device(c, dev) for c in clients],
                         cfg=cfg, device=dev, eval_fn=eval_fn)
+    if arena:
+        ctx.arena = ClientArena.from_clients(ctx.clients, device=dev)
     strat = get_strategy(strategy)
     if strat.needs_extractor:
         ctx.extractor = make_extractor(loss_fn, params)
@@ -142,3 +151,12 @@ def infer(state: ServerState, batch) -> dict:
     ``{"cluster", "seed_from", "similarity", "model"}``."""
     batch = _on_device(batch, state.ctx.device)
     return get_strategy(state.strategy).infer(state.ctx, state, batch)
+
+
+def infer_batch(state: ServerState, batches) -> list:
+    """Batched §4.4 cluster inference: Ψ of each unseen-client batch, then
+    one nearest pass for all of them. Returns one ``infer``-shaped dict per
+    batch, in order."""
+    dev = state.ctx.device
+    return get_strategy(state.strategy).infer_many(
+        state.ctx, state, [_on_device(b, dev) for b in batches])

@@ -15,8 +15,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.clustering import ClusterState
-
 
 def resolve_device(device=None) -> torch.device:
     """The engine's device: ``cuda`` unless the caller names another. With
@@ -33,12 +31,17 @@ def resolve_device(device=None) -> torch.device:
 @dataclasses.dataclass
 class EngineConfig:
     """StoCFL's knobs: the JAX package's ``EngineConfig`` fields the port
-    implements so far. Partitions live in the host ``ClusterState``,
-    cohorts are drawn by the numpy bit-generator, and params run in fp32
-    (the reference's ``cluster_backend="numpy"``, ``rng_backend="numpy"``,
-    ``dtype="float32"``, ``project_dim=None``). ``fused_step`` routes the
-    local update through the flat (C, P) path and the ``prox_update``
-    kernel."""
+    implements so far. Cohorts are drawn by the numpy bit-generator and
+    params run in fp32 (the reference's ``rng_backend="numpy"``,
+    ``dtype="float32"``, ``project_dim=None``, no ``async_cfg``); the
+    fields for the other settings do not exist yet, so asking for them
+    raises. ``fused_step`` routes the local update through the flat
+    (C, P) path and the ``prox_update`` kernel. ``cluster_backend`` picks
+    where the partition lives: ``"numpy"``, the host ``ClusterState``, or
+    ``"device"``, the ``DeviceClusters`` union-find (kernels
+    ``merge_candidates`` and ``resolve_roots``). ``cohort_chunk`` bounds
+    how many clients one cohort step runs (``bilevel.chunk_map``; 0 =
+    off)."""
     tau: float = 0.5
     lam: float = 0.05
     lr: float = 0.1
@@ -47,11 +50,14 @@ class EngineConfig:
     seed: int = 0
     aggregator: str = "mean"          # G(·): mean | median | trimmed_mean | krum
     fused_step: bool = False          # flat fused bilevel local update
+    cluster_backend: str = "numpy"    # StoCFL partition: numpy | device
+    cohort_chunk: int = 0             # max clients per cohort step (0 = off)
 
 
 @dataclasses.dataclass
 class EngineContext:
-    """Static (non-checkpointed) world: functions, data, cached updates."""
+    """Static (non-checkpointed) world: functions, data, cached updates,
+    and the optional device-resident ``ClientArena`` of every shard."""
     loss_fn: Callable
     init_params: Any
     clients: List[dict]
@@ -59,6 +65,7 @@ class EngineContext:
     device: torch.device
     eval_fn: Optional[Callable] = None
     extractor: Optional[Callable] = None
+    arena: Optional[Any] = None       # ClientArena: device-resident shards
     cache: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def cached(self, key: str, builder: Callable) -> Callable:
@@ -84,7 +91,7 @@ class ServerState:
     left: frozenset
     omega: Any
     models: Any
-    clusters: Optional[ClusterState] = None
+    clusters: Optional[Any] = None    # ClusterState or DeviceClusters
     history: Tuple[dict, ...] = ()
 
     @property

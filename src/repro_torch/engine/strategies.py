@@ -1,12 +1,14 @@
 """Federated strategies over shared machinery — so far StoCFL.
 
 A ``Strategy`` turns ``(ctx, state, client_ids)`` into ``(state', metrics)``
-without mutating its input. The cohort's data is restacked from the
-context's client list every round (the JAX package's arena-less path);
-cluster models are batched through the stacked ``ClusterBank`` (gather in,
-segment-sum aggregate out). The phases of a StoCFL round are named
-``torch.profiler`` ranges (``stocfl.*``), which only a recording
-profiler reads.
+without mutating its input. When the context carries a ``ClientArena``
+the cohort's data is one device gather (``arena.gather``); without one it
+is restacked from the context's client list every round. Cluster models
+are batched through the stacked ``ClusterBank`` (gather in, segment-sum
+aggregate out). Cohorts larger than ``cfg.cohort_chunk`` run in chunks
+(``bilevel.chunk_map``). The phases of a StoCFL round are named
+``torch.profiler`` ranges (``stocfl.*``), which only a recording profiler
+reads.
 """
 from __future__ import annotations
 
@@ -14,8 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import bilevel
+from repro_torch.core import device_clustering as devclust
 from repro_torch.core.aggregators import AGGREGATORS
-from repro_torch.core.clustering import ClusterState
 from repro_torch.engine.bank import ClusterBank, _pow2 as bank_pow2
 from repro_torch.engine.registry import register
 from repro_torch.engine.state import EngineContext, ServerState, fresh_rng_state
@@ -30,9 +32,37 @@ def client_sizes(clients) -> tuple:
 
 
 def _stack(ctx: EngineContext, ids) -> dict:
-    """Cohort data: the clients' batches stacked on a new leading axis."""
+    """Arena-less cohort data: the clients' batches stacked on a new
+    leading axis."""
     return trees.tree_map(lambda *xs: torch.stack(xs),
                           *[ctx.clients[int(c)] for c in ids])
+
+
+def _batches(ctx: EngineContext, ids):
+    """Cohort data: one arena gather, or the per-round restack."""
+    if ctx.arena is not None:
+        return ctx.arena.gather(ids)
+    return _stack(ctx, ids)
+
+
+def _append_to_arena(ctx: EngineContext, batch) -> None:
+    if ctx.arena is not None:
+        ctx.arena = ctx.arena.append(batch)
+
+
+def _retire_from_arena(ctx: EngineContext, cid: int) -> None:
+    """Tombstone a departed client's arena row (compacted in bulk once
+    enough rows die, see ``ClientArena.tombstone``)."""
+    if ctx.arena is not None:
+        ctx.arena = ctx.arena.tombstone(int(cid))
+
+
+def _psi(ctx: EngineContext, cid: int):
+    """Ψ of one client, from its arena row (padded and masked, the same
+    source the reference reads with an arena) or from the client list."""
+    if ctx.arena is not None:
+        return ctx.extractor(trees.tree_map(lambda x: x[0], ctx.arena.gather([cid])))
+    return ctx.extractor(ctx.clients[cid])
 
 
 def _weights(state: ServerState, ids) -> torch.Tensor:
@@ -84,18 +114,27 @@ class Strategy:
         return {"cluster_avg": float(np.mean(list(accs.values()))), "per": accs}
 
     def join(self, ctx, state, batch):
-        """Register a new client (§5); returns ``(state', cid)``."""
+        """Register a new client (§5): append its data to the world (client
+        list and arena) and its size to the state; returns
+        ``(state', cid)``."""
         cid = len(ctx.clients)
         ctx.clients.append(batch)
+        _append_to_arena(ctx, batch)
         sizes = state.sizes + (int(trees.leaves(batch)[0].shape[0]),)
         return state.replace(sizes=sizes), cid
 
     def leave(self, ctx, state, cid):
-        """Departure (§5): stop sampling ``cid``."""
+        """Departure (§5): stop sampling ``cid`` and tombstone its arena
+        row."""
+        _retire_from_arena(ctx, cid)
         return state.replace(left=state.left | {int(cid)})
 
     def infer(self, ctx, state, batch) -> dict:
         raise NotImplementedError(f"strategy {self.name!r} has no cluster inference")
+
+    def infer_many(self, ctx, state, batches) -> list:
+        """Batched ``infer``: one result dict per batch, in order."""
+        return [self.infer(ctx, state, b) for b in batches]
 
 
 # --------------------------------------------------------------------- stocfl
@@ -106,7 +145,13 @@ class StoCFLStrategy(Strategy):
     needs_extractor = True
 
     def init_state(self, ctx):
-        clusters = ClusterState(ctx.cfg.tau, ctx.device)
+        """Adds the Ψ-clustering bookkeeping: the host ``ClusterState`` or,
+        with ``cfg.cluster_backend="device"``, the ``DeviceClusters``
+        union-find (same partition semantics, see
+        ``core.device_clustering``)."""
+        clusters = devclust.make_cluster_state(ctx.cfg.tau, ctx.cfg.cluster_backend,
+                                               capacity=len(ctx.clients),
+                                               device=ctx.device)
         return super().init_state(ctx).replace(clusters=clusters)
 
     def _cohort(self, ctx):
@@ -114,9 +159,11 @@ class StoCFLStrategy(Strategy):
         fused = bool(cfg.fused_step)
         # the fused path reaches the prox_update kernel on CUDA; the tree
         # path pins the plain version, as the JAX package pins "jnp"
-        return ctx.cached(f"stocfl_cohort:{fused}", lambda: bilevel.make_cohort_update(
-            ctx.loss_fn, cfg.lr, cfg.lam, cfg.local_steps,
-            backend="auto" if fused else "torch", fused=fused))
+        return ctx.cached(f"stocfl_cohort:{fused}", lambda: bilevel.chunk_map(
+            bilevel.make_cohort_update(ctx.loss_fn, cfg.lr, cfg.lam, cfg.local_steps,
+                                       backend="auto" if fused else "torch",
+                                       fused=fused),
+            (0, None, 0), cfg.cohort_chunk))
 
     def round(self, ctx, state, client_ids):
         """One server round. The metrics add ``merges``, the (kept,
@@ -130,8 +177,7 @@ class StoCFLStrategy(Strategy):
         new_ids = [int(c) for c in client_ids if c not in clusters.seen]
         with _span("stocfl.psi_extract"):
             if new_ids:
-                clusters.observe(new_ids, [ctx.extractor(ctx.clients[c])
-                                           for c in new_ids])
+                clusters.observe(new_ids, [_psi(ctx, c) for c in new_ids])
         counts = {r: len(m) for r, m in clusters.clusters().items()}
         with _span("stocfl.merge_pass"):
             merges = clusters.merge_round()
@@ -144,7 +190,7 @@ class StoCFLStrategy(Strategy):
                             np.int64, len(client_ids))
         with _span("stocfl.gather"):
             thetas = models.take(roots, ctx.init_params)
-            batches = _stack(ctx, client_ids)
+            batches = _batches(ctx, client_ids)
         with _span("stocfl.cohort_update"):
             thetas_i, omegas_i = self._cohort(ctx)(thetas, state.omega, batches)
 
@@ -157,7 +203,11 @@ class StoCFLStrategy(Strategy):
             models = models.put([int(r) for r in uroots], agg)
 
         with _span("stocfl.objective"):
-            objective = clusters.objective()
+            if isinstance(clusters, devclust.DeviceClusters):
+                # the closed form, the reference's device-backend metric
+                objective = devclust.objective_closed(clusters.state)
+            else:
+                objective = clusters.objective()
         rec = {"n_clusters": clusters.n_clusters(),
                "objective": objective,
                "sampled": len(client_ids),
@@ -215,3 +265,30 @@ class StoCFLStrategy(Strategy):
         src = root if root is not None else near
         model = state.cluster_model(src) if src is not None else state.omega
         return {"cluster": root, "seed_from": src, "similarity": sim, "model": model}
+
+    def infer_many(self, ctx, state, batches):
+        """§4.4 for many unseen batches in one pass: Ψ of each batch by the
+        engine's one extractor (the reference vmaps it; here one autograd
+        call each, the round's own Ψ), then one cluster-means snapshot and
+        every (rep, cluster) pair scored as one (J, K̃) cosine matrix.
+        Routing decisions match per-batch ``infer``."""
+        if not batches:
+            return []
+        reps = torch.stack([ctx.extractor(b) for b in batches])
+        if state.clusters is None or state.clusters.n_clusters() == 0:
+            return [{"cluster": None, "seed_from": None, "similarity": 0.0,
+                     "model": state.omega} for _ in batches]
+        roots, means = state.clusters.cluster_means()
+        mn = means / (torch.linalg.vector_norm(means, dim=1, keepdim=True) + 1e-12)
+        rn = reps / (torch.linalg.vector_norm(reps, dim=1, keepdim=True) + 1e-12)
+        sims = (rn @ mn.T).cpu().numpy()                   # (J, K̃)
+        tau = state.clusters.tau
+        out = []
+        for j in range(len(batches)):
+            best = int(np.argmax(sims[j]))
+            sim = float(sims[j][best])
+            root = int(roots[best])
+            out.append({"cluster": root if sim >= tau else None,
+                        "seed_from": root, "similarity": sim,
+                        "model": state.cluster_model(root)})
+        return out

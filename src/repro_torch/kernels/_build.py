@@ -35,6 +35,10 @@ _SIGNATURES = {
                          ctypes.c_float, _P],
     "cosine_sim_f32": [_P, ctypes.c_longlong, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_int, _P, _P, _P, _P],
+    "merge_candidates_f32": [_P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                             ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                             _P, _P, _P, _P],
+    "resolve_roots_i32": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -11,7 +11,9 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.cosine_sim import cosine_sim as _cosine_kernel
+from repro_torch.kernels.cosine_sim import merge_candidates as _candidates_kernel
 from repro_torch.kernels.prox_update import prox_update_flat as _prox_kernel
+from repro_torch.kernels.resolve_roots import resolve_roots as _resolve_kernel
 from repro_torch.utils import trees
 
 BACKENDS = ("auto", "torch")
@@ -28,6 +30,25 @@ def pairwise_cosine(x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     if _plain(backend):
         return ref.cosine_sim_ref(x)
     return _cosine_kernel(x)
+
+
+def merge_pairs(means: torch.Tensor, live: torch.Tensor, tau: float,
+                backend: str = "auto") -> torch.Tensor:
+    """(K, D) cluster means + (K,) live mask -> (K, K) fp32 0/1 adjacency
+    of mergeable pairs (cos ≥ τ, both live, diagonal off): Algorithm 1
+    line 10 as one fused device op (K3, ``cosine_sim.merge_candidates``)."""
+    if _plain(backend):
+        return ref.merge_candidates_ref(means, live, tau)
+    return _candidates_kernel(means, live, tau)
+
+
+def resolve_roots(parent: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """(N,) union-find parent array (``parent[i] == i`` at roots) -> (N,)
+    fully resolved roots by ``max(N.bit_length(), 1)`` pointer-halving
+    steps (K4): the device replacement for the host ``UnionFind.find``."""
+    if _plain(backend):
+        return ref.resolve_roots_ref(parent)
+    return _resolve_kernel(parent)
 
 
 def prox_update_tree(theta, omega, g_theta, g_omega, eta, lam,

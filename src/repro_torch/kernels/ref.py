@@ -17,6 +17,26 @@ def cosine_sim_ref(x: torch.Tensor) -> torch.Tensor:
     return xn @ xn.T
 
 
+def merge_candidates_ref(x: torch.Tensor, live: torch.Tensor, tau: float) -> torch.Tensor:
+    """(K, D) means + (K,) live -> (K, K) fp32 0/1 merge-pair adjacency
+    (cos ≥ τ, both rows live, diagonal off)."""
+    m = cosine_sim_ref(x)
+    lv = live.to(torch.bool)
+    ids = torch.arange(x.shape[0], device=x.device)
+    ok = (m >= tau) & lv[:, None] & lv[None, :] & (ids[:, None] != ids[None, :])
+    return ok.to(torch.float32)
+
+
+def resolve_roots_ref(parent: torch.Tensor) -> torch.Tensor:
+    """(N,) union-find parent pointers -> (N,) roots by iterated pointer
+    halving ``p <- p[p]``, ``max(N.bit_length(), 1)`` steps (each halves
+    every path). Returns a new tensor of ``parent``'s dtype."""
+    p = parent
+    for _ in range(max(int(parent.shape[0]).bit_length(), 1)):
+        p = p[p.long()]
+    return p
+
+
 def prox_update_ref(theta, omega, g_theta, g_omega, eta: float, lam: float):
     """θ' = θ − η(g_θ + λ(θ − ω)), ω' = ω − η g_ω, in fp32, cast back to
     each operand's dtype. Returns new tensors."""

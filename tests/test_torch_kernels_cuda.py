@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card, and
+the device clustering backend's purity there.
 
 Marked ``cuda``: they skip without a GPU and run there with
 
@@ -7,13 +8,21 @@ Marked ``cuda``: they skip without a GPU and run there with
 This file imports only torch and the port (the GPU machine has no JAX).
 Tolerances: prox_update fp32 within 1e-6 abs (the kernel rounds the same
 operations in the same order), bf16 within 1 ulp; cosine_sim within 1e-5
-(split-K sums in another order than the plain matmul).
+(split-K sums in another order than the plain matmul). merge_candidates and
+resolve_roots must be exactly equal. The candidate inputs spread their
+cosines over (-1, 1) and each τ sits between two neighbouring float64
+cosines, at least 1e-5 from every pair (checked before the comparison):
+the ~1e-6 difference between the kernel's and the plain version's cosines
+cannot flip a pair, while an error in the kernel's arithmetic larger than
+the gap to τ does.
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import cosine_sim, prox_update, ref  # noqa: E402
+from repro_torch.kernels import (cosine_sim, prox_update, ref,  # noqa: E402
+                                 resolve_roots)
 
 pytestmark = pytest.mark.cuda
 
@@ -66,3 +75,128 @@ def test_cosine_kernel_matches_plain(dev, n, d, zero_from):
 def test_cosine_kernel_rejects_bf16(dev):
     with pytest.raises(TypeError):
         cosine_sim.cosine_sim(torch.zeros(4, 4, dtype=torch.bfloat16, device=dev))
+
+
+def _spread_means(n, d, n_dead, seed):
+    """n rows mixing three shared directions with per-row weights, plus a
+    little noise: their cosines spread evenly over (-1, 1). The last
+    ``n_dead`` rows are dead and every fifth dead row is zero."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 3)) @ rng.normal(size=(3, d)) + 0.05 * rng.normal(size=(n, d))
+    live = np.ones(n, bool)
+    live[n - n_dead:] = False
+    x[n - n_dead::5] = 0.0
+    return x.astype(np.float32), live
+
+
+def _cos64(x):
+    x64 = x.astype(np.float64)
+    nrm = np.linalg.norm(x64, axis=1, keepdims=True)
+    xn = np.where(nrm > 0, x64 / np.where(nrm > 0, nrm, 1), 0.0)
+    return xn @ xn.T
+
+
+def _taus_between(cos, live, count, gap=2e-5):
+    """``count`` thresholds spread over the live pairs' float64 cosines,
+    each the midpoint of two neighbouring cosines at least ``gap`` apart,
+    so every pair lies at least gap/2 = 1e-5 from it."""
+    i, j = np.triu_indices(len(cos), 1)
+    c = np.unique(cos[i, j][live[i] & live[j]])
+    ok = np.flatnonzero(np.diff(c) >= gap)
+    picks = ok[np.linspace(0, len(ok) - 1, count).round().astype(int)]
+    return sorted({float((c[k] + c[k + 1]) / 2) for k in picks})
+
+
+@pytest.mark.parametrize("n,d,n_dead", [(5, 7, 1), (64, 20000, 20),
+                                        (130, 1000, 3), (512, 4096, 0)])
+def test_merge_candidates_kernel_matches_plain(dev, n, d, n_dead):
+    """At thresholds placed between neighbouring cosines (so a cosine off
+    by more than its gap to τ flips a pair), and at τ = -1.5 (every live
+    off-diagonal pair), the kernel equals the plain version and the float64
+    decision."""
+    x_np, live_np = _spread_means(n, d, n_dead, seed=n + d)
+    cos = _cos64(x_np)
+    x, live = torch.from_numpy(x_np).to(dev), torch.from_numpy(live_np).to(dev)
+    both = live_np[:, None] & live_np[None, :] & ~np.eye(n, dtype=bool)
+    for tau in _taus_between(cos, live_np, 16) + [-1.5]:
+        assert np.abs(cos[both] - tau).min() >= 1e-5
+        before = cosine_sim.candidate_launches
+        got = cosine_sim.merge_candidates(x, live, tau)
+        want = ref.merge_candidates_ref(x, live, tau)
+        torch.cuda.synchronize()
+        assert cosine_sim.candidate_launches == before + 1
+        assert got.dtype == torch.float32 and got.shape == (n, n)
+        assert torch.equal(got, want), tau
+        assert np.array_equal(got.cpu().numpy() > 0, both & (cos >= tau)), tau
+        assert not bool(got.diagonal().any())
+
+
+def _forests(n, rng):
+    """A random forest (parents point at smaller ids), a chain through a
+    random permutation of the ids (the deepest tree), and an array that is
+    already fully compressed."""
+    forest = np.arange(n, dtype=np.int32)
+    for i in rng.permutation(n)[: n // 2]:
+        forest[i] = rng.integers(0, i + 1)
+    order = rng.permutation(n).astype(np.int32)
+    chain = np.empty(n, np.int32)
+    chain[order] = np.concatenate([order[:1], order[:-1]])
+    roots = rng.choice(n, size=max(n // 7, 1), replace=False).astype(np.int32)
+    compressed = roots[rng.integers(0, len(roots), n)]
+    compressed[roots] = roots
+    return {"forest": forest, "chain": chain, "compressed": compressed}
+
+
+@pytest.mark.parametrize("n", [1, 37, 512, 4096, 32768, 32769, 65536])
+def test_resolve_roots_kernel_matches_plain(dev, n):
+    rng = np.random.default_rng(n)
+    for kind, parent_np in _forests(n, rng).items():
+        parent = torch.from_numpy(parent_np).to(dev)
+        before = resolve_roots.launches
+        got = resolve_roots.resolve_roots(parent)
+        want = ref.resolve_roots_ref(parent)
+        torch.cuda.synchronize()
+        assert resolve_roots.launches == before + 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got, want), kind
+        assert torch.equal(parent.cpu(), torch.from_numpy(parent_np)), "input written"
+        assert torch.equal(got[got.long()], got), kind     # every entry is a root
+
+
+def test_resolve_roots_kernel_rejects_int64(dev):
+    with pytest.raises(TypeError):
+        resolve_roots.resolve_roots(torch.zeros(4, dtype=torch.int64, device=dev))
+
+
+def test_forked_state_unchanged_by_next_round_on_card(dev):
+    """On the card, as on the CPU: a state forked before a round keeps its
+    parent, live, Ψ bank and arena rows through the next round, a join and
+    a leave (no transition writes a tensor a state holds)."""
+    import dataclasses
+
+    from repro_torch import engine
+    from repro_torch.data.synthetic import rotated
+    from repro_torch.models import simple
+
+    clients, _, _ = rotated(n_clusters=4, n_clients=16, n_per=32, seed=3)
+    task = dataclasses.replace(simple.SYNTH_MLP, hidden=32)
+    params = simple.init(torch.Generator().manual_seed(0), task)
+    loss = lambda p, b: simple.loss_fn(p, b, task)
+    cfg = engine.EngineConfig(local_steps=1, sample_rate=0.5, seed=0, fused_step=True,
+                              cluster_backend="device")
+    st = engine.init("stocfl", loss, params, clients, cfg, device=dev, arena=True)
+    st, _ = engine.run_round(st)
+    fork = st
+    before = {k: v.copy() for k, v in fork.clusters.arrays().items()}
+    rows = {k: v.clone() for k, v in fork.ctx.arena.gather(range(16)).items()}
+    nxt, _ = engine.run_round(fork)
+    nxt, _ = engine.join(nxt, clients[3])
+    nxt = engine.leave(nxt, 0)
+    nxt, _ = engine.run_round(nxt)
+    torch.cuda.synchronize()
+    for k, v in fork.clusters.arrays().items():
+        assert np.array_equal(before[k], v), k
+    again = fork.ctx.arena.gather(range(16))
+    for k in rows:
+        assert torch.equal(rows[k], again[k]), k
+    assert nxt.clusters.seen != fork.clusters.seen
