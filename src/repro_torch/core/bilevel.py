@@ -83,11 +83,16 @@ def make_cohort_update(loss_fn: Callable, lr: float, lam: float,
     full-batch SGD steps of the bi-level objective. ``fused=True`` runs
     the flat (C, P) path with one ``ops.prox_update_flat`` call a step
     (the kernel on CUDA under ``backend="auto"``); ``fused=False`` applies
-    ``ops.prox_update_tree`` leaf by leaf."""
+    ``ops.prox_update_tree`` leaf by leaf.
+
+    The fused path also takes ``thetas`` already flat, as one (C, P)
+    buffer in ``flat_spec(omega)``'s leaf order (``flatten_tree``): it then
+    owns that buffer, writes it in place and returns views of it, so the
+    cohort's θ is held once. A stacked tree is copied and left untouched."""
 
     def fused_update(thetas, omega, batches):
         spec = flat_spec(omega)
-        th = flatten_tree(thetas, batch_dims=1)              # (C, P), new buffer
+        th = thetas if torch.is_tensor(thetas) else flatten_tree(thetas, batch_dims=1)
         om = flatten_tree(omega).expand(th.shape[0], -1).contiguous()
         for _ in range(local_steps):
             th_v = th.detach().requires_grad_(True)
@@ -112,25 +117,13 @@ def make_cohort_update(loss_fn: Callable, lr: float, lam: float,
                 loss = _cohort_loss(loss_fn, th_v, om_v, batches)
                 th_leaves, om_leaves = trees.leaves(th_v), trees.leaves(om_v)
                 grads = torch.autograd.grad(loss, th_leaves + om_leaves)
-            g_t = _like(th_v, grads[:len(th_leaves)])
-            g_o = _like(om_v, grads[len(th_leaves):])
+            g_t = trees.from_leaves(th_v, grads[:len(th_leaves)])
+            g_o = trees.from_leaves(om_v, grads[len(th_leaves):])
             th, om = ops.prox_update_tree(th, om, g_t, g_o, lr, lam,
                                           backend=backend)
         return th, om
 
     return fused_update if fused else tree_update
-
-
-def _like(tree, flat_leaves):
-    """Rebuild ``tree``'s structure from leaves in sorted-key order."""
-    it = iter(flat_leaves)
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        return next(it)
-
-    return walk(tree)
 
 
 def make_client_update(loss_fn: Callable, lr: float, lam: float,

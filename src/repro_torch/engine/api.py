@@ -43,7 +43,7 @@ def _on_device(tree, device: torch.device):
 
 def init(strategy: str, loss_fn, init_params, clients,
          cfg: Optional[EngineConfig] = None, eval_fn=None,
-         device=None, arena: bool = False) -> ServerState:
+         device=None, arena: bool = False, leaf_filter=None) -> ServerState:
     """Build the static context and the strategy's initial ``ServerState``.
 
     Args:
@@ -63,18 +63,23 @@ def init(strategy: str, loss_fn, init_params, clients,
         shard sizes are pad-and-masked; the loss must then honour the
         batch's ``"mask"`` leaf). ``cfg.cohort_chunk`` bounds how many
         clients one cohort step runs (``bilevel.chunk_map``).
+      leaf_filter: optional Ψ restriction to a parameter subset, called
+        with each leaf's ``/``-joined path (LLM anchors:
+        ``extractor.llm_leaf_filter``).
     """
     cfg = cfg or EngineConfig()
     dev = resolve_device(device)
     params = _on_device(init_params, dev)
     ctx = EngineContext(loss_fn=loss_fn, init_params=params,
                         clients=[_on_device(c, dev) for c in clients],
-                        cfg=cfg, device=dev, eval_fn=eval_fn)
+                        cfg=cfg, device=dev, eval_fn=eval_fn,
+                        leaf_filter=leaf_filter)
     if arena:
         ctx.arena = ClientArena.from_clients(ctx.clients, device=dev)
     strat = get_strategy(strategy)
     if strat.needs_extractor:
-        ctx.extractor = make_extractor(loss_fn, params)
+        ctx.extractor = make_extractor(loss_fn, params, cfg.project_dim,
+                                       leaf_filter=leaf_filter)
     return strat.init_state(ctx)
 
 

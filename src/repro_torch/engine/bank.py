@@ -10,8 +10,11 @@ root tuple, so the per-round model path is batched tensor ops:
 and cluster merges (Algorithm 1 l.10-13) are a single count-weighted
 segment sum over rows (``bank.merge``). Rows carry power-of-two capacity
 (occupied rows first, zero rows after), and ``put`` takes a power-of-two
-update count through a scratch row, as in the JAX package. Every update
-returns a NEW bank; the tensors of the old one are never written.
+update count, as in the JAX package, writing only the rows that belong to
+roots (the JAX package sends the rest to a scratch row; here the new bank
+is built at its final capacity in one copy, which matters at LLM width).
+Every update returns a NEW bank; the tensors of the old one are never
+written.
 """
 from __future__ import annotations
 
@@ -27,13 +30,6 @@ from repro_torch.utils import trees
 def _pow2(n: int) -> int:
     """Smallest power of two >= n (capacity / scatter-width quantum)."""
     return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
-
-
-def _pad_rows(tree, n_new: int):
-    """Append ``n_new`` zero rows to every leaf's leading axis."""
-    return trees.tree_map(
-        lambda x: torch.cat([x, x.new_zeros((n_new,) + tuple(x.shape[1:]))]),
-        tree)
 
 
 class ClusterBank(Mapping):
@@ -106,7 +102,7 @@ class ClusterBank(Mapping):
         """Scatter stacked ``updates`` (leading axis ↔ ``roots``) into a
         new bank; unknown roots grow new rows (capacity doubles when
         full). ``updates`` may carry more rows than ``len(roots)``: the
-        rest are discarded through a scratch row."""
+        rest are discarded."""
         roots = [int(r) for r in np.atleast_1d(np.asarray(roots))]
         n = len(roots)
         assert len(set(roots)) == len(roots), "put() roots must be unique"
@@ -115,22 +111,16 @@ class ClusterBank(Mapping):
         novel = [r for r in roots if r not in self._index]
         all_roots = self.roots + tuple(novel)
         index = {r: i for i, r in enumerate(all_roots)}
-        if self.stacked is None:
-            cap = _pow2(len(all_roots))
-            base = trees.tree_map(
-                lambda u: u.new_zeros((cap,) + tuple(u.shape[1:])), updates)
-        else:
-            base, cap = self.stacked, self.capacity
-            if len(all_roots) > cap:
-                cap = _pow2(len(all_roots))
-                base = _pad_rows(base, cap - self.capacity)
-        idx_np = np.full(n_rows, cap, np.int64)   # pad rows -> scratch row
-        idx_np[:n] = [index[r] for r in roots]
-        idx = torch.as_tensor(idx_np, device=trees.leaves(base)[0].device)
+        cap = max(self.capacity, _pow2(len(all_roots)))
+        base = (self.stacked if self.stacked is not None
+                else trees.tree_map(lambda u: u[:0], updates))
+        idx = torch.as_tensor([index[r] for r in roots],
+                              device=trees.leaves(updates)[0].device)
 
         def leaf(b, u):
-            ext = torch.cat([b, b.new_zeros((1,) + tuple(b.shape[1:]))])
-            return ext.index_copy_(0, idx, u.to(b.dtype))[:cap]
+            # the old rows and the zero rows of the new capacity, in one copy
+            ext = torch.cat([b, b.new_zeros((cap - b.shape[0],) + tuple(b.shape[1:]))])
+            return ext.index_copy_(0, idx, u[:n].to(b.dtype))
 
         return ClusterBank(trees.tree_map(leaf, base, updates), all_roots)
 

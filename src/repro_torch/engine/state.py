@@ -33,10 +33,12 @@ class EngineConfig:
     """StoCFL's knobs: the JAX package's ``EngineConfig`` fields the port
     implements so far. Cohorts are drawn by the numpy bit-generator and
     params run in fp32 (the reference's ``rng_backend="numpy"``,
-    ``dtype="float32"``, ``project_dim=None``, no ``async_cfg``); the
-    fields for the other settings do not exist yet, so asking for them
-    raises. ``fused_step`` routes the local update through the flat
-    (C, P) path and the ``prox_update`` kernel. ``cluster_backend`` picks
+    ``dtype="float32"``, no ``async_cfg``); the fields for the other
+    settings do not exist yet, so asking for them raises.
+    ``project_dim`` sketches Ψ to that many dimensions
+    (``extractor.JLSketch``; None keeps the full gradient).
+    ``fused_step`` routes the local update through the flat (C, P) path
+    and the ``prox_update`` kernel. ``cluster_backend`` picks
     where the partition lives: ``"numpy"``, the host ``ClusterState``, or
     ``"device"``, the ``DeviceClusters`` union-find (kernels
     ``merge_candidates`` and ``resolve_roots``). ``cohort_chunk`` bounds
@@ -52,18 +54,21 @@ class EngineConfig:
     fused_step: bool = False          # flat fused bilevel local update
     cluster_backend: str = "numpy"    # StoCFL partition: numpy | device
     cohort_chunk: int = 0             # max clients per cohort step (0 = off)
+    project_dim: Optional[int] = None  # Ψ's JL sketch width (None = off)
 
 
 @dataclasses.dataclass
 class EngineContext:
     """Static (non-checkpointed) world: functions, data, cached updates,
-    and the optional device-resident ``ClientArena`` of every shard."""
+    the optional Ψ leaf filter and the optional device-resident
+    ``ClientArena`` of every shard."""
     loss_fn: Callable
     init_params: Any
     clients: List[dict]
     cfg: EngineConfig
     device: torch.device
     eval_fn: Optional[Callable] = None
+    leaf_filter: Optional[Callable] = None
     extractor: Optional[Callable] = None
     arena: Optional[Any] = None       # ClientArena: device-resident shards
     cache: Dict[str, Any] = dataclasses.field(default_factory=dict)

@@ -190,6 +190,10 @@ class StoCFLStrategy(Strategy):
                             np.int64, len(client_ids))
         with _span("stocfl.gather"):
             thetas = models.take(roots, ctx.init_params)
+            if cfg.fused_step:
+                # one (C, P) buffer, which the fused update takes over; the
+                # gathered tree is freed here
+                thetas = bilevel.flatten_tree(thetas, batch_dims=1)
             batches = _batches(ctx, client_ids)
         with _span("stocfl.cohort_update"):
             thetas_i, omegas_i = self._cohort(ctx)(thetas, state.omega, batches)

@@ -39,6 +39,8 @@ _SIGNATURES = {
                              ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                              _P, _P, _P, _P],
     "resolve_roots_i32": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+    "ssm_scan_fwd_f32": [_P, _P, _P, _P, _P] + [ctypes.c_int] * 5 + [_P],
+    "ssm_scan_bwd_f32": [_P] * 9 + [ctypes.c_int] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

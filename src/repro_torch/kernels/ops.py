@@ -14,6 +14,7 @@ from repro_torch.kernels.cosine_sim import cosine_sim as _cosine_kernel
 from repro_torch.kernels.cosine_sim import merge_candidates as _candidates_kernel
 from repro_torch.kernels.prox_update import prox_update_flat as _prox_kernel
 from repro_torch.kernels.resolve_roots import resolve_roots as _resolve_kernel
+from repro_torch.kernels.ssm_scan import ssm_scan as _scan_kernel
 from repro_torch.utils import trees
 
 BACKENDS = ("auto", "torch")
@@ -78,3 +79,13 @@ def prox_update_flat(theta, omega, g_theta, g_omega, eta, lam,
     if _plain(backend):
         return ref.prox_update_ref_(theta, omega, g_theta, g_omega, eta, lam)
     return _prox_kernel(theta, omega, g_theta, g_omega, eta, lam)
+
+
+def ssm_scan(dA, dBx, C, backend: str = "auto") -> torch.Tensor:
+    """Selective scan y[t] = Σₙ h[t]·C[t], h[t] = dA[t]⊙h[t−1] + dBx[t]
+    (K5). ``"auto"`` is the ``SSMScan`` autograd op: on CUDA its forward
+    and backward are kernels, on the CPU their plain versions;
+    ``"torch"`` is the plain sequential scan, differentiated by autograd."""
+    if _plain(backend):
+        return ref.ssm_scan_ref(dA, dBx, C)
+    return _scan_kernel(dA, dBx, C)

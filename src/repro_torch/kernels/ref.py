@@ -54,3 +54,61 @@ def prox_update_ref_(theta, omega, g_theta, g_omega, eta: float, lam: float):
     theta.copy_(th)
     omega.copy_(om)
     return theta, omega
+
+
+def ssm_scan_states_ref(dA, dBx, C, chunk: int):
+    """Sequential selective scan, h[t] = dA[t]⊙h[t−1] + dBx[t] from h = 0,
+    y[t] = Σₙ h[t, d, n]·C[t, n]. dA, dBx: (B, S, D, N); C: (B, S, N).
+    Returns ``(y, hs)``: y (B, S, D) fp32 and hs (B, ⌈S/chunk⌉, D, N), the
+    state entering each ``chunk`` of steps (h[k·chunk − 1]; zeros for
+    k = 0), which is what the backward restarts from."""
+    dA = dA.to(torch.float32)
+    dBx = dBx.to(torch.float32)
+    C = C.to(torch.float32)
+    B, S, D, N = dA.shape
+    h = dA.new_zeros((B, D, N))
+    ys, hs = [], []
+    for t in range(S):
+        if t % chunk == 0:
+            hs.append(h)
+        h = dA[:, t] * h + dBx[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+    y = torch.stack(ys, 1) if ys else dA.new_zeros((B, 0, D))
+    hs = torch.stack(hs, 1) if hs else dA.new_zeros((B, 0, D, N))
+    return y, hs
+
+
+def ssm_scan_ref(dA, dBx, C):
+    """The selective scan's output y (B, S, D) fp32 (the JAX package's
+    ``ssm_scan_ref``); differentiable by autograd."""
+    return ssm_scan_states_ref(dA, dBx, C, max(int(dA.shape[1]), 1))[0]
+
+
+def ssm_scan_bwd_ref(dA, dBx, C, hs, g_y, chunk: int):
+    """Gradient of the selective scan, the backward kernel's arithmetic.
+
+    For each chunk of steps, last first: recompute the chunk's states from
+    its entering state ``hs[:, k]``, then run the reverse recurrence
+    g_h[t] = g_y[t]·C[t] + dA[t+1]⊙g_h[t+1] and write g_dA[t] =
+    g_h[t]⊙h[t−1], g_dBx[t] = g_h[t], g_C[t, n] = Σ_d h[t, d, n]·g_y[t, d].
+    Returns ``(g_dA, g_dBx, g_C)`` in fp32."""
+    dA = dA.to(torch.float32)
+    dBx = dBx.to(torch.float32)
+    C = C.to(torch.float32)
+    g_y = g_y.to(torch.float32)
+    B, S, D, N = dA.shape
+    g_dA, g_dBx = torch.empty_like(dA), torch.empty_like(dA)
+    g_C = C.new_empty((B, S, N))
+    carry = dA.new_zeros((B, D, N))              # dA[t+1]⊙g_h[t+1]
+    for k in reversed(range(-(-S // chunk))):
+        t0, t1 = k * chunk, min((k + 1) * chunk, S)
+        hist = [hs[:, k]]
+        for t in range(t0, t1):
+            hist.append(dA[:, t] * hist[-1] + dBx[:, t])
+        for t in reversed(range(t0, t1)):
+            gh = g_y[:, t, :, None] * C[:, t, None, :] + carry
+            g_dA[:, t] = gh * hist[t - t0]
+            g_dBx[:, t] = gh
+            g_C[:, t] = torch.einsum("bdn,bd->bn", hist[t - t0 + 1], g_y[:, t])
+            carry = dA[:, t] * gh
+    return g_dA, g_dBx, g_C

@@ -1,0 +1,153 @@
+"""Selective scan (kernel K5), forward and backward, as one autograd op.
+
+The CUDA kernels are in ``csrc/ssm_scan.cu``; they replace the JAX
+package's ``kernels/ssm_scan.py`` ``_scan_kernel``, which has no gradient.
+Here both directions are kernels: ``scan_fwd`` computes y and the state
+entering every ``CHUNK`` steps, ``scan_bwd`` recomputes each chunk's states
+from those and runs the reverse recurrence. ``SSMScan`` binds them as a
+``torch.autograd.Function`` whose ``vmap`` rule folds a vmapped axis into
+B, so the engine's ``torch.func.vmap`` over a cohort reaches one launch.
+
+On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
+it runs the plain version in ``ref`` (``ssm_scan_states_ref``,
+``ssm_scan_bwd_ref``), with the same contract.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+fwd_launches = 0      # forward kernel launches so far (reset by callers that count)
+bwd_launches = 0      # backward kernel launches so far
+
+CHUNK = 16            # steps per saved state; fixed by the CUDA source
+N_STATE = 16          # state width N the CUDA kernels take
+THREADS = 256         # threads per block; 256 // N_STATE channels a block
+
+
+def _check(dA, dBx, C):
+    if dA.dim() != 4 or dBx.shape != dA.shape:
+        raise ValueError("ssm_scan takes dA and dBx of one (B, S, D, N) shape, got "
+                         f"{tuple(dA.shape)} and {tuple(dBx.shape)}")
+    B, S, _D, N = dA.shape
+    if tuple(C.shape) != (B, S, N):
+        raise ValueError(f"C must be (B, S, N) = {(B, S, N)}, got {tuple(C.shape)}")
+    if len({dA.device, dBx.device, C.device}) != 1:
+        raise ValueError("operands lie on different devices")
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for any other."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return True
+
+
+def _f32(x: torch.Tensor, name: str) -> torch.Tensor:
+    if x.dtype != torch.float32:
+        raise TypeError(f"the ssm_scan kernels take float32, got {name} in {x.dtype}")
+    return x.contiguous()
+
+
+def _shape_ok(B: int, N: int) -> None:
+    if N != N_STATE:
+        raise ValueError(f"the ssm_scan kernels take N = {N_STATE}, got {N}")
+    if B > 65535:
+        raise ValueError(f"the ssm_scan kernels take B <= 65535, got {B}")
+
+
+def scan_fwd(dA, dBx, C):
+    """(dA, dBx (B, S, D, N), C (B, S, N)) -> (y (B, S, D), hs (B, ⌈S/CHUNK⌉,
+    D, N)), fp32: the scan's output and the state entering each chunk."""
+    global fwd_launches
+    _check(dA, dBx, C)
+    if not _on_card(dA):
+        return ref.ssm_scan_states_ref(dA, dBx, C, CHUNK)
+    dA, dBx, C = _f32(dA, "dA"), _f32(dBx, "dBx"), _f32(C, "C")
+    B, S, D, N = dA.shape
+    _shape_ok(B, N)
+    y = torch.empty((B, S, D), dtype=torch.float32, device=dA.device)
+    hs = torch.empty((B, -(-S // CHUNK), D, N), dtype=torch.float32, device=dA.device)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dA.device).cuda_stream
+    with torch.cuda.device(dA.device):
+        err = lib.ssm_scan_fwd_f32(dA.data_ptr(), dBx.data_ptr(), C.data_ptr(),
+                                   y.data_ptr(), hs.data_ptr(), B, S, D, N, CHUNK,
+                                   stream)
+    _build.check(err, "ssm_scan_fwd_f32")
+    fwd_launches += 1
+    return y, hs
+
+
+def scan_bwd(dA, dBx, C, hs, g_y):
+    """Gradients ``(g_dA, g_dBx, g_C)`` of the scan at (dA, dBx, C), given
+    the forward's saved states ``hs`` and the output's gradient ``g_y``."""
+    global bwd_launches
+    _check(dA, dBx, C)
+    if not _on_card(dA):
+        return ref.ssm_scan_bwd_ref(dA, dBx, C, hs, g_y, CHUNK)
+    dA, dBx, C = _f32(dA, "dA"), _f32(dBx, "dBx"), _f32(C, "C")
+    hs, g_y = _f32(hs, "hs"), _f32(g_y, "g_y")
+    B, S, D, N = dA.shape
+    _shape_ok(B, N)
+    if tuple(hs.shape) != (B, -(-S // CHUNK), D, N) or tuple(g_y.shape) != (B, S, D):
+        raise ValueError(f"hs {tuple(hs.shape)} or g_y {tuple(g_y.shape)} does not "
+                         f"match dA {tuple(dA.shape)}")
+    g_dA, g_dBx = torch.empty_like(dA), torch.empty_like(dA)
+    g_C = torch.empty((B, S, N), dtype=torch.float32, device=dA.device)
+    part = torch.empty((B, S, -(-D // (THREADS // N)), N), dtype=torch.float32,
+                       device=dA.device)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dA.device).cuda_stream
+    with torch.cuda.device(dA.device):
+        err = lib.ssm_scan_bwd_f32(dA.data_ptr(), dBx.data_ptr(), C.data_ptr(),
+                                   hs.data_ptr(), g_y.data_ptr(), g_dA.data_ptr(),
+                                   g_dBx.data_ptr(), part.data_ptr(), g_C.data_ptr(),
+                                   B, S, D, N, CHUNK, stream)
+    _build.check(err, "ssm_scan_bwd_f32")
+    bwd_launches += 1
+    return g_dA, g_dBx, g_C
+
+
+class SSMScan(torch.autograd.Function):
+    """y = scan(dA, dBx, C) with the kernels both ways. ``apply`` returns
+    ``(y, hs)``; ``hs`` is the forward's saved states and carries no
+    gradient."""
+
+    @staticmethod
+    def forward(dA, dBx, C):
+        return scan_fwd(dA, dBx, C)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        dA, dBx, C = inputs
+        _y, hs = output
+        ctx.mark_non_differentiable(hs)
+        ctx.save_for_backward(dA, dBx, C, hs)
+
+    @staticmethod
+    def backward(ctx, g_y, _g_hs):
+        dA, dBx, C, hs = ctx.saved_tensors
+        return scan_bwd(dA, dBx, C, hs, g_y)
+
+    @staticmethod
+    def vmap(info, in_dims, dA, dBx, C):
+        """Fold the vmapped axis into B: one launch for the whole batch."""
+        v = info.batch_size
+
+        def fold(x, dim):
+            x = x.movedim(dim, 0) if dim is not None else x.expand(v, *x.shape)
+            return x.reshape(v * x.shape[1], *x.shape[2:])
+
+        y, hs = SSMScan.apply(*(fold(x, d) for x, d in zip((dA, dBx, C), in_dims)))
+        return ((y.reshape(v, -1, *y.shape[1:]), hs.reshape(v, -1, *hs.shape[1:])),
+                (0, 0))
+
+
+def ssm_scan(dA, dBx, C) -> torch.Tensor:
+    """dA, dBx: (B, S, D, N); C: (B, S, N) -> y: (B, S, D) fp32, with a
+    gradient for all three (kernels on CUDA, plain versions on the CPU)."""
+    return SSMScan.apply(dA, dBx, C)[0]

@@ -19,6 +19,19 @@ def leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def from_leaves(tree, flat_leaves):
+    """A tree of ``tree``'s structure holding ``flat_leaves``, given in
+    sorted-key order (the inverse of ``leaves``)."""
+    it = iter(flat_leaves)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return walk(tree)
+
+
 def tree_map(fn: Callable, tree, *rest):
     """Apply ``fn`` leaf-wise over trees of one structure."""
     if isinstance(tree, dict):

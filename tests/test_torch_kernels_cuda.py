@@ -8,7 +8,12 @@ Marked ``cuda``: they skip without a GPU and run there with
 This file imports only torch and the port (the GPU machine has no JAX).
 Tolerances: prox_update fp32 within 1e-6 abs (the kernel rounds the same
 operations in the same order), bf16 within 1 ulp; cosine_sim within 1e-5
-(split-K sums in another order than the plain matmul). merge_candidates and
+(split-K sums in another order than the plain matmul). ssm_scan's saved
+states and its gradients of dA and dBx must equal the plain versions
+exactly (the same roundings in the same order); y and the gradient of C
+within 1e-5 of their largest magnitude plus 1e-5 (sums over n and over d
+in another order: the error scales with the summed magnitudes, not with
+an entry that cancels). merge_candidates and
 resolve_roots must be exactly equal. The candidate inputs spread their
 cosines over (-1, 1) and each τ sits between two neighbouring float64
 cosines, at least 1e-5 from every pair (checked before the comparison):
@@ -22,7 +27,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (cosine_sim, prox_update, ref,  # noqa: E402
-                                 resolve_roots)
+                                 resolve_roots, ssm_scan)
 
 pytestmark = pytest.mark.cuda
 
@@ -200,3 +205,102 @@ def test_forked_state_unchanged_by_next_round_on_card(dev):
     for k in rows:
         assert torch.equal(rows[k], again[k]), k
     assert nxt.clusters.seen != fork.clusters.seen
+
+
+def _near(got, want, rel=1e-5):
+    """|got − want| ≤ rel·max|want| + rel, entry by entry."""
+    err = float((got.cpu() - want.cpu()).abs().max())
+    assert err <= rel * float(want.abs().max()) + rel, err
+
+
+def _scan_inputs(shape, seed, dev):
+    B, S, D, N = shape
+    g = torch.Generator().manual_seed(seed)
+    dA = torch.rand(shape, generator=g) * 0.5 + 0.5
+    dBx, C = torch.randn(shape, generator=g), torch.randn((B, S, N), generator=g)
+    g_y = torch.randn((B, S, D), generator=g)
+    return [t.to(dev) for t in (dA, dBx, C, g_y)]
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 16), (1, 37, 48, 16), (3, 19, 45, 16),
+                                   (4, 256, 1000, 16), (1, 1, 1, 16)])
+def test_ssm_scan_kernels_match_plain(dev, shape):
+    dA, dBx, C, g_y = _scan_inputs(shape, sum(shape), dev)
+    f0, b0 = ssm_scan.fwd_launches, ssm_scan.bwd_launches
+    y, hs = ssm_scan.scan_fwd(dA, dBx, C)
+    grads = ssm_scan.scan_bwd(dA, dBx, C, hs, g_y)
+    torch.cuda.synchronize()
+    assert (ssm_scan.fwd_launches, ssm_scan.bwd_launches) == (f0 + 1, b0 + 1)
+    want_y, want_hs = ref.ssm_scan_states_ref(dA, dBx, C, ssm_scan.CHUNK)
+    want = ref.ssm_scan_bwd_ref(dA, dBx, C, want_hs, g_y, ssm_scan.CHUNK)
+    assert torch.equal(hs, want_hs)
+    _near(y, want_y)
+    assert torch.equal(grads[0], want[0]) and torch.equal(grads[1], want[1])
+    _near(grads[2], want[2])
+
+
+def test_ssm_scan_backward_is_bitwise_repeatable(dev):
+    dA, dBx, C, g_y = _scan_inputs((2, 64, 2000, 16), 7, dev)
+    _, hs = ssm_scan.scan_fwd(dA, dBx, C)
+    first = ssm_scan.scan_bwd(dA, dBx, C, hs, g_y)
+    second = ssm_scan.scan_bwd(dA, dBx, C, hs, g_y)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_ssm_scan_op_under_vmap_launches_once_each_way(dev):
+    """The autograd op under torch.func.vmap, as the engine runs the loss:
+    one forward and one backward launch for the whole vmapped batch, and
+    the gradients of the CPU run (plain versions)."""
+    from torch.func import vmap
+    shape = (2, 3, 40, 50, 16)
+    g = torch.Generator().manual_seed(3)
+    dA = torch.rand(shape, generator=g) * 0.5 + 0.5
+    dBx, C = torch.randn(shape, generator=g), torch.randn(shape[:3] + (16,), generator=g)
+    g_y = torch.randn(shape[:4], generator=g)
+
+    def run(device):
+        ins = [t.to(device).requires_grad_(True) for t in (dA, dBx, C)]
+        with torch.enable_grad():
+            y = vmap(ssm_scan.ssm_scan)(*ins)
+            return [y] + list(torch.autograd.grad(y, ins, grad_outputs=g_y.to(device)))
+
+    f0, b0 = ssm_scan.fwd_launches, ssm_scan.bwd_launches
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert (ssm_scan.fwd_launches, ssm_scan.bwd_launches) == (f0 + 1, b0 + 1)
+    for a, b in zip(got, run("cpu")):
+        _near(a.detach(), b.detach())
+
+
+def test_ssm_scan_kernels_reject_what_they_do_not_take(dev):
+    dA, dBx, C, _ = _scan_inputs((1, 8, 8, 16), 1, dev)
+    with pytest.raises(TypeError):
+        ssm_scan.scan_fwd(dA.double(), dBx, C)
+    with pytest.raises(ValueError):
+        ssm_scan.scan_fwd(dA[..., :8], dBx[..., :8], C[..., :8])
+
+
+def test_falcon_mamba_smoke_loss_and_gradient_on_card(dev):
+    """The fp32 smoke model with use_pallas on the card (K5 both ways)
+    against the same model on the CPU (plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build
+    from repro_torch.utils import trees
+
+    cfg = get_config("falcon-mamba-7b", smoke=True, dtype="float32", use_pallas=True)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)),
+                           dtype=torch.int32)
+
+    def run(device):
+        p = trees.tree_map(lambda x: x.to(device).requires_grad_(True), params)
+        loss = model.loss_fn(p, {"tokens": toks.to(device)})
+        return [loss] + list(torch.autograd.grad(loss, trees.leaves(p)))
+
+    f0, b0 = ssm_scan.fwd_launches, ssm_scan.bwd_launches
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert (ssm_scan.fwd_launches - f0, ssm_scan.bwd_launches - b0) == (2, 2)
+    for a, b in zip(got, run("cpu")):
+        _near(a.detach(), b.detach(), rel=1e-4)
