@@ -13,8 +13,14 @@ prints no result.
    kernel, the plain version and, where one exists, a single PyTorch call
    computing the same function. K3's inputs spread their cosines over
    (-1, 1) and it is held at thresholds placed between neighbouring
-   float64 cosines. K5 runs at path 3's shape (4, 256, 8192, 16) and a
-   ragged one; its backward must be bitwise repeatable.
+   float64 cosines. K2 and K3 (3xTF32 on the tensor cores) are timed on
+   rows laid out as the paths lay them: K2 at (64, 153610) and (64, 8192),
+   K3 at (64, 153610), (512, 153610) and (2048, 153610); their bound is the
+   larger of bytes and 3xTF32 operations, the FFMA bound printed beside.
+   K5 runs at path 3's shape (4, 256, 8192, 16) and a ragged one; its
+   backward must be bitwise repeatable. On paths 1, 2, 4,000 clients and 3
+   no K2 or K3 input may be copied into the kernels' row layout
+   (``cosine_sim.padded_copies`` stays 0).
 3. Path 1: five eager StoCFL rounds at the paper's cross-device setting
    (400 clients × 128 samples × 64 features, the 2048-hidden MLP with
    153,610 parameters, sample rate 0.1, E=5, fused_step=True) through
@@ -99,12 +105,25 @@ LLM_GRAD_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}   # one gradient at ω₀, s
 
 
 def card_peaks(name: str):
-    """(bytes/s, fp32 FLOP/s outside the tensor cores) of the card, from
-    NVIDIA's data sheets: H100 SXM 3.35 TB/s and 67 TFLOP/s, H100 PCIe
-    2.0 TB/s and 51 TFLOP/s."""
+    """(bytes/s, fp32 FLOP/s outside the tensor cores, dense TF32 FLOP/s on
+    the tensor cores) of the card, from NVIDIA's data sheets: H100 SXM
+    3.35 TB/s, 67 and 495 TFLOP/s; H100 PCIe 2.0 TB/s, 51 and 378 TFLOP/s."""
     if "PCIe" in name:
-        return 2.0e12, 51.2e12
-    return 3.35e12, 67.0e12
+        return 2.0e12, 51.2e12, 378e12
+    return 3.35e12, 67.0e12, 495e12
+
+
+def gram_bounds(n, d, out_bytes, peaks):
+    """(bound ms, bound_by, FFMA bound ms) of an fp32-accurate X·Xᵀ over
+    (n, d) that writes ``out_bytes``: the larger of the bytes (X read once,
+    the output written once) and the 3xTF32 operations (3 · n(n+1) · d on
+    the tensor cores, the symmetric product's distinct dot products); the
+    same operations in FFMA beside it."""
+    bw, flops, tf32 = peaks
+    t_bytes = (n * d * 4 + out_bytes) / bw
+    t_ops = 3 * n * (n + 1) * d / tf32
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            n * (n + 1) * d / flops * 1e3)
 
 
 def time_ms(fn) -> float:
@@ -163,7 +182,7 @@ def phase_kernels(dev, peaks):
     import torch
     from repro_torch.kernels import cosine_sim, prox_update, ref
 
-    bw, flops = peaks
+    bw, flops, _tf32 = peaks
     gen = torch.Generator().manual_seed(0)
     rand = lambda *shape: torch.randn(*shape, generator=gen)
     eta, lam = 0.1, 0.05
@@ -232,32 +251,33 @@ def phase_kernels(dev, peaks):
         if (N, D) == (64, 153610):
             main_err = err
 
-    N, D = 64, 153610
-    x = rand(N, D)
-    x[44:] = 0.0
-    x = x.to(dev)
-    norms = torch.linalg.vector_norm(x, dim=1, keepdim=True)
-    xn = torch.where(norms > 0, x / norms, torch.zeros_like(x))
-    k_ms = time_ms(lambda: cosine_sim.cosine_sim(x))
-    p_ms = time_ms(lambda: ref.cosine_sim_ref(x))
-    l_ms = time_ms(lambda: torch.mm(xn, xn.T))
-    # X·Xᵀ is symmetric: the function needs the N(N+1)/2 distinct dot
-    # products, 2·D operations each; it reads X once and writes N×N
-    t_bytes = (N * D + N * N) * 4 / bw
-    t_ops = N * (N + 1) * D / flops
-    results["cosine_sim"] = dict(
-        name="cosine_sim", route="cuda",
-        source="src/repro_torch/kernels/csrc/cosine_sim.cu",
-        replaces="src/repro/kernels/cosine_sim.py:30",
-        max_abs_err=main_err, ms=k_ms, plain_ms=p_ms,
-        bound_ms=max(t_bytes, t_ops) * 1e3,
-        bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=l_ms)
-    print(f"[time] cosine_sim fp32 ({N}, {D}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-          f"torch.mm on normalised rows {l_ms:.4f} ms, bound "
-          f"{max(t_bytes, t_ops) * 1e3:.4f} ms ({(N * D + N * N) * 4 / 1e6:.1f} MB, "
-          f"{N * (N + 1) * D / 1e9:.3f} GFLOP)")
+    # timed on rows laid out as the paths build them (row stride D rounded
+    # up to 32 floats): path 1's (64, 153610), path 3's (64, 8192)
+    for N, D in ((64, 153610), (64, 8192)):
+        x = cosine_sim.row_padded(N, D, dev)
+        x.copy_(rand(N, D))
+        x[N * 11 // 16:] = 0.0
+        norms = torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        xn = torch.where(norms > 0, x / norms, torch.zeros_like(x))
+        copies = cosine_sim.padded_copies
+        k_ms = time_ms(lambda: cosine_sim.cosine_sim(x))
+        p_ms = time_ms(lambda: ref.cosine_sim_ref(x))
+        l_ms = time_ms(lambda: torch.mm(xn, xn.T))
+        assert cosine_sim.padded_copies == copies, "a row-padded input was copied"
+        bound, by, ffma = gram_bounds(N, D, N * N * 4, peaks)
+        print(f"[time] cosine_sim fp32 ({N}, {D}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"torch.mm on normalised rows {l_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+              f"({(N * D + N * N) * 4 / 1e6:.1f} MB, 3 x {N * (N + 1) * D / 1e9:.3f} GFLOP "
+              f"3xTF32; FFMA bound {ffma:.4f} ms), {100 * bound / k_ms:.1f}% of bound")
+        if D == 153610:
+            results["cosine_sim"] = dict(
+                name="cosine_sim", route="cuda",
+                source="src/repro_torch/kernels/csrc/cosine_sim.cu",
+                replaces="src/repro/kernels/cosine_sim.py:30",
+                max_abs_err=main_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
+                library_ms=l_ms)
 
-    results["merge_candidates"] = check_merge_candidates(dev, bw, flops)
+    results["merge_candidates"] = check_merge_candidates(dev, peaks)
     results["resolve_roots"] = check_resolve_roots(dev, bw)
     results.update(check_ssm_scan(dev, bw, flops))
     return results
@@ -268,13 +288,16 @@ def spread_means(n, d, n_dead, seed, dev):
     weights, plus a little noise, so their cosines spread evenly over
     (-1, 1); the last ``n_dead`` rows dead and every fifth of those zero."""
     import torch
+    from repro_torch.kernels import cosine_sim
     gen = torch.Generator().manual_seed(seed)
     x = (torch.randn(n, 3, generator=gen) @ torch.randn(3, d, generator=gen)
          + 0.05 * torch.randn(n, d, generator=gen))
     live = torch.ones(n, dtype=torch.bool)
     live[n - n_dead:] = False
     x[n - n_dead::5] = 0.0
-    return x.to(dev), live.to(dev)
+    xp = cosine_sim.row_padded(n, d, dev)      # the paths' layout
+    xp.copy_(x)
+    return xp, live.to(dev)
 
 
 def live_cosines(x, live):
@@ -325,52 +348,60 @@ def hold_candidates(x, live, taus):
     return margins, pairs
 
 
-def check_merge_candidates(dev, bw, flops):
+def check_merge_candidates(dev, peaks):
     """K3 against its plain version, exact as 0/1 matrices, at the two
     path-2 shapes, on rows whose cosines spread over (-1, 1): at 16
     thresholds between neighbouring float64 cosines, each at least 1e-5
     from every pair, and at τ = -1.5 (every live off-diagonal pair). Then
-    timed at both shapes at τ = 0.5. Returns the kernel's JSON entry (the
-    400-client path's shape, (64, 153610))."""
+    timed at both shapes and at (2048, 153610), a merge pass at larger K̃
+    (timed only), at τ = 0.5. Returns the kernel's JSON entry at the
+    4,000-client path's shape, (512, 153610), where its work is largest on
+    the paths."""
     import torch
     from repro_torch.kernels import cosine_sim, ref
 
     tau = 0.5
     entry = None
-    for (N, D, n_dead) in ((5, 7, 1), (64, 153610, 20), (512, 153610, 0)):
-        x, live = spread_means(N, D, n_dead, N + D, dev)
-        taus = taus_between(*live_cosines(x, live), 16)
-        margins, pairs = hold_candidates(x, live, taus + [-1.5])
-        print(f"[check] merge_candidates ({N}, {D}) dead rows {N - n_dead}..{N - 1}: exact "
-              f"at {len(taus)} tau in [{taus[0]:.4f}, {taus[-1]:.4f}] between neighbouring "
-              f"cosines (closest |cos - tau| {min(margins[:-1]):.3e}, must be >= 1e-5; "
-              f"{min(pairs[:-1])}..{max(pairs[:-1])} pairs) and at tau -1.5 ({pairs[-1]} pairs)")
-        assert min(margins[:-1]) >= 1e-5
+    for (N, D, n_dead) in ((5, 7, 1), (64, 153610, 20), (512, 153610, 0), (2048, 153610, 0)):
+        if N < 2048:
+            x, live = spread_means(N, D, n_dead, N + D, dev)
+            taus = taus_between(*live_cosines(x, live), 16)
+            margins, pairs = hold_candidates(x, live, taus + [-1.5])
+            print(f"[check] merge_candidates ({N}, {D}) dead rows {N - n_dead}..{N - 1}: exact "
+                  f"at {len(taus)} tau in [{taus[0]:.4f}, {taus[-1]:.4f}] between neighbouring "
+                  f"cosines (closest |cos - tau| {min(margins[:-1]):.3e}, must be >= 1e-5; "
+                  f"{min(pairs[:-1])}..{max(pairs[:-1])} pairs) and at tau -1.5 "
+                  f"({pairs[-1]} pairs)")
+            assert min(margins[:-1]) >= 1e-5
+        else:
+            x = cosine_sim.row_padded(N, D, dev)
+            x.normal_(generator=torch.Generator(device=dev).manual_seed(N + D))
+            live = torch.ones(N, dtype=torch.bool, device=dev)
         if N < 64:
             continue
         torch.cuda.synchronize()
         norms = torch.linalg.vector_norm(x, dim=1, keepdim=True)
         xn = torch.where(norms > 0, x / norms, torch.zeros_like(x))
+        copies = cosine_sim.padded_copies
         k_ms = time_ms(lambda: cosine_sim.merge_candidates(x, live, tau))
         p_ms = time_ms(lambda: ref.merge_candidates_ref(x, live, tau))
         l_ms = time_ms(lambda: torch.mm(xn, xn.T) >= tau)
-        # reads X and the mask once, writes the (N, N) fp32 0/1 matrix; the
-        # symmetric product needs N(N+1)·D operations
-        t_bytes = (N * D * 4 + N + N * N * 4) / bw
-        t_ops = N * (N + 1) * D / flops
+        assert cosine_sim.padded_copies == copies, "a row-padded input was copied"
+        # reads X and the mask once, writes the (N, N) fp32 0/1 matrix
+        bound, by, ffma = gram_bounds(N, D, N + N * N * 4, peaks)
         print(f"[time] merge_candidates fp32 ({N}, {D}): kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, torch.mm on normalised rows + threshold {l_ms:.4f} ms, "
-              f"bound {max(t_bytes, t_ops) * 1e3:.4f} ms by "
-              f"{'bytes' if t_bytes >= t_ops else 'operations'} "
-              f"({(N * D * 4 + N + N * N * 4) / 1e6:.1f} MB, {N * (N + 1) * D / 1e9:.3f} GFLOP)")
-        if N == 64:
+              f"bound {bound:.4f} ms by {by} ({(N * D * 4 + N + N * N * 4) / 1e6:.1f} MB, "
+              f"3 x {N * (N + 1) * D / 1e9:.3f} GFLOP 3xTF32; FFMA bound {ffma:.4f} ms), "
+              f"{100 * bound / k_ms:.1f}% of bound, {l_ms / k_ms:.2f}x faster than torch.mm")
+        if N == 512:
             entry = dict(name="merge_candidates", route="cuda",
                          source="src/repro_torch/kernels/csrc/cosine_sim.cu",
                          replaces="src/repro/kernels/cosine_sim.py:79",
-                         max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
-                         bound_ms=max(t_bytes, t_ops) * 1e3,
-                         bound_by="bytes" if t_bytes >= t_ops else "operations",
-                         library_ms=l_ms)
+                         max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                         bound_by=by, library_ms=l_ms)
+        del x, xn, norms
+        torch.cuda.empty_cache()
     return entry
 
 
@@ -594,10 +625,12 @@ def phase_main_path(dev):
 
     seg = segments()
     prox_update.launches = 0
-    cosine_sim.launches = 0
+    cosine_sim.launches = cosine_sim.padded_copies = 0
     start, gpu = _run_rounds(dev, ROUNDS, clients, params, loss, cfg,
                              torch.cuda.synchronize)
     launches = {"prox_update": prox_update.launches, "cosine_sim": cosine_sim.launches}
+    # the host backend builds its merge-pass matrices in the kernel's layout
+    assert cosine_sim.padded_copies == 0, "path 1 copied a K2 input"
     seg = segments() - seg
     for t, r in enumerate(gpu):
         print(f"[main] cuda round {t}: wall {r['wall'] * 1e3:.1f} ms, sampled "
@@ -746,6 +779,15 @@ def max_model_diff(a, b) -> float:
                for ta, tb in pairs for x, y in zip(trees.leaves(ta), trees.leaves(tb)))
 
 
+def same_layout_copy(x):
+    """A copy of the (N, D) matrix ``x`` with its rows as far apart as the
+    paths lay them (D rounded up to 32 floats), so the checks that replay a
+    path's inputs give the kernels the layout the path gave them."""
+    from repro_torch.kernels import cosine_sim
+    y = cosine_sim.row_padded(*x.shape, x.device, x.dtype)
+    return y.copy_(x)
+
+
 @contextlib.contextmanager
 def recording_merge_inputs():
     """Within the block, every ``ops.merge_pairs`` call (the device
@@ -756,7 +798,7 @@ def recording_merge_inputs():
     real, records = ops.merge_pairs, []
 
     def record(means, live, tau, backend="auto"):
-        records.append((means.clone(), live.clone(), float(tau)))
+        records.append((same_layout_copy(means), live.clone(), float(tau)))
         return real(means, live, tau, backend=backend)
 
     ops.merge_pairs = record
@@ -796,10 +838,11 @@ def phase_device_path(dev, path1):
     print("[path2] the same setting with cluster_backend='device', arena=True")
     seg = segments()
     prox_update.launches = cosine_sim.launches = 0
-    cosine_sim.candidate_launches = resolve_roots.launches = 0
+    cosine_sim.candidate_launches = resolve_roots.launches = cosine_sim.padded_copies = 0
     with recording_merge_inputs() as merge_inputs:
         start, gpu = _run_rounds(dev, ROUNDS, clients, params, loss, cfg,
                                  torch.cuda.synchronize, arena=True)
+    assert cosine_sim.padded_copies == 0, "path 2 copied a K3 input"
     launches = {"prox_update": prox_update.launches, "cosine_sim": cosine_sim.launches,
                 "merge_candidates": cosine_sim.candidate_launches,
                 "resolve_roots": resolve_roots.launches}
@@ -899,9 +942,11 @@ def phase_scale(dev):
     for backend in ("device", "numpy"):
         bcfg = dataclasses.replace(cfg, cluster_backend=backend, cohort_chunk=SCALE_CHUNK)
         cosine_sim.candidate_launches = resolve_roots.launches = cosine_sim.launches = 0
+        cosine_sim.padded_copies = 0
         with recording_merge_inputs() as merge_inputs:
             start, trace = _run_rounds(dev, SCALE_ROUNDS, clients, params, loss, bcfg,
                                        torch.cuda.synchronize, arena=True)
+        assert cosine_sim.padded_copies == 0, f"{backend} backend copied a K2/K3 input"
         counts = (cosine_sim.candidate_launches, resolve_roots.launches, cosine_sim.launches)
         runs[backend] = (start, trace, merge_inputs)
         for t, r in enumerate(trace):
@@ -1023,11 +1068,12 @@ def phase_llm_path(dev):
           f"rate {ecfg.sample_rate}, E={ecfg.local_steps}, project_dim {ecfg.project_dim}")
     assert n_params == LLM_PARAMS, n_params
 
-    prox_update.launches = cosine_sim.launches = 0
+    prox_update.launches = cosine_sim.launches = cosine_sim.padded_copies = 0
     ssm_scan.fwd_launches = ssm_scan.bwd_launches = 0
     with recording_first_scan(LLM_SCAN_SHAPE) as first_scan, \
             recording_cosine_inputs() as cosine_inputs:
         state, recs = _llm_rounds(dev, model, params, clients, ecfg, torch.cuda.synchronize)
+    assert cosine_sim.padded_copies == 0, "path 3 copied a K2 input"
     launches = {"prox_update": prox_update.launches, "cosine_sim": cosine_sim.launches,
                 "ssm_scan_fwd": ssm_scan.fwd_launches, "ssm_scan_bwd": ssm_scan.bwd_launches}
     peak = torch.cuda.max_memory_allocated() - base
@@ -1232,7 +1278,7 @@ def recording_cosine_inputs():
     real, records = ops.pairwise_cosine, []
 
     def record(x, backend="auto"):
-        records.append(x.detach().clone())
+        records.append(same_layout_copy(x.detach()))
         return real(x, backend=backend)
 
     ops.pairwise_cosine = record
@@ -1461,15 +1507,14 @@ def main() -> int:
     _, _, _, _, cfg = main_setting()
     phase_trace(dev, cfg, False, "trace", {
         "prox_update": (lambda: prox_update.launches, ("prox_update",)),
-        "cosine_sim": (lambda: cosine_sim.launches, ("cosine_",))})
+        "cosine_sim": (lambda: cosine_sim.launches, ("cosine_kernel",))})
     launches2, path2 = phase_device_path(dev, path1)
     for k in ("merge_candidates", "resolve_roots"):
         kernels[k]["launches"] = launches2[k]
     del path1
     second = phase_trace(dev, path2_config(cfg), True, "trace2", {
         "prox_update": (lambda: prox_update.launches, ("prox_update",)),
-        "merge_candidates": (lambda: cosine_sim.candidate_launches,
-                             ("cosine_partial", "cosine_inv_norm", "candidates_finish")),
+        "merge_candidates": (lambda: cosine_sim.candidate_launches, ("candidates_kernel",)),
         "resolve_roots": (lambda: resolve_roots.launches, ("halving_",))})
     check_second_pass(path2, second)
     del path2

@@ -127,15 +127,16 @@ class ClusterState:
     def padded_means(self, pad_to: int = 64) -> Tuple[List[int], torch.Tensor]:
         """(roots, cluster means padded with zero rows to a multiple of
         ``pad_to``): the matrix ``similarity_matrix`` hands to the cosine
-        kernel, so the kernel sees few distinct shapes as K̃ drifts."""
+        kernel, so the kernel sees few distinct shapes as K̃ drifts. Its rows
+        lie D rounded up to 32 floats apart (``ops.row_padded``), a layout
+        the kernel maps as it is."""
         roots, means = self.cluster_means()
         k = len(roots)
-        if pad_to and k % pad_to:
-            kp = -(-k // pad_to) * pad_to
-            means = torch.cat([means, torch.zeros((kp - k, means.shape[1]),
-                                                  dtype=means.dtype,
-                                                  device=means.device)])
-        return roots, means
+        kp = -(-k // pad_to) * pad_to if pad_to and k % pad_to else k
+        x = ops.row_padded(kp, means.shape[1], means.device, means.dtype)
+        x[:k] = means
+        x[k:] = 0.0
+        return roots, x
 
     def similarity_matrix(self, pad_to: int = 64) -> Tuple[List[int], np.ndarray]:
         """(roots, K̃×K̃ host cosine matrix over cluster means), computed

@@ -226,7 +226,11 @@ def merge_round_impl(state: DeviceClusterState, tau: float, k_max: int):
     rows = _live_rows(counts_ext, cap, k_max)
     rows_l = rows.long()
     counts_c = counts_ext[rows_l]
-    adj = ops.merge_pairs(means_ext[rows_l], counts_c > 0, tau)
+    # the compacted means, gathered into rows D rounded up to 32 floats
+    # apart: a layout the K3 kernel maps as it is
+    means_c = torch.index_select(means_ext, 0, rows_l,
+                                 out=ops.row_padded(k_max, means_ext.shape[1], dev))
+    adj = ops.merge_pairs(means_c, counts_c > 0, tau)
     # steady-state rounds have no candidate pair at all: skip the
     # propagation (the reference's lax.cond)
     if bool(adj.any()):

@@ -33,11 +33,10 @@ _SIGNATURES = {
                         ctypes.c_float, _P],
     "prox_update_bf16": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_float,
                          ctypes.c_float, _P],
-    "cosine_sim_f32": [_P, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, _P, _P, _P, _P],
-    "merge_candidates_f32": [_P, _P, ctypes.c_longlong, ctypes.c_longlong,
-                             ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                             _P, _P, _P, _P],
+    "cosine_sim_f32": [_P] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+                      + [_P] * 4,
+    "merge_candidates_f32": [_P, _P] + [ctypes.c_longlong] * 3
+                            + [ctypes.c_int] * 3 + [ctypes.c_float] + [_P] * 4,
     "resolve_roots_i32": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
     "ssm_scan_fwd_f32": [_P, _P, _P, _P, _P] + [ctypes.c_int] * 5 + [_P],
     "ssm_scan_bwd_f32": [_P] * 9 + [ctypes.c_int] * 5 + [_P],

@@ -1,14 +1,26 @@
 """Pairwise cosine similarity (kernel K2) and merge candidates (kernel K3).
 
-The CUDA kernels are in ``csrc/cosine_sim.cu``. K2 replaces the JAX
-package's ``kernels/cosine_sim.py`` ``_cosine_kernel``: a split-K fp32 X·Xᵀ
-with an inverse-norm epilogue. K3 replaces ``_candidates_kernel``
-(``merge_candidates``): the same product over the upper tiles, ending in a
-threshold epilogue that writes only the 0/1 adjacency. On a CUDA tensor a
-wrapper launches its kernel or raises; on a CPU tensor it runs the plain
-version in ``ref``.
+The CUDA kernels are in ``csrc/cosine_sim.cu``: one X·Xᵀ over the tiles on
+and above the diagonal, in 3xTF32 on the tensor cores fed by a TMA ring,
+split over the contraction and reduced in the same launch in a fixed order
+(bitwise repeatable). K2 replaces the JAX package's
+``kernels/cosine_sim.py`` ``_cosine_kernel`` and ends in the inverse-norm
+scale; K3 replaces ``_candidates_kernel`` (``merge_candidates``) and ends in
+the threshold, writing only the 0/1 adjacency. On a CUDA tensor a wrapper
+launches its kernel (one launch a call) or raises; on a CPU tensor it runs
+the plain version in ``ref``.
+
+The kernel reads x through a TMA tensor map, which needs a row stride that
+is a multiple of 16 bytes. The callers build their matrices with
+``row_padded`` (rows ``D`` rounded up to ``ROW_ALIGN`` floats apart) and
+hand the (N, D) view over. A contiguous (N, D) whose stride cannot be
+mapped (D·4 not a multiple of 16) is copied into such a buffer first; that
+copy is counted in ``padded_copies``.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -16,26 +28,98 @@ from repro_torch.kernels import _build, ref
 
 launches = 0              # K2 launches so far (reset by callers that count)
 candidate_launches = 0    # K3 launches so far
+padded_copies = 0         # inputs copied into a row-padded buffer by a wrapper
 
-TILE = 64           # output tile edge of the CUDA kernel
-BK = 32             # contraction columns per staged step
-MIN_CHUNK = 256     # least contraction length one split is given
+KSTEP = 32          # contraction columns per k-step of the kernel
+MIN_STEPS = 8       # least k-steps one split is given
+ROW_ALIGN = 32      # row stride, in floats, of the matrices the callers build
+SPREAD = 1.02       # a plan may cost this much more than the best wave fill
 
 
-def split_plan(n: int, d: int, sms: int, upper: bool = False):
-    """(kchunk, splits) for an (n, d) input on a card with ``sms`` SMs:
-    enough K splits to put about two blocks on every SM (K2), or, with
-    ``upper`` (K3, which computes only the tiles on and above the
-    diagonal), about eight blocks of those tiles on every SM, so that the
-    long contraction at a few hundred rows is spread over more blocks
-    than SMs. Each split is at least ``MIN_CHUNK`` long and a multiple of
-    ``BK``."""
-    tiles = -(-n // TILE)
-    work, per_sm = (tiles * (tiles + 1) // 2, 8) if upper else (tiles * tiles, 2)
-    want = max(1, -(-per_sm * sms // work))
-    kchunk = max(MIN_CHUNK, -(-d // want))
-    kchunk = -(-kchunk // BK) * BK
-    return kchunk, -(-d // kchunk)
+class Plan(NamedTuple):
+    tile: int       # output tile edge: 64 (one consumer warpgroup) or 128 (two)
+    splits: int     # contraction splits of every upper tile
+    group: int      # splits summed together before the groups are summed
+
+
+def plan(n: int, d: int, sms: int) -> Plan:
+    """The launch plan for an (n, d) input on a card with ``sms`` SMs.
+
+    Tiles of 64 rows up to n = 64, else 128. Each of the U tiles on and
+    above the diagonal is split over the contraction into ``splits`` runs
+    of whole k-steps (at least ``MIN_STEPS`` each, none empty), one block
+    each; the U·splits blocks run in ⌈U·splits / sms⌉ waves. The plan takes
+    the fewest splits whose waves per unit of contraction, ⌈U·s/sms⌉ / s,
+    are within ``SPREAD`` of the best, so the card is filled without
+    more partial tiles than that needs. ``group`` = ⌈√splits⌉ sets the
+    two-level in-launch reduction."""
+    tile = 64 if n <= 64 else 128
+    tiles = -(-n // tile)
+    upper = tiles * (tiles + 1) // 2
+    ksteps = -(-d // KSTEP)
+    most = max(1, min(ksteps // MIN_STEPS, 4 * sms))
+    # split counts that whole k-steps give: ceil(ksteps / per) for some per
+    counts = sorted({-(-ksteps // -(-ksteps // s)) for s in range(1, most + 1)})
+    cost = {s: -(-upper * s // sms) / s for s in counts}
+    best = min(cost.values())
+    splits = next(s for s in counts if cost[s] <= SPREAD * best)
+    return Plan(tile, splits, math.isqrt(splits - 1) + 1)
+
+
+def row_padded(n: int, d: int, device, dtype=torch.float32) -> torch.Tensor:
+    """An uninitialised (n, d) matrix whose rows lie ``d`` rounded up to
+    ``ROW_ALIGN`` elements apart: a view the kernels map as it is. The pad
+    columns beyond d are zero; no operation on the view reads them."""
+    stride = -(-max(d, 1) // ROW_ALIGN) * ROW_ALIGN
+    buf = torch.empty((n, stride), dtype=dtype, device=device)
+    buf[:, d:].zero_()
+    return buf[:, :d]
+
+
+def _mappable(x: torch.Tensor):
+    """(x or a row-padded copy of it, its row stride in elements): the
+    operand as the kernel takes it. Rows must be contiguous; a stride TMA
+    cannot take is copied into ``row_padded`` and counted."""
+    global padded_copies
+    n, d = x.shape
+    if d > 1 and x.stride(1) != 1:
+        raise ValueError("the cosine kernels need an (N, D) matrix with contiguous rows")
+    stride = x.stride(0) if n > 1 else -(-d // 4) * 4
+    if (stride * 4) % 16 or x.data_ptr() % 16 or stride < d:
+        y = row_padded(n, d, x.device)
+        y.copy_(x)
+        padded_copies += 1
+        return y, y.stride(0)
+    return x, stride
+
+
+_counters = {}   # (device index, stream) -> int32 arrival counters, all 0 between launches
+
+
+def _workspace(x: torch.Tensor, p: Plan, stream: int):
+    """(partials, counters) for one launch: the partial records of every
+    (upper tile, split), and the counters, which the kernel leaves 0 and
+    which are kept per device and stream."""
+    tiles = -(-x.shape[0] // p.tile)
+    upper = tiles * (tiles + 1) // 2
+    work = torch.empty((upper * p.splits * (p.tile * p.tile + 2 * p.tile),),
+                       dtype=torch.float32, device=x.device)
+    need = upper * (-(-p.splits // p.group) + 1)
+    key = (x.device.index, stream)
+    cnt = _counters.get(key)
+    if cnt is None or cnt.numel() < need:
+        cnt = torch.zeros((max(need, 4096),), dtype=torch.int32, device=x.device)
+        _counters[key] = cnt
+    return work, cnt
+
+
+def _check_operand(x: torch.Tensor, name: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the {name} kernel takes float32, got {x.dtype}")
+    if x.shape[0] >= 65536:
+        raise ValueError(f"{name} supports N < 65536, got {x.shape[0]}")
 
 
 def cosine_sim(x: torch.Tensor) -> torch.Tensor:
@@ -45,29 +129,19 @@ def cosine_sim(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"cosine_sim takes an (N, D) matrix, got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return ref.cosine_sim_ref(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the cosine_sim kernel takes float32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("cosine_sim needs a contiguous (N, D) matrix")
+    _check_operand(x, "cosine_sim")
     n, d = x.shape
-    if n >= 65536:
-        raise ValueError(f"cosine_sim supports N < 65536, got {n}")
     if n == 0 or d == 0:
         return torch.zeros((n, n), dtype=torch.float32, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    kchunk, splits = split_plan(n, d, sms)
-    np_ = -(-n // TILE) * TILE
-    partial = torch.empty((splits, np_, np_), dtype=torch.float32, device=x.device)
-    inv = torch.empty((np_,), dtype=torch.float32, device=x.device)
+    x, stride = _mappable(x)
+    p = plan(n, d, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    work, cnt = _workspace(x, p, stream)
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     lib = _build.load()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.cosine_sim_f32(x.data_ptr(), n, d, kchunk, splits,
-                                 partial.data_ptr(), inv.data_ptr(),
-                                 out.data_ptr(), stream)
+        err = lib.cosine_sim_f32(x.data_ptr(), n, d, stride, p.tile, p.splits, p.group,
+                                 work.data_ptr(), cnt.data_ptr(), out.data_ptr(), stream)
     _build.check(err, "cosine_sim_f32")
     launches += 1
     return out
@@ -83,33 +157,26 @@ def merge_candidates(x: torch.Tensor, live: torch.Tensor, tau: float) -> torch.T
                          f"mask, got {tuple(x.shape)} and {tuple(live.shape)}")
     if x.device.type == "cpu":
         return ref.merge_candidates_ref(x, live, tau)
-    if x.device.type != "cuda" or live.device != x.device:
+    if live.device != x.device:
         raise ValueError(f"no kernel for devices {x.device}, {live.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the merge_candidates kernel takes float32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("merge_candidates needs a contiguous (N, D) matrix")
+    _check_operand(x, "merge_candidates")
     n, d = x.shape
-    if n >= 65536:
-        raise ValueError(f"merge_candidates supports N < 65536, got {n}")
     if n == 0:
         return torch.zeros((0, 0), dtype=torch.float32, device=x.device)
     if d == 0:
         raise ValueError("merge_candidates needs D > 0")
+    x, stride = _mappable(x)
     # a bool tensor is one byte of 0 or 1 per entry: the kernel reads it as is
     lv = (live if live.dtype == torch.bool else live != 0).contiguous()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    kchunk, splits = split_plan(n, d, sms, upper=True)
-    np_ = -(-n // TILE) * TILE
-    partial = torch.empty((splits, np_, np_), dtype=torch.float32, device=x.device)
-    inv = torch.empty((np_,), dtype=torch.float32, device=x.device)
+    p = plan(n, d, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    work, cnt = _workspace(x, p, stream)
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     lib = _build.load()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.merge_candidates_f32(x.data_ptr(), lv.data_ptr(), n, d, kchunk,
-                                       splits, float(tau), partial.data_ptr(),
-                                       inv.data_ptr(), out.data_ptr(), stream)
+        err = lib.merge_candidates_f32(x.data_ptr(), lv.data_ptr(), n, d, stride, p.tile,
+                                       p.splits, p.group, float(tau), work.data_ptr(),
+                                       cnt.data_ptr(), out.data_ptr(), stream)
     _build.check(err, "merge_candidates_f32")
     candidate_launches += 1
     return out

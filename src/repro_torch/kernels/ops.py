@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.cosine_sim import cosine_sim as _cosine_kernel
 from repro_torch.kernels.cosine_sim import merge_candidates as _candidates_kernel
+from repro_torch.kernels.cosine_sim import row_padded  # noqa: F401  (the callers' layout)
 from repro_torch.kernels.prox_update import prox_update_flat as _prox_kernel
 from repro_torch.kernels.resolve_roots import resolve_roots as _resolve_kernel
 from repro_torch.kernels.ssm_scan import ssm_scan as _scan_kernel

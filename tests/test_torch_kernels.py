@@ -156,12 +156,21 @@ def test_padded_means_is_the_similarity_input(pad_to, rows):
                                      (300, 4096, 132), (64, 153610, 114),
                                      (1, 1, 1), (200, 100000, 132)])
 def test_cosine_split_plan_covers_the_contraction(n, d, sms):
-    kchunk, splits = cosine_sim.split_plan(n, d, sms)
-    assert kchunk % cosine_sim.BK == 0 and kchunk >= cosine_sim.MIN_CHUNK
-    assert splits >= 1 and splits * kchunk >= d > (splits - 1) * kchunk
-    tiles = -(-n // cosine_sim.TILE)
-    if d >= 2 * sms * cosine_sim.MIN_CHUNK:
-        assert tiles * tiles * splits >= sms      # every SM gets a block
+    """The kernels' plan: every k-step of 32 columns in exactly one split,
+    no split empty or (with more than one) under MIN_STEPS k-steps, and
+    where D allows two splits' worth a SM, the waves of blocks over the
+    upper tiles at least 90% full, so every SM is given work."""
+    p = cosine_sim.plan(n, d, sms)
+    assert p.tile == (64 if n <= 64 else 128)
+    ksteps = -(-d // cosine_sim.KSTEP)
+    per = -(-ksteps // p.splits)
+    assert p.splits >= 1 and p.splits * per >= ksteps > (p.splits - 1) * per
+    assert p.splits == 1 or per >= cosine_sim.MIN_STEPS
+    assert p.group * p.group >= p.splits > (p.group - 1) * (p.group - 1)
+    tiles = -(-n // p.tile)
+    blocks = tiles * (tiles + 1) // 2 * p.splits
+    if ksteps >= 2 * sms * cosine_sim.MIN_STEPS:
+        assert blocks >= 0.9 * sms * -(-blocks // sms)
 
 
 def test_cosine_rejects_non_matrix_and_backend():

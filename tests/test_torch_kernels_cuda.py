@@ -8,7 +8,9 @@ Marked ``cuda``: they skip without a GPU and run there with
 This file imports only torch and the port (the GPU machine has no JAX).
 Tolerances: prox_update fp32 within 1e-6 abs (the kernel rounds the same
 operations in the same order), bf16 within 1 ulp; cosine_sim within 1e-5
-(split-K sums in another order than the plain matmul). ssm_scan's saved
+(3xTF32 on the tensor cores, summed in another order than the plain
+matmul; within ~1e-6 of float64, as tests/test_torch_cosine_tf32.py
+emulates). ssm_scan's saved
 states and its gradients of dA and dBx must equal the plain versions
 exactly (the same roundings in the same order); y and the gradient of C
 within 1e-5 of their largest magnitude plus 1e-5 (sums over n and over d
@@ -75,6 +77,59 @@ def test_cosine_kernel_matches_plain(dev, n, d, zero_from):
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-5
     assert bool((got[zero_from:] == 0).all() and (got[:, zero_from:] == 0).all())
+
+
+@pytest.mark.parametrize("name", ["cosine_sim", "merge_candidates"])
+@pytest.mark.parametrize("d,layout,copies", [(153610, "contiguous", 1), (153610, "padded", 0),
+                                             (1001, "contiguous", 1), (8192, "contiguous", 0)])
+def test_cosine_kernels_map_rows_or_copy_them_once(dev, name, d, layout, copies):
+    """TMA needs a row stride that is a multiple of 16 bytes: a contiguous
+    (N, D) with D·4 not a multiple of 16 is copied into the row-padded
+    layout once, counted in ``padded_copies``; a row-padded view, or a
+    contiguous matrix whose rows are already 16-byte multiples, is mapped
+    as it is. One launch a call either way."""
+    x_np, live_np = _spread_means(64, d, 14, seed=d)   # rows 50, 55, 60 zero
+    x = torch.from_numpy(x_np)
+    if layout == "padded":
+        x = cosine_sim.row_padded(64, d, dev).copy_(x)
+        assert x.stride(0) % cosine_sim.ROW_ALIGN == 0 and not x.is_contiguous()
+    else:
+        x = x.to(dev)
+    live = torch.from_numpy(live_np).to(dev)
+    (tau,) = _taus_between(_cos64(x_np), live_np, 1)
+    before = (cosine_sim.padded_copies, cosine_sim.launches, cosine_sim.candidate_launches)
+    if name == "cosine_sim":
+        got, want = cosine_sim.cosine_sim(x), ref.cosine_sim_ref(x)
+    else:
+        got, want = cosine_sim.merge_candidates(x, live, tau), ref.merge_candidates_ref(x, live, tau)
+    torch.cuda.synchronize()
+    after = (cosine_sim.padded_copies, cosine_sim.launches, cosine_sim.candidate_launches)
+    assert after[0] - before[0] == copies
+    assert (after[1] - before[1], after[2] - before[2]) == \
+        ((1, 0) if name == "cosine_sim" else (0, 1))
+    if name == "cosine_sim":
+        zero = torch.tensor([50, 55, 60], device=dev)
+        assert float((got - want).abs().max()) <= (1e-4 if d >= 100_000 else 1e-5)
+        assert not bool(got[zero].any() or got[:, zero].any())
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,d", [(64, 153610), (300, 4096), (512, 20000)])
+def test_cosine_kernels_are_bitwise_repeatable_one_launch_a_call(dev, n, d):
+    """The split-K partials are summed in a fixed order whichever block
+    arrives last: two calls give the same bits, each one launch."""
+    g = torch.Generator().manual_seed(n + d)
+    x = cosine_sim.row_padded(n, d, dev)
+    x.copy_(torch.randn(n, d, generator=g))
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    k2, k3 = cosine_sim.launches, cosine_sim.candidate_launches
+    a, b = cosine_sim.cosine_sim(x), cosine_sim.cosine_sim(x)
+    c, e = cosine_sim.merge_candidates(x, live, 0.01), cosine_sim.merge_candidates(x, live, 0.01)
+    torch.cuda.synchronize()
+    assert (cosine_sim.launches - k2, cosine_sim.candidate_launches - k3) == (2, 2)
+    assert torch.equal(a, b) and torch.equal(c, e)
+    assert torch.equal(a, a.T) and torch.equal(c, c.T)
 
 
 def test_cosine_kernel_rejects_bf16(dev):
