@@ -8,10 +8,14 @@ prints no result.
 
 1. Build: compile the CUDA kernels of ``kernels/csrc`` with nvcc.
 2. Kernel checks: hold each kernel (K1 prox_update, K2 cosine_sim, K3
-   merge_candidates, K4 resolve_roots, K5 ssm_scan forward and backward)
-   against its plain PyTorch version on the card (TF32 off), then time the
-   kernel, the plain version and, where one exists, a single PyTorch call
-   computing the same function. K3's inputs spread their cosines over
+   merge_candidates, K4 resolve_roots, the merge pass's component_labels,
+   K5 ssm_scan forward and backward) against its plain PyTorch version on
+   the card (TF32 off), then time the kernel, the plain version and, where
+   one exists, a single PyTorch call computing the same function. K4 is
+   timed on the fully compressed arrays the path gives it and on chains,
+   beside the launch floor (``torch.cuda._sleep(1)``); component_labels
+   against its plain loop, which syncs once a pass, by a host clock around
+   a synchronised call. K3's inputs spread their cosines over
    (-1, 1) and it is held at thresholds placed between neighbouring
    float64 cosines. K2 and K3 (3xTF32 on the tensor cores) are timed on
    rows laid out as the paths lay them: K2 at (64, 153610) and (64, 8192),
@@ -37,15 +41,16 @@ prints no result.
    ``ClientArena`` (``engine.init(..., arena=True)``), launches counted.
    Cohorts, partitions and n_clusters must equal path 1's, merge lists must
    have the same transitive closure, ω and bank rows agree within 1e-4; K3
-   is held against its plain version on each round's real merge-pass input;
+   is held against its plain version on each round's real merge-pass input,
+   component_labels on the adjacency K3 returned there;
    the first rounds are repeated on the CPU with the same comparison.
 6. Trace of path 2, as phase 4. Its untouched pass is a second run of the
    same rounds: parent arrays and merge lists must be identical to phase
    5's, and the cluster means of one state computed twice bitwise equal.
 7. Path 2 at 4,000 clients (capacity 4,096): two rounds on each clustering
    backend, launches asserted, whose cohorts, partitions and n_clusters
-   must be identical; K3 held against its plain version on each merge-pass
-   input the device backend received.
+   must be identical; K3 and component_labels held against their plain
+   versions on each merge-pass input the device backend received.
 8. Path 3: StoCFL's federated LLM round (the reference's ``run_llm``) on
    falcon-mamba-7b at full width (d_model 4096, d_inner 8192, vocab 65024,
    bf16 compute, fp32 params) cut to 2 layers, ``use_pallas=True``: 3
@@ -279,6 +284,7 @@ def phase_kernels(dev, peaks):
 
     results["merge_candidates"] = check_merge_candidates(dev, peaks)
     results["resolve_roots"] = check_resolve_roots(dev, bw)
+    results["component_labels"] = check_component_labels(dev, bw)
     results.update(check_ssm_scan(dev, bw, flops))
     return results
 
@@ -407,7 +413,9 @@ def check_merge_candidates(dev, peaks):
 
 def forests(n, gen):
     """A random forest (parents at smaller ids), a chain through a random
-    permutation of the ids (the deepest tree) and a fully compressed array."""
+    permutation of the ids (the deepest tree), a fully compressed array (what
+    the path hands K4) and a permutation cycle through all the ids (never a
+    fixed point, so K4 runs every step)."""
     import torch
     forest = torch.arange(n, dtype=torch.int32)
     picks = torch.randperm(n, generator=gen)[: n // 2]
@@ -418,14 +426,40 @@ def forests(n, gen):
     roots = torch.randperm(n, generator=gen)[: max(n // 7, 1)].to(torch.int32)
     compressed = roots[torch.randint(0, len(roots), (n,), generator=gen)]
     compressed[roots.long()] = roots
-    return {"forest": forest, "chain": chain, "compressed": compressed}
+    permutation = torch.empty(n, dtype=torch.int32)
+    permutation[order.long()] = torch.roll(order, -1)
+    return {"forest": forest, "chain": chain, "compressed": compressed,
+            "permutation": permutation}
+
+
+def halving_steps(parent) -> int:
+    """Steps K4's resident loop runs on ``parent``: synchronous ``p <- p[p]``
+    until a step changes nothing, at most ``steps_for(N)``."""
+    import torch
+    from repro_torch.kernels import resolve_roots
+    cap = resolve_roots.steps_for(len(parent))
+    for step in range(1, cap + 1):
+        nxt = parent[parent.long()]
+        if torch.equal(nxt, parent):
+            return step
+        parent = nxt
+    return cap
+
+
+def launch_floor_ms() -> float:
+    """Device time of the smallest launch, ``torch.cuda._sleep(1)``, timed as
+    the kernels are."""
+    import torch
+    return time_ms(lambda: torch.cuda._sleep(1))
 
 
 def check_resolve_roots(dev, bw):
-    """K4 against its plain version, exactly, on random forests, chains and
-    fully compressed arrays at N in {1, 512, 4096, 65536} (the last one the
-    multi-launch route); timed at 512 and 4096. Returns the JSON entry at
-    the 400-client path's capacity, 512."""
+    """K4 against its plain version, exactly, on random forests, chains,
+    fully compressed arrays and permutation cycles at N in {1, 512, 4096,
+    65536} (the last one the multi-launch route); timed on the compressed
+    arrays the path gives it and on chains at 512 and 4096, beside the
+    launch floor. Returns the JSON entry at the 400-client path's capacity,
+    512, on the compressed input."""
     import torch
     from repro_torch.kernels import ref, resolve_roots
 
@@ -433,29 +467,132 @@ def check_resolve_roots(dev, bw):
     for n in (1, 512, 4096, 65536):
         for kind, parent in forests(n, gen).items():
             parent = parent.to(dev)
+            before = resolve_roots.launches
             got = resolve_roots.resolve_roots(parent)
             want = ref.resolve_roots_ref(parent)
             torch.cuda.synchronize()
-            same = bool(torch.equal(got, want))
-            print(f"[check] resolve_roots int32 N={n} {kind}: exact={same}, "
-                  f"{resolve_roots.steps_for(n)} steps, "
-                  f"{'one block' if n <= resolve_roots.RESIDENT_MAX else 'one launch a step'}")
+            same = bool(torch.equal(got, want)) and resolve_roots.launches == before + 1
+            route = (f"one block, {halving_steps(parent)} of {resolve_roots.steps_for(n)} steps"
+                     if n <= resolve_roots.RESIDENT_MAX else
+                     f"one launch a step, {resolve_roots.steps_for(n)} steps")
+            print(f"[check] resolve_roots int32 N={n} {kind}: exact={same}, {route}")
             assert same, f"resolve_roots N={n} {kind} disagrees with plain"
+    floor = launch_floor_ms()
+    print(f"[time] launch floor (torch.cuda._sleep(1), CUDA events as below): {floor:.4f} ms")
     entry = None
     for n in (512, 4096):
-        parent = forests(n, gen)["chain"].to(dev)
-        k_ms = time_ms(lambda: resolve_roots.resolve_roots(parent))
-        p_ms = time_ms(lambda: ref.resolve_roots_ref(parent))
         bound = 8 * n / bw * 1e3
-        print(f"[time] resolve_roots int32 N={n}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-              f"({resolve_roots.steps_for(n)} gathers), bound {bound:.6f} ms by bytes "
-              f"({8 * n} B); no single PyTorch call computes it")
-        if n == 512:
-            entry = dict(name="resolve_roots", route="cuda",
-                         source="src/repro_torch/kernels/csrc/resolve_roots.cu",
-                         replaces="src/repro/kernels/ops.py:46",
-                         max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                         bound_by="bytes", library_ms=None)
+        for kind in ("compressed", "chain"):
+            parent = forests(n, gen)[kind].to(dev)
+            k_ms = time_ms(lambda: resolve_roots.resolve_roots(parent))
+            p_ms = time_ms(lambda: ref.resolve_roots_ref(parent))
+            print(f"[time] resolve_roots int32 N={n} {kind}: kernel {k_ms:.4f} ms "
+                  f"({halving_steps(parent)} steps; launch floor {floor:.4f} ms), plain "
+                  f"{p_ms:.4f} ms ({resolve_roots.steps_for(n)} gathers), bound "
+                  f"{bound:.6f} ms by bytes ({8 * n} B); no single PyTorch call computes it")
+            if (n, kind) == (512, "compressed"):
+                entry = dict(name="resolve_roots", route="cuda",
+                             source="src/repro_torch/kernels/csrc/resolve_roots.cu",
+                             replaces="src/repro/kernels/ops.py:46",
+                             max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                             bound_by="bytes", library_ms=None)
+    return entry
+
+
+def graphs(k, gen):
+    """Symmetric (k, k) fp32 0/1 adjacencies with a zero diagonal, as K3
+    writes them: sparse random (about 2 neighbours a node), dense random, a
+    chain through a random order of the ids (the most passes) and 4
+    disjoint cliques over a random split of the ids (a merge pass that
+    collapses singletons into their clusters)."""
+    import torch
+    order = torch.randperm(k, generator=gen)
+    group = torch.randint(0, 4, (k,), generator=gen)
+    out = {"sparse": torch.rand(k, k, generator=gen) < 2.0 / k,
+           "dense": torch.rand(k, k, generator=gen) < 0.5,
+           "chain": torch.zeros(k, k, dtype=torch.bool),
+           "cliques": group[:, None] == group[None, :]}
+    out["chain"][order[:-1], order[1:]] = True
+    for kind, a in out.items():
+        a = a | a.T
+        a.fill_diagonal_(False)
+        out[kind] = a.to(torch.float32)
+    return out
+
+
+def label_passes(adj) -> int:
+    """Passes the labelling loop makes on ``adj`` (the last changes
+    nothing), counted on the CPU."""
+    import torch
+    adj = adj.cpu()
+    k = adj.shape[0]
+    label = torch.arange(k)
+    fill = torch.full((k, k), k)
+    passes = 0
+    while True:
+        passes += 1
+        m = torch.minimum(label, torch.where(adj > 0, label[None, :], fill).amin(1))
+        nxt = m[m]
+        if torch.equal(nxt, label):
+            return passes
+        label = nxt
+
+
+def host_ms(fn) -> float:
+    """Mean host-clock time of ``fn`` followed by ``torch.cuda.synchronize()``
+    over TIMED_CALLS calls, after 3 warm-up calls: the only fair clock for a
+    function that syncs inside, as the plain labelling loop does a pass."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_CALLS):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / TIMED_CALLS
+
+
+def check_component_labels(dev, bw):
+    """The labelling kernel against its plain loop, exactly, on sparse,
+    dense, chained and clique graphs at k in {64, 512, 4096} (4096: the
+    bit matrix in a global scratch); one launch a call. Timed at 64 and 512
+    on cliques and chains. Returns the JSON entry at 512 on cliques."""
+    import torch
+    from repro_torch.kernels import ref, resolve_roots
+
+    gen = torch.Generator().manual_seed(5)
+    for k in (64, 512, 4096):
+        for kind, adj in graphs(k, gen).items():
+            adj = adj.to(dev)
+            before = resolve_roots.label_launches
+            got = resolve_roots.component_labels(adj)
+            want = ref.component_labels_ref(adj)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got, want)) and resolve_roots.label_launches == before + 1
+            where = "shared" if k <= resolve_roots.BITS_SHARED_MAX else "global"
+            print(f"[check] component_labels fp32 k={k} {kind}: exact={same}, one launch, "
+                  f"{len(torch.unique(want))} components, bit matrix in {where} memory")
+            assert same, f"component_labels k={k} {kind} disagrees with plain"
+    entry = None
+    for k in (64, 512):
+        bound = (k * k * 4 + 4 * k) / bw * 1e3
+        for kind in ("cliques", "chain"):
+            adj = graphs(k, gen)[kind].to(dev)
+            k_ms = time_ms(lambda: resolve_roots.component_labels(adj))
+            k_host = host_ms(lambda: resolve_roots.component_labels(adj))
+            p_host = host_ms(lambda: ref.component_labels_ref(adj))
+            print(f"[time] component_labels fp32 k={k} {kind} ({label_passes(adj)} passes): "
+                  f"kernel {k_ms:.4f} ms by CUDA events; host clock around a synchronised "
+                  f"call: kernel {k_host:.4f} ms, plain loop {p_host:.4f} ms (it syncs once "
+                  f"a pass); bound {bound:.6f} ms by bytes ({k * k * 4 + 4 * k} B); no single "
+                  f"PyTorch call computes it")
+            if (k, kind) == (512, "cliques"):
+                entry = dict(name="component_labels", route="cuda",
+                             source="src/repro_torch/kernels/csrc/resolve_roots.cu",
+                             replaces="src/repro/core/device_clustering.py:116",
+                             max_abs_err=0.0, ms=k_ms, plain_ms=p_host, bound_ms=bound,
+                             bound_by="bytes", library_ms=None)
     return entry
 
 
@@ -792,14 +929,16 @@ def same_layout_copy(x):
 def recording_merge_inputs():
     """Within the block, every ``ops.merge_pairs`` call (the device
     backend's merge pass) also records a copy of the (means, live, τ) it
-    received; yields the list of records. The call itself goes through
-    unchanged, so its launch is counted once as before."""
+    received and of the adjacency it returned, which the pass hands to
+    ``ops.component_labels``; yields the list of records. The call itself
+    goes through unchanged, so its launch is counted once as before."""
     from repro_torch.kernels import ops
     real, records = ops.merge_pairs, []
 
     def record(means, live, tau, backend="auto"):
-        records.append((same_layout_copy(means), live.clone(), float(tau)))
-        return real(means, live, tau, backend=backend)
+        adj = real(means, live, tau, backend=backend)
+        records.append((same_layout_copy(means), live.clone(), float(tau), adj.clone()))
+        return adj
 
     ops.merge_pairs = record
     try:
@@ -812,7 +951,7 @@ def check_candidates_on_path(records, tag):
     """Hold K3 against its plain version on the inputs the path's merge
     passes gave it, at the path's τ (printing the smallest |cos − τ| among
     live pairs) and at 8 thresholds between neighbouring cosines."""
-    for t, (x, live, tau) in enumerate(records):
+    for t, (x, live, tau, _adj) in enumerate(records):
         taus = taus_between(*live_cosines(x, live), 8)
         margins, pairs = hold_candidates(x, live, [tau] + taus)
         print(f"[{tag}] merge_candidates on round {t}'s merge-pass input {tuple(x.shape)} "
@@ -820,6 +959,21 @@ def check_candidates_on_path(records, tag):
               f"tau, closest |cos - tau| {margins[0]:.3e}) and at {len(taus)} tau between "
               f"neighbouring cosines (closest {min(margins[1:], default=float('inf')):.3e})")
         assert min(margins[1:], default=1.0) >= 1e-5
+
+
+def check_labels_on_path(records, tag):
+    """Hold the labelling kernel against its plain loop on the adjacency
+    each of the path's merge passes handed it."""
+    import torch
+    from repro_torch.kernels import ref, resolve_roots
+    for t, (_x, _live, _tau, adj) in enumerate(records):
+        got = resolve_roots.component_labels(adj)
+        want = ref.component_labels_ref(adj)
+        same = bool(torch.equal(got, want))
+        print(f"[{tag}] component_labels on round {t}'s merge-pass adjacency "
+              f"{tuple(adj.shape)} ({int((adj > 0).sum()) // 2} candidate pairs, "
+              f"{label_passes(adj)} passes): exact={same}")
+        assert same, f"component_labels disagrees with plain on round {t}'s adjacency"
 
 
 def path2_config(cfg, **kw):
@@ -839,13 +993,15 @@ def phase_device_path(dev, path1):
     seg = segments()
     prox_update.launches = cosine_sim.launches = 0
     cosine_sim.candidate_launches = resolve_roots.launches = cosine_sim.padded_copies = 0
+    resolve_roots.label_launches = 0
     with recording_merge_inputs() as merge_inputs:
         start, gpu = _run_rounds(dev, ROUNDS, clients, params, loss, cfg,
                                  torch.cuda.synchronize, arena=True)
     assert cosine_sim.padded_copies == 0, "path 2 copied a K3 input"
     launches = {"prox_update": prox_update.launches, "cosine_sim": cosine_sim.launches,
                 "merge_candidates": cosine_sim.candidate_launches,
-                "resolve_roots": resolve_roots.launches}
+                "resolve_roots": resolve_roots.launches,
+                "component_labels": resolve_roots.label_launches}
     seg = segments() - seg
     for t, r in enumerate(gpu):
         print(f"[path2] cuda round {t}: wall {r['wall'] * 1e3:.1f} ms, sampled "
@@ -857,10 +1013,13 @@ def phase_device_path(dev, path1):
           + f" ms; {seg} new device-memory segments in the {ROUNDS} rounds")
     print(f"[path2] launches on path 2: {launches}")
     # K1 once a local step; K3 once a round (the merge pass); K4 twice a
-    # round (the merge pass's and the objective's cluster means); no K2
+    # round (the merge pass's and the objective's cluster means); the
+    # labelling kernel once a merge pass (DeviceClusters.merge_round runs
+    # merge_round_impl once a round, every round seeing >= 2 clients); no K2
     assert launches == {"prox_update": ROUNDS * cfg.local_steps, "cosine_sim": 0,
                         "merge_candidates": ROUNDS,
-                        "resolve_roots": 2 * ROUNDS}, launches
+                        "resolve_roots": 2 * ROUNDS,
+                        "component_labels": ROUNDS}, launches
     arena = start.ctx.arena
     print(f"[path2] arena {arena!r}; Psi bank {tuple(gpu[-1]['state'].clusters.state.rep.shape)} "
           f"fp32 = {gpu[-1]['state'].clusters.state.rep.numel() * 4 / 1e6:.1f} MB")
@@ -878,6 +1037,7 @@ def phase_device_path(dev, path1):
     assert err <= MAIN_ATOL
     assert len(merge_inputs) == ROUNDS
     check_candidates_on_path(merge_inputs, "path2")
+    check_labels_on_path(merge_inputs, "path2")
     del merge_inputs
 
     final = gpu[-1]["state"].clusters
@@ -933,28 +1093,31 @@ def phase_scale(dev):
 
     _, _, params, loss, cfg = main_setting()
     clients, _, _ = pathological(n_clients=SCALE_CLIENTS, n_per=128, seed=0)
-    # per round: the device backend runs K3 once (merge pass) and K4 twice
-    # (the merge pass's and the objective's cluster means); the host
-    # backend runs K2 twice (merge pass and objective) and neither of those
-    expect = {"device": (SCALE_ROUNDS, 2 * SCALE_ROUNDS, 0),
-              "numpy": (0, 0, 2 * SCALE_ROUNDS)}
+    # per round: the device backend runs K3 and the labelling kernel once
+    # (merge pass) and K4 twice (the merge pass's and the objective's
+    # cluster means); the host backend runs K2 twice (merge pass and
+    # objective) and none of those
+    expect = {"device": (SCALE_ROUNDS, 2 * SCALE_ROUNDS, 0, SCALE_ROUNDS),
+              "numpy": (0, 0, 2 * SCALE_ROUNDS, 0)}
     runs = {}
     for backend in ("device", "numpy"):
         bcfg = dataclasses.replace(cfg, cluster_backend=backend, cohort_chunk=SCALE_CHUNK)
         cosine_sim.candidate_launches = resolve_roots.launches = cosine_sim.launches = 0
-        cosine_sim.padded_copies = 0
+        cosine_sim.padded_copies = resolve_roots.label_launches = 0
         with recording_merge_inputs() as merge_inputs:
             start, trace = _run_rounds(dev, SCALE_ROUNDS, clients, params, loss, bcfg,
                                        torch.cuda.synchronize, arena=True)
         assert cosine_sim.padded_copies == 0, f"{backend} backend copied a K2/K3 input"
-        counts = (cosine_sim.candidate_launches, resolve_roots.launches, cosine_sim.launches)
+        counts = (cosine_sim.candidate_launches, resolve_roots.launches, cosine_sim.launches,
+                  resolve_roots.label_launches)
         runs[backend] = (start, trace, merge_inputs)
         for t, r in enumerate(trace):
             print(f"[scale] {backend} backend, {SCALE_CLIENTS} clients, round {t}: wall "
                   f"{r['wall'] * 1e3:.1f} ms, sampled {len(r['cohort'])}, n_clusters "
                   f"{r['n_clusters']}, merges {len(r['merges'])}")
         print(f"[scale] {backend} backend launches: merge_candidates {counts[0]}, "
-              f"resolve_roots {counts[1]}, cosine_sim {counts[2]}")
+              f"resolve_roots {counts[1]}, cosine_sim {counts[2]}, component_labels "
+              f"{counts[3]}")
         assert counts == expect[backend], (backend, counts, expect[backend])
     (dstart, dev_t, dev_inputs), (_, host_t, host_inputs) = runs["device"], runs["numpy"]
     assert len(dev_inputs) == SCALE_ROUNDS and not host_inputs
@@ -970,6 +1133,7 @@ def phase_scale(dev):
           f"{st.rep.numel() * 4 / 1e9:.2f} GB, arena {dstart.ctx.arena.nbytes / 1e6:.1f} MB")
     assert err <= MAIN_ATOL
     check_candidates_on_path(dev_inputs, "scale")
+    check_labels_on_path(dev_inputs, "scale")
     del dev_inputs
     final = dev_t[-1]["state"].clusters
     r1, m1 = final.cluster_means()
@@ -1509,13 +1673,15 @@ def main() -> int:
         "prox_update": (lambda: prox_update.launches, ("prox_update",)),
         "cosine_sim": (lambda: cosine_sim.launches, ("cosine_kernel",))})
     launches2, path2 = phase_device_path(dev, path1)
-    for k in ("merge_candidates", "resolve_roots"):
+    for k in ("merge_candidates", "resolve_roots", "component_labels"):
         kernels[k]["launches"] = launches2[k]
     del path1
     second = phase_trace(dev, path2_config(cfg), True, "trace2", {
         "prox_update": (lambda: prox_update.launches, ("prox_update",)),
         "merge_candidates": (lambda: cosine_sim.candidate_launches, ("candidates_kernel",)),
-        "resolve_roots": (lambda: resolve_roots.launches, ("halving_",))})
+        "resolve_roots": (lambda: resolve_roots.launches, ("halving_",)),
+        "component_labels": (lambda: resolve_roots.label_launches,
+                             ("component_labels_kernel",))})
     check_second_pass(path2, second)
     del path2
     phase_scale(dev)

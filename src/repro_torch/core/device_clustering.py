@@ -20,8 +20,9 @@ the port of the JAX package's ``core/device_clustering.py``:
       ``merge_round``  cluster means by a segment sum over roots (K4
                        resolves the roots) → fused masked-cosine-τ
                        candidates (K3, ``ops.merge_pairs``) → connected
-                       components of the candidate graph → new fully
-                       compressed ``parent``
+                       components of the candidate graph (one launch,
+                       ``ops.component_labels``) → new fully compressed
+                       ``parent``
       ``union`` / ``remove``   the §5 join/leave repairs
       ``nearest`` / ``objective`` / ``objective_closed``   §4.4 inference
                        and the Eq. 2 metric
@@ -168,33 +169,20 @@ def _cluster_means(state: DeviceClusterState):
     return root, means[:cap], counts[:cap]
 
 
-def component_labels(adj: torch.Tensor) -> torch.Tensor:
+def component_labels(adj: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     """Connected-component labels of a 0/1 adjacency matrix: each node's
     label converges to the smallest node id in its component.
 
     Min-label propagation with pointer jumping, run to a FIXED POINT: per
     pass every node takes the min over its neighbours' labels, then follows
-    its own label's label. At a fixed point adjacent nodes hold equal
-    labels, labels never leave their component, and the common value must
-    be the component minimum, so the exit condition is the proof. A fixed
-    pass count alone is NOT safe (an adversarially permuted chain needs
-    more), which is why the loop compares the labels before and after each
-    pass and stops when nothing changed: one host sync a pass."""
-    n = adj.shape[0]
-    label = torch.arange(n, dtype=torch.int32, device=adj.device)
-    linked = adj > 0
-    fill = torch.full((n, n), n, dtype=torch.int32, device=adj.device)
-
-    def one_pass(lab):
-        neigh = torch.where(linked, lab[None, :], fill).amin(dim=1)
-        lab = torch.minimum(lab, neigh)
-        return lab[lab.long()]
-
-    while True:
-        nxt = one_pass(label)
-        if torch.equal(nxt, label):
-            return nxt
-        label = nxt
+    its own label's label, until a pass changes nothing. At a fixed point
+    adjacent nodes hold equal labels, labels never leave their component,
+    and the common value must be the component minimum, so the exit
+    condition is the proof (a fixed pass count alone is NOT safe: an
+    adversarially permuted chain needs more). On the card the loop runs
+    inside one launch with no host sync; ``backend="torch"`` forces the
+    plain loop, which syncs once a pass."""
+    return ops.component_labels(adj, backend)
 
 
 def _live_rows(counts_ext: torch.Tensor, cap: int, k_max: int) -> torch.Tensor:
@@ -231,12 +219,10 @@ def merge_round_impl(state: DeviceClusterState, tau: float, k_max: int):
     means_c = torch.index_select(means_ext, 0, rows_l,
                                  out=ops.row_padded(k_max, means_ext.shape[1], dev))
     adj = ops.merge_pairs(means_c, counts_c > 0, tau)
-    # steady-state rounds have no candidate pair at all: skip the
-    # propagation (the reference's lax.cond)
-    if bool(adj.any()):
-        label = component_labels(adj)
-    else:
-        label = torch.arange(k_max, dtype=torch.int32, device=dev)
+    # with no candidate pair (the steady state) the first pass changes
+    # nothing and the labels are arange(k_max), the reference's lax.cond
+    # branch, with no host sync to decide it
+    label = component_labels(adj)
     # back to root-id space: compact row i's cluster re-roots at the root
     # id of its component's min row
     new_root_c = torch.where(rows < cap, rows[label.long()], rows.new_full((), cap))

@@ -38,12 +38,15 @@ _SIGNATURES = {
     "merge_candidates_f32": [_P, _P] + [ctypes.c_longlong] * 3
                             + [ctypes.c_int] * 3 + [ctypes.c_float] + [_P] * 4,
     "resolve_roots_i32": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+    "component_labels_f32": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                             ctypes.c_int, _P],
     "ssm_scan_fwd_f32": [_P, _P, _P, _P, _P] + [ctypes.c_int] * 5 + [_P],
     "ssm_scan_bwd_f32": [_P] * 9 + [ctypes.c_int] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
 last_build_log = ""
+_counters = {}   # (device index, stream) -> int32 arrival counters, all 0 between launches
 
 
 def nvcc() -> str:
@@ -126,6 +129,20 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def arrival_counters(device, stream: int, need: int):
+    """At least ``need`` int32 counters on ``device`` for kernels launched on
+    ``stream`` whose blocks count themselves in, the last to arrive finishing
+    the work. They are 0 at every launch: each kernel leaves them 0, and
+    launches on one stream run in order."""
+    import torch
+    key = (device.index, stream)
+    cnt = _counters.get(key)
+    if cnt is None or cnt.numel() < need:
+        cnt = torch.zeros((max(need, 4096),), dtype=torch.int32, device=device)
+        _counters[key] = cnt
+    return cnt
 
 
 def check(err: int, name: str) -> None:

@@ -93,9 +93,6 @@ def _mappable(x: torch.Tensor):
     return x, stride
 
 
-_counters = {}   # (device index, stream) -> int32 arrival counters, all 0 between launches
-
-
 def _workspace(x: torch.Tensor, p: Plan, stream: int):
     """(partials, counters) for one launch: the partial records of every
     (upper tile, split), and the counters, which the kernel leaves 0 and
@@ -105,12 +102,7 @@ def _workspace(x: torch.Tensor, p: Plan, stream: int):
     work = torch.empty((upper * p.splits * (p.tile * p.tile + 2 * p.tile),),
                        dtype=torch.float32, device=x.device)
     need = upper * (-(-p.splits // p.group) + 1)
-    key = (x.device.index, stream)
-    cnt = _counters.get(key)
-    if cnt is None or cnt.numel() < need:
-        cnt = torch.zeros((max(need, 4096),), dtype=torch.int32, device=x.device)
-        _counters[key] = cnt
-    return work, cnt
+    return work, _build.arrival_counters(x.device, stream, need)
 
 
 def _check_operand(x: torch.Tensor, name: str) -> None:

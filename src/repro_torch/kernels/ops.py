@@ -14,6 +14,7 @@ from repro_torch.kernels.cosine_sim import cosine_sim as _cosine_kernel
 from repro_torch.kernels.cosine_sim import merge_candidates as _candidates_kernel
 from repro_torch.kernels.cosine_sim import row_padded  # noqa: F401  (the callers' layout)
 from repro_torch.kernels.prox_update import prox_update_flat as _prox_kernel
+from repro_torch.kernels.resolve_roots import component_labels as _labels_kernel
 from repro_torch.kernels.resolve_roots import resolve_roots as _resolve_kernel
 from repro_torch.kernels.ssm_scan import ssm_scan as _scan_kernel
 from repro_torch.utils import trees
@@ -51,6 +52,16 @@ def resolve_roots(parent: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     if _plain(backend):
         return ref.resolve_roots_ref(parent)
     return _resolve_kernel(parent)
+
+
+def component_labels(adj: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """(k, k) 0/1 adjacency -> (k,) int32 connected-component labels, each
+    the smallest node id of its component: min-label propagation with
+    pointer jumping run to its fixed point, in one launch on the card with
+    no host sync (``resolve_roots.component_labels``)."""
+    if _plain(backend):
+        return ref.component_labels_ref(adj)
+    return _labels_kernel(adj)
 
 
 def prox_update_tree(theta, omega, g_theta, g_omega, eta, lam,

@@ -37,6 +37,36 @@ def resolve_roots_ref(parent: torch.Tensor) -> torch.Tensor:
     return p
 
 
+def component_labels_ref(adj: torch.Tensor) -> torch.Tensor:
+    """Connected-component labels of a 0/1 adjacency matrix: each node's
+    label converges to the smallest node id in its component (the JAX
+    package's ``core/device_clustering.py`` ``component_labels``).
+
+    Min-label propagation with pointer jumping, run to a FIXED POINT: per
+    pass every node takes the min over its neighbours' labels, then follows
+    its own label's label. At a fixed point adjacent nodes hold equal
+    labels, labels never leave their component, and the common value must
+    be the component minimum, so the exit condition is the proof. A fixed
+    pass count alone is NOT safe (an adversarially permuted chain needs
+    more), which is why the loop compares the labels before and after each
+    pass and stops when nothing changed: one host sync a pass."""
+    n = adj.shape[0]
+    label = torch.arange(n, dtype=torch.int32, device=adj.device)
+    linked = adj > 0
+    fill = torch.full((n, n), n, dtype=torch.int32, device=adj.device)
+
+    def one_pass(lab):
+        neigh = torch.where(linked, lab[None, :], fill).amin(dim=1)
+        lab = torch.minimum(lab, neigh)
+        return lab[lab.long()]
+
+    while True:
+        nxt = one_pass(label)
+        if torch.equal(nxt, label):
+            return nxt
+        label = nxt
+
+
 def prox_update_ref(theta, omega, g_theta, g_omega, eta: float, lam: float):
     """θ' = θ − η(g_θ + λ(θ − ω)), ω' = ω − η g_ω, in fp32, cast back to
     each operand's dtype. Returns new tensors."""

@@ -15,8 +15,8 @@ states and its gradients of dA and dBx must equal the plain versions
 exactly (the same roundings in the same order); y and the gradient of C
 within 1e-5 of their largest magnitude plus 1e-5 (sums over n and over d
 in another order: the error scales with the summed magnitudes, not with
-an entry that cancels). merge_candidates and
-resolve_roots must be exactly equal. The candidate inputs spread their
+an entry that cancels). merge_candidates,
+resolve_roots and component_labels must be exactly equal. The candidate inputs spread their
 cosines over (-1, 1) and each τ sits between two neighbouring float64
 cosines, at least 1e-5 from every pair (checked before the comparison):
 the ~1e-6 difference between the kernel's and the plain version's cosines
@@ -193,8 +193,10 @@ def test_merge_candidates_kernel_matches_plain(dev, n, d, n_dead):
 
 def _forests(n, rng):
     """A random forest (parents point at smaller ids), a chain through a
-    random permutation of the ids (the deepest tree), and an array that is
-    already fully compressed."""
+    random permutation of the ids (the deepest tree), an array that is
+    already fully compressed (what the path hands K4), a permutation cycle
+    through all the ids (never a fixed point: every step runs) and the
+    all-self array."""
     forest = np.arange(n, dtype=np.int32)
     for i in rng.permutation(n)[: n // 2]:
         forest[i] = rng.integers(0, i + 1)
@@ -204,10 +206,13 @@ def _forests(n, rng):
     roots = rng.choice(n, size=max(n // 7, 1), replace=False).astype(np.int32)
     compressed = roots[rng.integers(0, len(roots), n)]
     compressed[roots] = roots
-    return {"forest": forest, "chain": chain, "compressed": compressed}
+    cycle = np.empty(n, np.int32)
+    cycle[order] = np.roll(order, -1)
+    return {"forest": forest, "chain": chain, "compressed": compressed,
+            "cycle": cycle, "self": np.arange(n, dtype=np.int32)}
 
 
-@pytest.mark.parametrize("n", [1, 37, 512, 4096, 32768, 32769, 65536])
+@pytest.mark.parametrize("n", [1, 31, 37, 512, 4096, 32768, 32769, 65536])
 def test_resolve_roots_kernel_matches_plain(dev, n):
     rng = np.random.default_rng(n)
     for kind, parent_np in _forests(n, rng).items():
@@ -220,12 +225,82 @@ def test_resolve_roots_kernel_matches_plain(dev, n):
         assert got.dtype == torch.int32
         assert torch.equal(got, want), kind
         assert torch.equal(parent.cpu(), torch.from_numpy(parent_np)), "input written"
-        assert torch.equal(got[got.long()], got), kind     # every entry is a root
+        if kind != "cycle":                 # a forest: every entry is a root
+            assert torch.equal(got[got.long()], got), kind
 
 
 def test_resolve_roots_kernel_rejects_int64(dev):
     with pytest.raises(TypeError):
         resolve_roots.resolve_roots(torch.zeros(4, dtype=torch.int64, device=dev))
+
+
+def _graphs(k, rng):
+    """Symmetric (k, k) fp32 0/1 adjacencies with a zero diagonal, as K3
+    writes them: none, sparse, dense, a chain through a random order of the
+    ids (the most passes), and a few disjoint cliques."""
+    order = rng.permutation(k)
+    group = rng.integers(0, 4, k)
+    out = {"empty": np.zeros((k, k), bool),
+           "sparse": rng.random((k, k)) < 2.0 / k,
+           "dense": rng.random((k, k)) < 0.5,
+           "chain": np.zeros((k, k), bool),
+           "cliques": group[:, None] == group[None, :]}
+    out["chain"][order[:-1], order[1:]] = True
+    for kind, a in out.items():
+        a = a | a.T
+        np.fill_diagonal(a, False)
+        out[kind] = a.astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("k", [1, 64, 512, 1024, 2048, 4096])
+def test_component_labels_kernel_matches_plain(dev, k, shared, monkeypatch):
+    """Exact labels, one launch a call. The passes read the bit matrix from
+    shared memory while k <= 1024 and from the global scratch above; the
+    label arrays sit in shared memory up to k = 16,384 and in the scratch
+    above. ``shared=False`` forces both global routes at these sizes."""
+    if not shared:
+        monkeypatch.setattr(resolve_roots, "BITS_SHARED_MAX", 0)
+        monkeypatch.setattr(resolve_roots, "LABELS_SHARED_MAX", 0)
+    rng = np.random.default_rng(k)
+    for kind, adj_np in _graphs(k, rng).items():
+        adj = torch.from_numpy(adj_np).to(dev)
+        before = resolve_roots.label_launches
+        got = resolve_roots.component_labels(adj)
+        want = ref.component_labels_ref(adj)
+        torch.cuda.synchronize()
+        assert resolve_roots.label_launches == before + 1
+        assert got.dtype == torch.int32 and got.shape == (k,)
+        assert torch.equal(got, want), kind
+        if kind == "chain":
+            assert not bool(got.any())
+
+
+def test_component_labels_makes_no_host_sync(dev):
+    from repro_torch.kernels import ops
+    adj = torch.from_numpy(_graphs(512, np.random.default_rng(0))["cliques"]).to(dev)
+    want = ref.component_labels_ref(adj)
+    ops.component_labels(adj)                 # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.component_labels(adj)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+
+
+def test_component_labels_kernel_rejects_what_it_does_not_take(dev):
+    sq = torch.zeros((8, 8), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError):
+        resolve_roots.component_labels(torch.zeros((8, 4), device=dev))
+    with pytest.raises(TypeError):
+        resolve_roots.component_labels(sq.double())
+    with pytest.raises(TypeError):
+        resolve_roots.component_labels(sq.bfloat16())
+    with pytest.raises(ValueError):
+        resolve_roots.component_labels(torch.zeros((8, 16), device=dev)[:, ::2])
 
 
 def test_forked_state_unchanged_by_next_round_on_card(dev):
