@@ -3,15 +3,20 @@
 
     python3 chip_smoke.py
 
-Nine phases, each printing its lines; any failure exits non-zero and
+Ten phases, each printing its lines; any failure exits non-zero and
 prints no result.
 
 1. Build: compile the CUDA kernels of ``kernels/csrc`` with nvcc.
-2. Kernel checks: hold each kernel (K1 prox_update, K2 cosine_sim, K3
-   merge_candidates, K4 resolve_roots, the merge pass's component_labels,
-   K5 ssm_scan forward and backward) against its plain PyTorch version on
-   the card (TF32 off), then time the kernel, the plain version and, where
-   one exists, a single PyTorch call computing the same function. K4 is
+2. Kernel checks: hold each kernel (K1 prox_update and its local-SGD form
+   prox_theta, K2 cosine_sim, K3 merge_candidates, K4 resolve_roots, the
+   merge pass's component_labels, K5 ssm_scan forward and backward) against
+   its plain PyTorch version on the card (TF32 off), then time the kernel,
+   the plain version and, where one exists, a single PyTorch call computing
+   the same function. prox_theta must equal its plain version bitwise with
+   the anchor θ itself (λ = 0), a broadcast (P,) anchor and a full one, on
+   ragged and misaligned lengths, in fp32 and bf16, the anchor unchanged;
+   it is timed at the baselines' cohorts (40 and 400 clients × 153,610)
+   beside ``add_``. K4 is
    timed on the fully compressed arrays the path gives it and on chains,
    beside the launch floor (``torch.cuda._sleep(1)``); component_labels
    against its plain loop, which syncs once a pass, by a host clock around
@@ -74,6 +79,17 @@ prints no result.
 9. The smoke falcon-mamba in fp32 through the same rounds on the card and
    on the CPU: cohorts, partitions, merges, n_clusters equal, ω and bank
    rows within 1e-4.
+10. The paper's baselines at phase 3's setting through ``engine.init`` /
+   ``run_round`` on ``cuda``: FedAvg, FedProx (μ 0.05), Ditto (μ 0.05) and
+   IFCA (4 hypotheses) 5 rounds each at sample rate 0.1, CFL 3 rounds over
+   all 400 clients (eps_rel 0.5, eps2 0.01), their local SGD on
+   prox_theta. Per round the host wall, ``sampled`` and CFL's n_clusters;
+   launches asserted (prox_theta 5 a round, 10 for Ditto; prox_update
+   none); prox_theta held bitwise against its plain version on each
+   strategy's first local step; CFL's split statistics printed and a split
+   asserted; then 3 rounds of each on the CPU, whose cohorts, records,
+   IFCA choices and CFL members must be identical and whose ω, bank rows
+   and Ditto's personal rows of the sampled clients agree within 1e-4.
 
 The line before the last is one JSON object describing every kernel of the
 paths; the last line is ``{"ok": true, "device": {...}}``.
@@ -107,6 +123,17 @@ LLM_FP32_SPREAD = 1.0     # ... and after later rounds, against two plain runs a
 PARITY_FLAG = "--path3-parity"        # runs llm_parity_main, phase_llm_parity's child
 PARITY_TIMEOUT_S = 600
 LLM_GRAD_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}   # one gradient at ω₀, same
+# phase 10's CFL split thresholds: at 0.5 the card's 3 rounds split the
+# root cluster (round 0, |mean|/max 0.320) and both halves (round 2, 0.427
+# and 0.417) but not round 1 (0.582, 0.573); the statistics are printed
+CFL_EPS_REL, CFL_EPS2 = 0.5, 0.01
+BASELINES = (             # phase 10: (strategy, EngineConfig knobs, rounds on the card)
+    ("fedavg", {}, 5),
+    ("fedprox", {"mu": 0.05}, 5),
+    ("ditto", {"mu": 0.05}, 5),
+    ("ifca", {"n_models": 4}, 5),
+    ("cfl", {"eps_rel": CFL_EPS_REL, "eps2": CFL_EPS2}, 3),
+)
 
 
 def card_peaks(name: str):
@@ -237,6 +264,7 @@ def phase_kernels(dev, peaks):
         library_ms=None)
     print(f"[time] prox_update fp32 n={n}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
           f"bound {bound:.4f} ms ({6 * n * 4 / 1e6:.1f} MB)")
+    results["prox_theta"] = check_prox_theta(dev, bw, flops, rand)
 
     # --- K2 cosine_sim: fp32, zero rows exactly 0
     main_err = None
@@ -287,6 +315,78 @@ def phase_kernels(dev, peaks):
     results["component_labels"] = check_component_labels(dev, bw)
     results.update(check_ssm_scan(dev, bw, flops))
     return results
+
+
+def prox_theta_bound(n, period, bw, flops):
+    """(bound ms, bound_by) of K1's local-SGD step on n elements: θ and g
+    read and θ written (12 bytes an fp32 element), plus a broadcast anchor
+    of ``period`` elements read once (none when the anchor is θ itself);
+    5 fp32 operations an element."""
+    t_bytes = (12 * n + (4 * period if period else 0)) / bw
+    t_ops = 5 * n / flops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_prox_theta(dev, bw, flops, rand):
+    """K1's local-SGD form (θ only, the anchor read only) bitwise against
+    its plain version: λ = 0 with the anchor θ itself, λ = μ with a (P,)
+    anchor broadcast over the rows or a full-length one, ragged and
+    misaligned lengths, fp32 and bf16; the anchor's bytes unchanged. Then
+    timed at the baselines' cohort sizes (phase 10): FedAvg's 40 clients
+    and CFL's 400 at 153,610 parameters, beside its bound and, for λ = 0,
+    ``add_`` (one PyTorch call of the same function; it may contract to an
+    FMA, so it is a yardstick, not a reference)."""
+    import torch
+    from repro_torch.kernels import prox_update, ref
+
+    eta, mu, p = 0.1, 0.05, 153610
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, period, offset, kind in ((1, 1000, 0, "theta"), (1, 65537, 1, "theta"),
+                                           (40, p, 0, "theta"), (40, p, 0, "broadcast"),
+                                           (7, 65537, 1, "broadcast"), (3, 1001, 1, "full")):
+            n = rows * period
+            th, g = (rand(n + offset).to(dtype).to(dev)[offset:] for _ in range(2))
+            a = {"theta": th, "broadcast": rand(period), "full": rand(n)}[kind].to(dtype).to(dev)
+            lam = 0.0 if kind == "theta" else mu
+            want = ref.prox_theta_ref(th, a, g, eta, lam)
+            keep = a.clone()
+            ptr = th.data_ptr()
+            prox_update.prox_theta_flat(th, a, g, eta, lam)
+            torch.cuda.synchronize()
+            exact = bool(torch.equal(th.view(bits[dtype]), want.view(bits[dtype])))
+            untouched = kind == "theta" or bool(torch.equal(a.view(bits[dtype]),
+                                                            keep.view(bits[dtype])))
+            tag = f" offset={offset}" if offset else ""
+            print(f"[check] prox_theta {str(dtype)[6:]} n={n} ({rows} x {period}){tag} anchor "
+                  f"{kind} lam={lam}: bitwise equal to plain={exact}, anchor unchanged="
+                  f"{untouched}, in place={th.data_ptr() == ptr}")
+            assert exact and untouched and th.data_ptr() == ptr, \
+                f"prox_theta {dtype} n={n} {kind} disagrees with plain"
+
+    out = None
+    for rows in (40, 400):
+        n = rows * p
+        th, g, a = rand(n).to(dev), rand(n).to(dev), rand(p).to(dev)
+        k_ms = time_ms(lambda: prox_update.prox_theta_flat(th, th, g, eta, 0.0))
+        p_ms = time_ms(lambda: ref.prox_theta_ref(th, th, g, eta, 0.0))
+        l_ms = time_ms(lambda: th.add_(g, alpha=-eta))
+        kb_ms = time_ms(lambda: prox_update.prox_theta_flat(th, a, g, eta, mu))
+        pb_ms = time_ms(lambda: ref.prox_theta_ref(th, a, g, eta, mu))
+        bound, by = prox_theta_bound(n, 0, bw, flops)
+        bound_b, _ = prox_theta_bound(n, p, bw, flops)
+        print(f"[time] prox_theta fp32 n={n} ({rows} x {p}): lam=0, anchor theta: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, add_ {l_ms:.4f} ms, bound {bound:.4f} ms "
+              f"by {by} ({12 * n / 1e6:.1f} MB), {100 * bound / k_ms:.1f}% of bound; "
+              f"lam={mu}, broadcast ({p},) anchor: kernel {kb_ms:.4f} ms, plain {pb_ms:.4f} ms, "
+              f"bound {bound_b:.4f} ms, {100 * bound_b / kb_ms:.1f}% (no single PyTorch call)")
+        if rows == 40:
+            out = dict(name="prox_theta", route="cuda",
+                       source="src/repro_torch/kernels/csrc/prox_update.cu",
+                       replaces="src/repro/kernels/prox_update.py:29",
+                       max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
+                       library_ms=l_ms)
+    return out
 
 
 def spread_means(n, d, n_dead, seed, dev):
@@ -1641,6 +1741,208 @@ def phase_llm_smoke(dev):
     assert err <= MAIN_ATOL
 
 
+# ----------------------------------------------------------------- phase 10
+def _baseline_rounds(name, device, rounds, cfg, sync):
+    """(initial state, one record per round) of strategy ``name`` at the
+    main setting; a record holds the cohort (None under full
+    participation), the host wall ending in ``sync``, the round's metrics
+    and the state after it."""
+    from repro_torch import engine
+    clients, _, params, loss, _cfg = main_setting()
+    state = start = engine.init(name, loss, params, clients, cfg, device=device)
+    full = engine.get_strategy(name).full_participation
+    trace = []
+    for _ in range(rounds):
+        cohort = None if full else [int(c) for c in engine.sample_clients(state)[1]]
+        t0 = time.perf_counter()
+        state, rec = engine.run_round(state)
+        sync()
+        trace.append(dict(cohort=cohort, wall=time.perf_counter() - t0, rec=dict(rec),
+                          state=state))
+    return start, trace
+
+
+@contextlib.contextmanager
+def recording_first_theta_step():
+    """Within the block, the first ``ops.prox_theta_flat`` call (the first
+    local step of the first cohort) also keeps a copy of the (θ, anchor,
+    gradient, η, λ) it received, the anchor None when it was θ itself;
+    yields the list that receives it. The call itself goes through
+    unchanged, so its launch is counted once."""
+    from repro_torch.kernels import ops
+    real, records = ops.prox_theta_flat, []
+
+    def record(theta, anchor, grad, eta, lam, backend="auto"):
+        if not records:
+            records.append((theta.clone(), None if anchor is theta else anchor.clone(),
+                            grad.clone(), float(eta), float(lam)))
+        return real(theta, anchor, grad, eta, lam, backend=backend)
+
+    ops.prox_theta_flat = record
+    try:
+        yield records
+    finally:
+        ops.prox_theta_flat = real
+
+
+@contextlib.contextmanager
+def recording_ifca_choices():
+    """Within the block, every IFCA round's hypothesis choices are also
+    appended to the yielded list."""
+    from repro_torch.engine import strategies
+    real, records = strategies.IFCAStrategy.choices, []
+
+    def record(self, ctx, state, client_ids, batches=None):
+        out = real(self, ctx, state, client_ids, batches)
+        records.append([int(c) for c in out])
+        return out
+
+    strategies.IFCAStrategy.choices = record
+    try:
+        yield records
+    finally:
+        strategies.IFCAStrategy.choices = real
+
+
+def check_theta_on_path(record, name):
+    """K1's local-SGD form against its plain version, bitwise, on the
+    operands of the path's first local step."""
+    import torch
+    from repro_torch.kernels import prox_update, ref
+    th, a, g, eta, lam = record
+    got = th.clone()
+    anchor = got if a is None else a
+    keep = None if a is None else a.clone()
+    prox_update.prox_theta_flat(got, anchor, g, eta, lam)
+    want = ref.prox_theta_ref(th, th if a is None else a, g, eta, lam)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(got, want))
+    untouched = a is None or bool(torch.equal(a, keep))
+    print(f"[base] {name}: prox_theta on the first local step's operands (n={th.numel()}, "
+          f"anchor {'theta' if a is None else f'broadcast {tuple(a.shape)}'}, lam={lam}): "
+          f"bitwise equal to plain={exact}, anchor unchanged={untouched}")
+    assert exact and untouched, f"prox_theta disagrees with plain on {name}'s first step"
+
+
+def cfl_split_stats(state):
+    """The split statistics of the CFL round that starts from ``state``,
+    for each cluster of more than 2 members: (cluster, members, |mean
+    update| / max |update|, max |update|, the least and the next least
+    cosine between two members' updates). CFL splits a cluster when the
+    ratio is under ``eps_rel`` and the max over ``eps2``, seeding the
+    halves with the least similar pair; the margins show how far the
+    decisions lie from a tie. Recomputes the round's local SGD in the
+    plain tree form (the same floats as the fused form in fp32)."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.core import bilevel
+    from repro_torch.engine import strategies
+    from repro_torch.utils import trees
+    ctx, cfg = state.ctx, state.ctx.cfg
+    live, assign, k, rows = engine.get_strategy("cfl")._matrix(ctx, state)
+    a = torch.as_tensor(assign, device=ctx.device)
+    thetas = trees.tree_map(lambda r: r.index_select(0, a), rows)
+    outs = bilevel.make_cohort_sgd(ctx.loss_fn, cfg.lr, cfg.local_steps)(
+        thetas, strategies._batches(ctx, live))
+    flat = bilevel.flatten_tree(trees.tree_map(torch.sub, outs, thetas), batch_dims=1)
+    norms = torch.linalg.vector_norm(flat, dim=1)
+    out = []
+    for j in range(k):
+        m = a == j
+        cnt = int(m.sum())
+        if cnt <= 2:
+            continue
+        max_norm = float(norms[m].max())
+        ratio = float(torch.linalg.vector_norm(flat[m].mean(0))) / max_norm
+        sims = flat[m] / (norms[m][:, None] + 1e-12)
+        cos = (sims @ sims.T)[tuple(torch.triu_indices(cnt, cnt, 1, device=a.device))]
+        low = torch.topk(cos, 2, largest=False).values.tolist()
+        out.append(f"({j}, {cnt}, {ratio:.6f}, {max_norm:.6f}, {low[0]:.6f}, {low[1]:.6f})")
+    return " ".join(out)
+
+
+def baseline_model_diff(a, b, ids):
+    """Largest |difference| of ω, the bank rows and the personal rows of
+    clients ``ids`` between two states."""
+    from repro_torch.utils import trees
+    assert tuple(a.models.roots) == tuple(b.models.roots), "bank roots differ"
+    pairs = ([(a.omega, b.omega)] + [(a.models[r], b.models[r]) for r in a.models.roots]
+             + [(a.personal[c], b.personal[c]) for c in ids if c in a.personal])
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max())
+               for ta, tb in pairs for x, y in zip(trees.leaves(ta), trees.leaves(tb)))
+
+
+def phase_baselines(dev):
+    """Phase 10: the paper's baselines at the main setting on the card
+    through ``engine.init`` / ``run_round``, their local SGD on K1's
+    local-SGD form; launches counted, the kernel held against its plain
+    version on each strategy's first step, the first rounds repeated on
+    the CPU. Returns the local-SGD launches of all the card's rounds."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import prox_update
+
+    t_phase = time.perf_counter()
+    _, _, params, _, cfg = main_setting()
+    n_params = sum(p.numel() for p in params.values())
+    print(f"[base] pathological 400 clients x 128 x 64, MLP 2048 hidden ({n_params} params), "
+          f"lr {cfg.lr}, E={cfg.local_steps}, seed {cfg.seed}, fused_step=True; CFL eps_rel "
+          f"{CFL_EPS_REL}, eps2 {CFL_EPS2} (full participation, cohort_chunk 0)")
+    total = 0
+    for name, knobs, rounds in BASELINES:
+        bcfg = dataclasses.replace(cfg, **knobs)
+        steps = (2 if name == "ditto" else 1) * cfg.local_steps
+        with recording_first_theta_step() as first, recording_ifca_choices() as gpu_choices:
+            prox_update.launches = prox_update.theta_launches = 0
+            start, gpu = _baseline_rounds(name, dev, rounds, bcfg, torch.cuda.synchronize)
+            launched = (prox_update.theta_launches, prox_update.launches)
+        for t, r in enumerate(gpu):
+            extra = f", n_clusters {r['rec']['n_clusters']}" if "n_clusters" in r["rec"] else ""
+            print(f"[base] {name} cuda round {t}: wall {r['wall'] * 1e3:.1f} ms, sampled "
+                  f"{r['rec']['sampled']}{extra}")
+        print(f"[base] {name}: prox_theta launches {launched[0]} ({steps} a round), "
+              f"prox_update launches {launched[1]}")
+        assert launched == (rounds * steps, 0), launched
+        total += launched[0]
+        check_theta_on_path(first[0], name)
+        final = gpu[-1]["state"]
+        for tree in ([final.omega] + [final.models[r] for r in final.models.roots]
+                     + list(final.personal.values())):
+            for leaf in tree.values():
+                assert bool(torch.isfinite(leaf).all()), f"{name}: non-finite model values"
+        if name == "cfl":
+            for t, r in enumerate(gpu):
+                stats = cfl_split_stats(gpu[t - 1]["state"] if t else start)
+                print(f"[base] cfl round {t}: cluster sizes after it "
+                      f"{[len(m) for m in r['state'].members]}; split statistics (cluster, "
+                      f"members, |mean|/max, max, least cos, next cos) at its start {stats}")
+            assert gpu[-1]["rec"]["n_clusters"] > 1, "CFL made no split on the card"
+
+        with recording_ifca_choices() as cpu_choices:
+            _, cpu = _baseline_rounds(name, "cpu", CPU_ROUNDS, bcfg, lambda: None)
+        for t in range(CPU_ROUNDS):
+            g, c = gpu[t], cpu[t]
+            assert g["cohort"] == c["cohort"], f"{name} round {t}: cohort differs"
+            assert g["rec"] == c["rec"], f"{name} round {t}: {g['rec']} != {c['rec']}"
+            assert g["state"].members == c["state"].members, f"{name} round {t}: members"
+        assert gpu_choices[:CPU_ROUNDS] == cpu_choices, f"{name}: IFCA choices differ"
+        ids = sorted({i for r in gpu[:CPU_ROUNDS] for i in (r["cohort"] or ())})
+        err = baseline_model_diff(gpu[CPU_ROUNDS - 1]["state"], cpu[-1]["state"], ids)
+        what = "cohorts, records" + (", choices" if name == "ifca" else "") + \
+            (", members" if name == "cfl" else "")
+        walls = ", ".join(f"{r['wall'] * 1e3:.1f}" for r in cpu)
+        n_personal = len(ids) if name == "ditto" else 0
+        print(f"[base] {name}: {what} of rounds 0..{CPU_ROUNDS - 1} equal the CPU run's "
+              f"(CPU walls {walls} ms); omega, {len(cpu[-1]['state'].models)} bank rows and "
+              f"{n_personal} personal rows: max |cuda - cpu| = {err:.3e} (tol {MAIN_ATOL:g})")
+        assert err <= MAIN_ATOL
+        del start, gpu, cpu
+    print(f"[base] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1690,6 +1992,7 @@ def main() -> int:
         kernels[k]["launches"] = launches3[k]
     phase_llm_parity(expect)
     phase_llm_smoke(dev)
+    kernels["prox_theta"]["launches"] = phase_baselines(dev)
     print(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

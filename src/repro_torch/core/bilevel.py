@@ -13,6 +13,11 @@ loss reads only client c's parameters). In the fused form θ and ω live in
 two contiguous (C, P) buffers, the gradients are taken with respect to
 those buffers directly, so they arrive flat, and one ``prox_update`` launch
 per local step updates the whole cohort in place.
+
+The baselines (FedAvg, FedProx, Ditto, IFCA, CFL) run plain local SGD,
+optionally with a prox term to a shared anchor (``make_cohort_sgd``,
+``local_sgd``): the same cohort machinery with one (C, P) buffer and one
+launch of K1's local-SGD form (``ops.prox_theta_flat``) per step.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Callable
 import torch
 from torch.func import vmap
 
+from repro_torch.core.aggregators import mean_aggregate
 from repro_torch.kernels import ops
 from repro_torch.utils import trees
 
@@ -142,6 +148,75 @@ def make_client_update(loss_fn: Callable, lr: float, lam: float,
     return client_update
 
 
+def make_cohort_sgd(loss_fn: Callable, lr: float, steps: int, lam: float = 0.0,
+                    shared: bool = False, backend: str = "auto",
+                    fused: bool = False):
+    """Returns cohort_sgd(params, batches, prox_to=None) -> stacked params:
+    E = ``steps`` full-batch local SGD steps for every client of the cohort,
+    the reference's ``vmap(local_sgd)``.
+
+    ``params`` carries a leading client axis, or with ``shared=True`` is
+    one tree every client starts from (the reference's ``in_axes=None``);
+    ``prox_to`` is an optional tree of the per-client shape, the prox
+    anchor shared by every client (FedProx's broadcast global, Ditto's ω),
+    constant through the steps. ``fused=True`` runs the flat (C, P) path:
+    one ``ops.prox_theta_flat`` call a step (the kernel on CUDA under
+    ``backend="auto"``), with the anchor broadcast over the rows or, with
+    no anchor, θ itself at λ = 0, as the reference's fused ``local_sgd``
+    passes it. ``fused=False`` applies the reference's per-leaf expression,
+    ``p − lr·(g + λ(p − r))``, or ``p − lr·g`` with no anchor. Both give
+    the same floats in fp32. ``params`` is copied and left untouched."""
+
+    def fused_sgd(params, batches, prox_to=None):
+        c = trees.leaves(batches)[0].shape[0]
+        spec = flat_spec(params if shared else trees.tree_map(lambda x: x[0], params))
+        th = (flatten_tree(params).expand(c, -1).contiguous() if shared
+              else flatten_tree(params, batch_dims=1))
+        anchor = None if prox_to is None else flatten_tree(prox_to)
+        lam_eff = 0.0 if anchor is None else lam
+        for _ in range(steps):
+            th_v = th.detach().requires_grad_(True)
+            with torch.enable_grad():
+                loss = vmap(loss_fn)(unflatten_tree(th_v, spec), batches).sum()
+                (g,) = torch.autograd.grad(loss, (th_v,))
+            flat = th.view(-1)
+            ops.prox_theta_flat(flat, flat if anchor is None else anchor,
+                                g.reshape(-1), lr, lam_eff, backend=backend)
+        return unflatten_tree(th, spec)
+
+    def tree_sgd(params, batches, prox_to=None):
+        c = trees.leaves(batches)[0].shape[0]
+        p = (trees.tree_map(lambda x: x.detach().expand(c, *x.shape), params)
+             if shared else trees.tree_map(lambda x: x.detach(), params))
+        for _ in range(steps):
+            p_v = trees.tree_map(
+                lambda x: x.detach().contiguous().requires_grad_(True), p)
+            with torch.enable_grad():
+                loss = vmap(loss_fn)(p_v, batches).sum()
+                grads = torch.autograd.grad(loss, trees.leaves(p_v))
+            g = trees.from_leaves(p_v, grads)
+            if prox_to is not None:
+                g = trees.tree_map(lambda gi, pi, ri: gi + lam * (pi - ri),
+                                   g, p, prox_to)
+            p = trees.tree_map(lambda pi, gi: (pi - lr * gi).to(pi.dtype), p, g)
+        return p
+
+    return fused_sgd if fused else tree_sgd
+
+
+def local_sgd(loss_fn: Callable, params, batch, lr: float, steps: int,
+              prox_to=None, lam: float = 0.0, fused: bool = False,
+              backend: str = "auto"):
+    """Generic E-step local SGD for one client (shared by FedAvg, FedProx,
+    Ditto, IFCA and CFL): the cohort form over a cohort of one.
+    ``prox_to``: optional reference params for a FedProx/Ditto prox term
+    of weight ``lam``."""
+    out = make_cohort_sgd(loss_fn, lr, steps, lam, shared=True, backend=backend,
+                          fused=fused)(params, trees.tree_map(lambda x: x[None], batch),
+                                       prox_to)
+    return trees.tree_map(lambda x: x[0], out)
+
+
 def chunk_map(fn: Callable, in_axes, chunk: int) -> Callable:
     """Memory-flat cohort execution: run a cohort-stacked ``fn`` over the
     cohort in fixed-size chunks, one call per chunk.
@@ -191,6 +266,17 @@ def _cat_outputs(outs, c: int):
 
 
 # ----------------------------------------------------------- server side
+def aggregate(trees_list, weights):
+    """Server Aggregate/FedAvg: sample-count weighted mean of a list of
+    trees."""
+    return trees.tree_weighted_mean(trees_list, weights)
+
+
+# the weighted mean over a stacked tree's client axis, weights normalised
+# before the one sum (the reference's order): the mean aggregator itself
+aggregate_stacked = mean_aggregate
+
+
 def aggregate_segments(stacked, weights, segment_ids, num_segments: int):
     """Per-cluster FedAvg as one batched op: the weighted mean over rows of
     a stacked tree grouped by ``segment_ids`` (cohort row -> cluster

@@ -47,7 +47,9 @@ def init(strategy: str, loss_fn, init_params, clients,
     """Build the static context and the strategy's initial ``ServerState``.
 
     Args:
-      strategy: registered strategy name (``"stocfl"``).
+      strategy: registered strategy name (``engine.list_strategies()``):
+        ``"stocfl"`` (Algorithm 1) or one of the paper's §4 baselines,
+        ``"fedavg"``, ``"fedprox"``, ``"ditto"``, ``"ifca"``, ``"cfl"``.
       loss_fn: ``(params, batch) -> scalar tensor`` local objective f_i,
         written for one client (the engine vmaps it over the cohort).
       init_params: ω₀ — also the frozen Ψ anchor (§3.1) and the lazy
@@ -98,15 +100,27 @@ def sample_clients(state: ServerState, unavailable=frozenset()):
     return rng.bit_generator.state, ids
 
 
+def advance_rng(state: ServerState, rng_state: dict) -> ServerState:
+    """Store an advanced sampling rng (the bit-generator state that
+    ``sample_clients`` returned first) back into the state."""
+    return state.replace(rng_state=rng_state)
+
+
 def run_round(state: ServerState, client_ids: Optional[Sequence[int]] = None):
     """One server round: ``(state, client_ids?) -> (state', metrics)``.
 
     With ``client_ids=None`` the cohort is sampled internally (advancing
-    the state's rng); an explicit cohort leaves the rng untouched."""
+    the state's rng; full-participation strategies take every live client
+    and leave the rng untouched); an explicit cohort leaves the rng
+    untouched."""
     strat = get_strategy(state.strategy)
     rng_state = state.rng_state
     if client_ids is None:
-        rng_state, client_ids = sample_clients(state)
+        if strat.full_participation:
+            client_ids = np.array([i for i in range(state.n_clients)
+                                   if i not in state.left])
+        else:
+            rng_state, client_ids = sample_clients(state)
     client_ids = np.asarray(client_ids)
     if client_ids.size == 0:
         raise ValueError("run_round needs a non-empty cohort "

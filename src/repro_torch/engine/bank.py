@@ -50,6 +50,25 @@ class ClusterBank(Mapping):
     def empty(cls) -> "ClusterBank":
         return cls(None, ())
 
+    @classmethod
+    def from_dict(cls, models) -> "ClusterBank":
+        """Stack a ``{root: tree}`` dict into a bank (rows in sorted root
+        order, zero rows up to a power-of-two capacity)."""
+        roots = sorted(int(k) for k in models)
+        if not roots:
+            return cls.empty()
+        cap = _pow2(len(roots))
+
+        def leaf(*xs):
+            pad = [xs[0].new_zeros(xs[0].shape)] * (cap - len(xs))
+            return torch.stack(list(xs) + pad)
+
+        return cls(trees.tree_map(leaf, *[models[r] for r in roots]), roots)
+
+    def to_dict(self) -> Dict[int, object]:
+        """The bank as a plain ``{root: tree}`` dict (views of its rows)."""
+        return {r: self[r] for r in self.roots}
+
     @property
     def capacity(self) -> int:
         """Allocated rows (>= ``len(self)``, a power of two)."""

@@ -30,20 +30,24 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass
 class EngineConfig:
-    """StoCFL's knobs: the JAX package's ``EngineConfig`` fields the port
-    implements so far. Cohorts are drawn by the numpy bit-generator and
-    params run in fp32 (the reference's ``rng_backend="numpy"``,
-    ``dtype="float32"``, no ``async_cfg``); the fields for the other
-    settings do not exist yet, so asking for them raises.
-    ``project_dim`` sketches Ψ to that many dimensions
-    (``extractor.JLSketch``; None keeps the full gradient).
-    ``fused_step`` routes the local update through the flat (C, P) path
-    and the ``prox_update`` kernel. ``cluster_backend`` picks
-    where the partition lives: ``"numpy"``, the host ``ClusterState``, or
-    ``"device"``, the ``DeviceClusters`` union-find (kernels
-    ``merge_candidates`` and ``resolve_roots``). ``cohort_chunk`` bounds
-    how many clients one cohort step runs (``bilevel.chunk_map``; 0 =
-    off)."""
+    """The knobs of every registered strategy: the JAX package's
+    ``EngineConfig`` fields the port implements so far. Cohorts are drawn
+    by the numpy bit-generator and params run in fp32 (the reference's
+    ``rng_backend="numpy"``, ``dtype="float32"``, no ``async_cfg``); the
+    fields for the other settings do not exist yet, so asking for them
+    raises.
+    StoCFL reads ``tau``, ``lam``, ``lr``, ``local_steps``,
+    ``sample_rate``, ``aggregator`` and ``project_dim`` (Ψ's JL sketch
+    width, ``extractor.JLSketch``; None keeps the full gradient); FedProx
+    and Ditto read ``mu``; IFCA reads ``n_models`` and ``init_key``; CFL
+    reads ``eps_rel`` and ``eps2`` and always runs full participation.
+    ``fused_step`` routes every strategy's local update through the flat
+    (C, P) path and K1 (``prox_update``, or its local-SGD form for the
+    baselines). ``cluster_backend`` picks where StoCFL's partition lives:
+    ``"numpy"``, the host ``ClusterState``, or ``"device"``, the
+    ``DeviceClusters`` union-find (kernels ``merge_candidates`` and
+    ``resolve_roots``). ``cohort_chunk`` bounds how many clients one
+    cohort step runs (``bilevel.chunk_map``; 0 = off)."""
     tau: float = 0.5
     lam: float = 0.05
     lr: float = 0.1
@@ -51,10 +55,15 @@ class EngineConfig:
     sample_rate: float = 0.1
     seed: int = 0
     aggregator: str = "mean"          # G(·): mean | median | trimmed_mean | krum
-    fused_step: bool = False          # flat fused bilevel local update
-    cluster_backend: str = "numpy"    # StoCFL partition: numpy | device
-    cohort_chunk: int = 0             # max clients per cohort step (0 = off)
     project_dim: Optional[int] = None  # Ψ's JL sketch width (None = off)
+    mu: float = 0.05                  # FedProx / Ditto prox weight
+    n_models: int = 4                 # IFCA hypothesis count
+    init_key: int = 0                 # IFCA perturbation seed
+    eps_rel: float = 0.35             # CFL split thresholds
+    eps2: float = 0.01
+    cohort_chunk: int = 0             # max clients per cohort step (0 = off)
+    cluster_backend: str = "numpy"    # StoCFL partition: numpy | device
+    fused_step: bool = False          # flat fused local update
 
 
 @dataclasses.dataclass
@@ -82,12 +91,13 @@ class EngineContext:
 
 @dataclasses.dataclass
 class ServerState:
-    """The federated server as a value: ``omega`` (global model) and
-    ``models`` (cluster models keyed by root) are trees of tensors on the
-    engine's device; the rest is host bookkeeping — strategy name, round
-    counter, numpy bit-generator state (so sampling is checkpoint-exact),
-    per-client sample counts, the departed set, the Ψ clustering state and
-    the metric history."""
+    """The federated server as a value: ``omega`` (global model),
+    ``models`` (cluster or hypothesis models keyed by int) and ``personal``
+    (Ditto's per-client models) are trees of tensors on the engine's
+    device; the rest is host bookkeeping — strategy name, round counter,
+    numpy bit-generator state (so sampling is checkpoint-exact), per-client
+    sample counts, the departed set, the Ψ clustering state, CFL's
+    membership and the metric history."""
     ctx: EngineContext
     strategy: str
     round: int
@@ -96,7 +106,9 @@ class ServerState:
     left: frozenset
     omega: Any
     models: Any
+    personal: Dict[int, Any] = dataclasses.field(default_factory=dict)
     clusters: Optional[Any] = None    # ClusterState or DeviceClusters
+    members: Optional[Tuple[Tuple[int, ...], ...]] = None   # CFL partition
     history: Tuple[dict, ...] = ()
 
     @property
@@ -107,6 +119,11 @@ class ServerState:
     def cluster_model(self, root: int):
         """θ_k for a cluster root (lazy: ω₀ until first aggregate)."""
         return self.models.get(root, self.ctx.init_params)
+
+    def client_root(self, cid: int) -> int:
+        """Union-find root (= cluster id) of an observed client."""
+        assert self.clusters is not None
+        return self.clusters.uf.find(int(cid))
 
     def rng(self) -> np.random.Generator:
         """The sampling generator at this state's position."""

@@ -1,4 +1,11 @@
-"""Federated strategies over shared machinery — so far StoCFL.
+"""The six federated strategies over shared machinery: StoCFL and the
+paper's baselines (FedAvg, FedProx, Ditto, IFCA, CFL).
+
+The paper frames StoCFL as a family that degenerates into the baselines
+(§3.4: τ=1 → Ditto, λ=0 → CFL, λ=0 ∧ τ=−1 → FedAvg); every method here is
+a ``Strategy`` over the same cohort primitives (``bilevel.make_cohort_update``
+for StoCFL, ``bilevel.make_cohort_sgd`` for the baselines), the same
+weighted aggregation and the same ``ServerState`` transitions.
 
 A ``Strategy`` turns ``(ctx, state, client_ids)`` into ``(state', metrics)``
 without mutating its input. When the context carries a ``ClientArena``
@@ -14,6 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from repro_torch.core import bilevel
 from repro_torch.core import device_clustering as devclust
@@ -97,6 +105,7 @@ class Strategy:
 
     name = "base"
     needs_extractor = False
+    full_participation = False        # run_round trains every live client
 
     def init_state(self, ctx: EngineContext) -> ServerState:
         """Round-0 state: ω = ω₀, empty bank, fresh sampling rng."""
@@ -296,3 +305,350 @@ class StoCFLStrategy(Strategy):
                         "seed_from": root, "similarity": sim,
                         "model": state.cluster_model(root)})
         return out
+
+
+# ------------------------------------------------------------------ baselines
+def _cohort_sgd(ctx: EngineContext, lam: float = 0.0, shared: bool = False):
+    """The baselines' cohort local SGD (``bilevel.make_cohort_sgd``): with
+    ``fused_step`` one launch of K1's local-SGD form a step on CUDA."""
+    cfg = ctx.cfg
+    return bilevel.make_cohort_sgd(ctx.loss_fn, cfg.lr, cfg.local_steps, lam,
+                                   shared=shared, fused=bool(cfg.fused_step))
+
+
+@register("fedavg")
+class FedAvgStrategy(Strategy):
+    """Single global model; λ=0 ∧ τ=−1 degeneration of StoCFL."""
+
+    prox = False
+
+    def _upd(self, ctx):
+        cfg = ctx.cfg
+
+        def build():
+            sgd = _cohort_sgd(ctx, cfg.mu if self.prox else 0.0, shared=True)
+            # FedProx: the prox anchor is the broadcast global itself
+            fn = (lambda p, b: sgd(p, b, p)) if self.prox else sgd
+            return bilevel.chunk_map(fn, (None, 0), cfg.cohort_chunk)
+
+        return ctx.cached(f"{self.name}_upd:{bool(cfg.fused_step)}", build)
+
+    def round(self, ctx, state, client_ids):
+        ids = np.asarray(client_ids)
+        outs = self._upd(ctx)(state.omega, _batches(ctx, ids))
+        omega = bilevel.aggregate_stacked(outs, _weights(state, ids))
+        return state.replace(omega=omega), {"sampled": len(ids)}
+
+
+@register("fedprox")
+class FedProxStrategy(FedAvgStrategy):
+    """FedAvg + prox to the broadcast global (constant through the local
+    steps)."""
+    prox = True
+
+
+@register("ditto")
+class DittoStrategy(Strategy):
+    """Global FedAvg + per-client personal models with prox to global
+    (τ=1 degeneration: every client is its own cluster)."""
+
+    def init_state(self, ctx):
+        personal = {i: ctx.init_params for i in range(len(ctx.clients))}
+        return super().init_state(ctx).replace(personal=personal)
+
+    def _upds(self, ctx):
+        cfg = ctx.cfg
+        fused = bool(cfg.fused_step)
+        gupd = ctx.cached(f"ditto_g:{fused}", lambda: bilevel.chunk_map(
+            _cohort_sgd(ctx, shared=True), (None, 0), cfg.cohort_chunk))
+
+        def build_p():
+            sgd = _cohort_sgd(ctx, cfg.mu)
+            return bilevel.chunk_map(lambda v, g, b: sgd(v, b, g), (0, None, 0),
+                                     cfg.cohort_chunk)
+
+        return gupd, ctx.cached(f"ditto_p:{fused}", build_p)
+
+    def round(self, ctx, state, client_ids):
+        """The global step and the personal step read the same cohort
+        batch; each personal row is copied out of the cohort's output, so a
+        client's row does not hold its round's whole buffer alive."""
+        ids = np.asarray(client_ids)
+        gupd, pupd = self._upds(ctx)
+        batches = _batches(ctx, ids)
+        g_outs = gupd(state.omega, batches)
+        v_stack = trees.tree_map(lambda *xs: torch.stack(xs),
+                                 *[state.personal[int(c)] for c in ids])
+        v_outs = pupd(v_stack, state.omega, batches)
+        omega = bilevel.aggregate_stacked(g_outs, _weights(state, ids))
+        personal = dict(state.personal)
+        for j, c in enumerate(ids):
+            personal[int(c)] = trees.tree_map(lambda x: x[j].clone(), v_outs)
+        return state.replace(omega=omega, personal=personal), {"sampled": len(ids)}
+
+    def evaluate(self, ctx, state, test_sets, true_cluster=None):
+        """Per true cluster: the mean accuracy of its first 8 clients'
+        personal models (ω where it has none)."""
+        out = {}
+        n = state.n_clients
+        for tc, batch in test_sets.items():
+            members = [i for i in range(n) if true_cluster[i] == tc]
+            accs = [float(ctx.eval_fn(state.personal[i], batch)) for i in members[:8]]
+            out[tc] = (float(np.mean(accs)) if accs
+                       else float(ctx.eval_fn(state.omega, batch)))
+        return {"cluster_avg": float(np.mean(list(out.values()))), "per": out}
+
+    def join(self, ctx, state, batch):
+        state, cid = super().join(ctx, state, batch)
+        personal = dict(state.personal)
+        personal[cid] = ctx.init_params
+        return state.replace(personal=personal), cid
+
+
+@register("ifca")
+class IFCAStrategy(Strategy):
+    """Ghosh et al. 2020: M̃ hypothesis models, clients pick argmin loss."""
+
+    def init_state(self, ctx):
+        """M̃ hypotheses, each ω₀ plus 0.1 · N(0, 1) noise on its floating
+        leaves. The noise comes from a ``torch.Generator`` seeded by
+        ``init_key`` (the reference draws it with ``jax.random``, which
+        torch cannot reproduce: a difference by design)."""
+        cfg = ctx.cfg
+        gen = torch.Generator().manual_seed(int(cfg.init_key))
+
+        def perturb(x):
+            if not x.is_floating_point():
+                return x
+            noise = torch.randn(tuple(x.shape), generator=gen)
+            return x + 0.1 * noise.to(device=x.device, dtype=x.dtype)
+
+        init = ctx.init_params
+        models = {m: trees.from_leaves(init, [perturb(x) for x in trees.leaves(init)])
+                  for m in range(cfg.n_models)}
+        return super().init_state(ctx).replace(models=ClusterBank.from_dict(models))
+
+    def _upd(self, ctx):
+        cfg = ctx.cfg
+        return ctx.cached(f"ifca_upd:{bool(cfg.fused_step)}", lambda: bilevel.chunk_map(
+            _cohort_sgd(ctx), (0, 0), cfg.cohort_chunk))
+
+    def _choice(self, ctx):
+        """(M, ...) models × (C, ...) batches -> (C, M) losses: a vmap over
+        the cohort of a vmap over the models, chunked like the cohort so
+        it never holds M·C activations beyond a chunk's."""
+        loss_fn = ctx.loss_fn
+
+        def losses(ms, bs):
+            with torch.no_grad():
+                return vmap(lambda b: vmap(lambda m: loss_fn(m, b))(ms))(bs)
+
+        return ctx.cached("ifca_choice", lambda: bilevel.chunk_map(
+            losses, (None, 0), ctx.cfg.cohort_chunk))
+
+    def choices(self, ctx, state, client_ids, batches=None) -> np.ndarray:
+        """Each client's hypothesis: the first argmin of its losses."""
+        if batches is None:
+            batches = _batches(ctx, np.asarray(client_ids))
+        hyps = state.models.take(np.arange(ctx.cfg.n_models), ctx.init_params)
+        return np.argmin(self._choice(ctx)(hyps, batches).cpu().numpy(), axis=1)
+
+    def round(self, ctx, state, client_ids):
+        ids = np.asarray(client_ids)
+        batches = _batches(ctx, ids)
+        choices = self.choices(ctx, state, ids, batches)
+        thetas = state.models.take(choices, ctx.init_params)
+        outs = self._upd(ctx)(thetas, batches)
+        w = _weights(state, ids)
+        um, seg = np.unique(choices, return_inverse=True)
+        agg = bilevel.aggregate_segments(outs, w, seg, bank_pow2(len(um)))
+        models = state.models.put([int(m) for m in um], agg)
+        return state.replace(models=models), {"sampled": len(ids)}
+
+    def evaluate(self, ctx, state, test_sets, true_cluster=None):
+        """Each test set with its best hypothesis (oracle assignment)."""
+        out = {}
+        for tc, batch in test_sets.items():
+            accs = [float(ctx.eval_fn(state.models[m], batch))
+                    for m in range(ctx.cfg.n_models)]
+            out[tc] = float(np.max(accs))
+        return {"cluster_avg": float(np.mean(list(out.values()))), "per": out}
+
+
+@register("cfl")
+class CFLStrategy(Strategy):
+    """Sattler et al. 2020a: full participation; recursively bi-partition a
+    cluster near stationarity (relative-norm criterion); split seeds are
+    the least-similar update pair, greedy assignment to the closer seed."""
+
+    full_participation = True
+
+    def init_state(self, ctx):
+        state = super().init_state(ctx)
+        return state.replace(members=(tuple(range(len(ctx.clients))),),
+                             models=ClusterBank.from_dict({0: ctx.init_params}))
+
+    def _core(self, ctx):
+        """The whole CFL round over a fixed L-client layout: ``(assign
+        (L,), k, model rows (L, ...), batches, sizes) -> (assign', k',
+        rows')``, the reference's jitted ``_core``.
+
+        Every client trains from its cluster's model; per-cluster FedAvg
+        and the Sattler split statistics are segment reductions over the
+        client axis (within a segment in ascending cid, the member-tuple
+        order); split emission renumbers clusters by cumulative-split
+        offset (split cluster j → slots j+off and j+off+1). The O(L²·d)
+        similarity product and the seeds run only on rounds with a split
+        candidate, as the reference's ``lax.cond`` gates them; deciding
+        that reads one flag on the host."""
+        cfg = ctx.cfg
+
+        def build():
+            upd = bilevel.chunk_map(_cohort_sgd(ctx), (0, 0), cfg.cohort_chunk)
+
+            def core(assign, k, rows, batches, sizes):
+                L, dev = assign.numel(), assign.device
+                thetas = trees.tree_map(lambda R: torch.index_select(R, 0, assign), rows)
+                outs = upd(thetas, batches)
+                deltas = trees.tree_map(torch.sub, outs, thetas)
+                flat = vmap(trees.tree_flatten_vector)(deltas)          # (L, d)
+                norms = torch.linalg.vector_norm(flat, dim=1)
+                ks = torch.arange(L, device=dev)
+                cnt = torch.zeros(L, dtype=torch.int64, device=dev).index_add_(
+                    0, assign, torch.ones_like(assign))
+                new_models = bilevel.aggregate_segments(outs, sizes, assign, L)
+                mean_g = (torch.zeros_like(flat).index_add_(0, assign, flat)
+                          / cnt.clamp(min=1)[:, None])
+                mean_norm = torch.linalg.vector_norm(mean_g, dim=1)
+                # empty segments stay -inf, as jax.ops.segment_max leaves them
+                max_norm = torch.full((L,), -torch.inf, device=dev).scatter_reduce_(
+                    0, assign, norms, "amax", include_self=True)
+                candidate = ((ks < k) & (cnt > 2) & (max_norm > cfg.eps2)
+                             & (mean_norm < cfg.eps_rel * max_norm))
+
+                # split seeds: the least-similar member pair, the first
+                # minimum in row-major member order (np.unravel_index's rule)
+                c2 = torch.zeros((L, L), dtype=torch.bool, device=dev)
+                seed_ok = torch.zeros(L, dtype=torch.bool, device=dev)
+                cands = candidate.nonzero().flatten().tolist()
+                if cands:
+                    sims = flat / (norms[:, None] + 1e-12)
+                    m = sims @ sims.T
+                    for j in cands:
+                        mask = assign == j
+                        mj = torch.where(mask[:, None] & mask[None, :], m, torch.inf)
+                        amin = torch.argmin(mj).reshape(1)
+                        gi, gj = amin // L, amin % L
+                        c1 = mask & (m.index_select(1, gi)[:, 0] >= m.index_select(1, gj)[:, 0])
+                        c2[j] = mask & ~c1
+                        seed_ok[j] = c1.any() & c2[j].any()
+                split = candidate & seed_ok
+                s = split.to(torch.int64)
+                new_pos = ks + torch.cumsum(s, 0) - s
+                base = new_pos[assign]
+                assign2 = torch.where(c2[assign, ks] & split[assign], base + 1, base)
+                # the reference's .at[idx].set(mode="drop") with idx = L for
+                # the rows it drops: here row L is a scratch row, cut off
+                idx1 = torch.where(ks < k, new_pos, L)
+                idx2 = torch.where(split, new_pos + 1, L)
+
+                def leaf(r, nm):
+                    ext = torch.cat([r, r.new_zeros((1,) + tuple(r.shape[1:]))])
+                    nm = nm.to(r.dtype)
+                    return ext.index_copy_(0, idx1, nm).index_copy_(0, idx2, nm)[:L]
+
+                rows2 = trees.tree_map(leaf, rows, new_models)
+                return assign2, k + int(s.sum()), rows2
+
+            return core
+
+        return ctx.cached("cfl_core", build)
+
+    def _matrix(self, ctx, state):
+        """Host matrix form of the CFL state: ``(live cids asc, assign per
+        live position, k, (L, ...) model rows)``, the layout ``_core`` runs
+        on; member tuples keep clients ascending, so matrix ↔ tuples
+        round-trips exactly."""
+        live = np.array([i for i in range(state.n_clients)
+                         if i not in state.left], np.int64)
+        pos = {int(c): p for p, c in enumerate(live)}
+        assign = np.zeros(len(live), np.int64)
+        for j, grp in enumerate(state.members):
+            for c in grp:
+                assign[pos[int(c)]] = j
+        k = len(state.members)
+        stacked = state.models.take(np.arange(k), ctx.init_params)
+        rows = trees.tree_map(
+            lambda x: torch.cat([x, x.new_zeros((len(live) - k,) + tuple(x.shape[1:]))]),
+            stacked)
+        return live, assign, k, rows
+
+    @staticmethod
+    def _untangle(live, assign, k, rows):
+        """Matrix form back to the tuple partition + ``ClusterBank``."""
+        members = tuple(tuple(int(c) for c in live[assign == j]) for j in range(k))
+        models = ClusterBank.from_dict(
+            {j: trees.tree_map(lambda r, jj=j: r[jj], rows) for j in range(k)})
+        return members, models
+
+    def round(self, ctx, state, client_ids):
+        """One round over every live client (CFL trains on its members,
+        whatever cohort it is handed)."""
+        live, assign, k, rows = self._matrix(ctx, state)
+        sizes = torch.as_tensor(np.asarray(state.sizes, np.float32)[live],
+                                device=ctx.device)
+        assign2, k2, rows2 = self._core(ctx)(
+            torch.as_tensor(assign, device=ctx.device), k, rows,
+            _batches(ctx, live), sizes)
+        members, models = self._untangle(live, assign2.cpu().numpy(), k2, rows2)
+        state = state.replace(members=members, models=models)
+        return state, {"n_clusters": len(members),
+                       "sampled": sum(len(m) for m in members)}
+
+    def cluster_of(self, state, cid: int) -> int:
+        for k, c in enumerate(state.members):
+            if cid in c:
+                return k
+        return 0
+
+    def join(self, ctx, state, batch):
+        """CFL has no Ψ inference: the newcomer joins the cluster whose
+        model fits its data best (argmin loss, IFCA-style) and trains and
+        splits with it from the next round on."""
+        state, cid = super().join(ctx, state, batch)
+        with torch.no_grad():
+            k = int(np.argmin([float(ctx.loss_fn(state.models[m], batch))
+                               for m in range(len(state.members))]))
+        members = list(state.members)
+        members[k] = members[k] + (cid,)
+        return state.replace(members=tuple(members)), cid
+
+    def leave(self, ctx, state, cid):
+        """Full participation trains on ``members``, so departure rewrites
+        the partition: drop the client everywhere, discard any cluster it
+        leaves empty, and re-index the model table to match."""
+        state = super().leave(ctx, state, cid)
+        cid = int(cid)
+        members, models = [], {}
+        for k, group in enumerate(state.members):
+            group = tuple(m for m in group if m != cid)
+            if group:
+                models[len(members)] = state.models[k]
+                members.append(group)
+        if not members:                       # last client left: keep the
+            members = [()]                    # root cluster's model around
+            models = {0: state.models.get(0, ctx.init_params)}
+        return state.replace(members=tuple(members),
+                             models=ClusterBank.from_dict(models))
+
+    def evaluate(self, ctx, state, test_sets, true_cluster=None):
+        """Each true cluster with the model of the cluster holding most of
+        its clients (ties broken as ``max(set(ks), key=ks.count)``)."""
+        out = {}
+        for tc, batch in test_sets.items():
+            ks = [self.cluster_of(state, i) for i in range(state.n_clients)
+                  if true_cluster[i] == tc]
+            k = max(set(ks), key=ks.count)
+            out[tc] = float(ctx.eval_fn(state.models[k], batch))
+        return {"cluster_avg": float(np.mean(list(out.values()))), "per": out,
+                "n_clusters": len(state.members)}

@@ -33,6 +33,10 @@ _SIGNATURES = {
                         ctypes.c_float, _P],
     "prox_update_bf16": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_float,
                          ctypes.c_float, _P],
+    "prox_theta_f32": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_float, ctypes.c_float, _P],
+    "prox_theta_bf16": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                        ctypes.c_float, ctypes.c_float, _P],
     "cosine_sim_f32": [_P] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
                       + [_P] * 4,
     "merge_candidates_f32": [_P, _P] + [ctypes.c_longlong] * 3

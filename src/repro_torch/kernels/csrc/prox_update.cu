@@ -19,6 +19,21 @@
 // padding. Misaligned pointers take the scalar loop. Math is fp32 with each
 // operation rounded separately (no FMA contraction), the same sequence of
 // roundings as the plain PyTorch version; bf16 results round to nearest even.
+//
+// Local-SGD form (entry prox_theta_*), the theta output alone with a
+// read-only anchor a:
+//     theta <- theta - eta * (g + lam * (theta - a))
+// This is what the reference's `bilevel.local_sgd` computes through the same
+// TPU kernel: it passes its gradient as both g_theta and g_omega, the prox
+// anchor (or theta itself, with lam = 0) in omega's slot, and drops the omega
+// output. Here the anchor is never written, so it stays constant through the
+// E local steps, and `a` may be theta itself (lam = 0): each element reads its
+// anchor before its theta is stored, by the same thread. `a` has either
+// theta's length or a period P dividing n, broadcast over the n / P rows of a
+// cohort's (C, P) buffer (the shared prox anchor, read from L2 after the first
+// row). Bound: memory, 12 bytes an fp32 element (theta and g read, theta
+// written) plus the anchor read once; theta and g move in 16-byte vectors, a
+// broadcast anchor element by element (its rows need not be 16-byte aligned).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -99,7 +114,95 @@ int launch(void* th, void* om, const void* gt, const void* go, long long n,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+__device__ __forceinline__ void theta_one(T& th, float a, T g, float eta, float lam) {
+  const float t = to_f32(th);
+  const float inner = __fadd_rn(to_f32(g), __fmul_rn(lam, __fsub_rn(t, a)));
+  store_f32(th, __fsub_rn(t, __fmul_rn(eta, inner)));
+}
+
+// BCAST: the anchor has period P < n (read as a[j % P]); else it has n
+// elements and, on the vector path, is 16-byte aligned like theta and g.
+// theta and a are not __restrict__: they are the same array when lam = 0.
+template <typename T, bool BCAST>
+__global__ void __launch_bounds__(256) prox_theta_vec(
+    T* th, const T* a, const T* __restrict__ g, long long n, long long period,
+    float eta, float lam) {
+  constexpr int V = 16 / sizeof(T);
+  const long long nvec = n / V;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = tid; i < nvec; i += stride) {
+    uint4 t = reinterpret_cast<const uint4*>(th)[i];
+    const uint4 c = reinterpret_cast<const uint4*>(g)[i];
+    T* tt = reinterpret_cast<T*>(&t);
+    const T* tc = reinterpret_cast<const T*>(&c);
+    if (BCAST) {
+      long long col = (i * V) % period;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        theta_one(tt[v], to_f32(a[col]), tc[v], eta, lam);
+        if (++col == period) col = 0;
+      }
+    } else {
+      const uint4 e = reinterpret_cast<const uint4*>(a)[i];
+      const T* te = reinterpret_cast<const T*>(&e);
+#pragma unroll
+      for (int v = 0; v < V; ++v) theta_one(tt[v], to_f32(te[v]), tc[v], eta, lam);
+    }
+    reinterpret_cast<uint4*>(th)[i] = t;
+  }
+  const long long j = nvec * V + tid;
+  if (j < n) theta_one(th[j], to_f32(a[BCAST ? j % period : j]), g[j], eta, lam);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) prox_theta_scalar(
+    T* th, const T* a, const T* __restrict__ g, long long n, long long period,
+    float eta, float lam) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
+    theta_one(th[i], to_f32(a[i % period]), g[i], eta, lam);
+}
+
+template <typename T>
+int launch_theta(void* th, const void* a, const void* g, long long n, long long period,
+                 float eta, float lam, void* stream) {
+  if (n <= 0) return 0;
+  if (period <= 0 || n % period != 0) return (int)cudaErrorInvalidValue;
+  constexpr int V = 16 / sizeof(T);
+  constexpr int threads = 256;
+  const bool bcast = period != n;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(th) | reinterpret_cast<uintptr_t>(g) |
+                         (bcast ? 0 : reinterpret_cast<uintptr_t>(a));
+  const bool aligned = (addr & 15) == 0;
+  const long long work = aligned ? (n / V > n % V ? n / V : n % V) : n;
+  long long blocks = (work + threads - 1) / threads;
+  if (blocks > (1LL << 20)) blocks = 1LL << 20;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  T* t = static_cast<T*>(th);
+  const T* ap = static_cast<const T*>(a);
+  const T* gp = static_cast<const T*>(g);
+  if (!aligned)
+    prox_theta_scalar<T><<<(unsigned)blocks, threads, 0, s>>>(t, ap, gp, n, period, eta, lam);
+  else if (bcast)
+    prox_theta_vec<T, true><<<(unsigned)blocks, threads, 0, s>>>(t, ap, gp, n, period, eta, lam);
+  else
+    prox_theta_vec<T, false><<<(unsigned)blocks, threads, 0, s>>>(t, ap, gp, n, period, eta, lam);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int prox_theta_f32(void* th, const void* a, const void* g, long long n,
+                              long long period, float eta, float lam, void* stream) {
+  return launch_theta<float>(th, a, g, n, period, eta, lam, stream);
+}
+
+extern "C" int prox_theta_bf16(void* th, const void* a, const void* g, long long n,
+                               long long period, float eta, float lam, void* stream) {
+  return launch_theta<__nv_bfloat16>(th, a, g, n, period, eta, lam, stream);
+}
 
 extern "C" int prox_update_f32(void* th, void* om, const void* gt, const void* go,
                                long long n, float eta, float lam, void* stream) {

@@ -13,6 +13,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.cosine_sim import cosine_sim as _cosine_kernel
 from repro_torch.kernels.cosine_sim import merge_candidates as _candidates_kernel
 from repro_torch.kernels.cosine_sim import row_padded  # noqa: F401  (the callers' layout)
+from repro_torch.kernels.prox_update import prox_theta_flat as _theta_kernel
 from repro_torch.kernels.prox_update import prox_update_flat as _prox_kernel
 from repro_torch.kernels.resolve_roots import component_labels as _labels_kernel
 from repro_torch.kernels.resolve_roots import resolve_roots as _resolve_kernel
@@ -91,6 +92,16 @@ def prox_update_flat(theta, omega, g_theta, g_omega, eta, lam,
     if _plain(backend):
         return ref.prox_update_ref_(theta, omega, g_theta, g_omega, eta, lam)
     return _prox_kernel(theta, omega, g_theta, g_omega, eta, lam)
+
+
+def prox_theta_flat(theta, anchor, grad, eta, lam, backend: str = "auto"):
+    """The local-SGD step θ ← θ − η(g + λ(θ − a)) on a flat θ, written in
+    place; the anchor is read only (θ itself with λ = 0, or a period of θ
+    broadcast over its rows). What the reference's ``local_sgd`` computes
+    through ``prox_update_flat``, keeping only θ. Returns ``theta``."""
+    if _plain(backend):
+        return ref.prox_theta_ref_(theta, anchor, grad, eta, lam)
+    return _theta_kernel(theta, anchor, grad, eta, lam)
 
 
 def ssm_scan(dA, dBx, C, backend: str = "auto") -> torch.Tensor:

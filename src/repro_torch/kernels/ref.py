@@ -86,6 +86,24 @@ def prox_update_ref_(theta, omega, g_theta, g_omega, eta: float, lam: float):
     return theta, omega
 
 
+def prox_theta_ref(theta, anchor, grad, eta: float, lam: float):
+    """θ' = θ − η(g + λ(θ − a)) in fp32, cast back to θ's dtype: the θ output
+    of ``prox_update_ref`` with ``grad`` as g_θ and the anchor as ω, the
+    reference's local-SGD step. ``anchor`` has θ's length (θ itself when
+    λ = 0) or a period P dividing it, broadcast over the rows. Returns a new
+    tensor."""
+    th = theta.to(torch.float32).reshape(-1, anchor.numel())
+    a = anchor.to(torch.float32).reshape(-1, anchor.numel())
+    out = th - eta * (grad.to(torch.float32).reshape(th.shape) + lam * (th - a))
+    return out.reshape(theta.shape).to(theta.dtype)
+
+
+def prox_theta_ref_(theta, anchor, grad, eta: float, lam: float):
+    """``prox_theta_ref`` written into ``theta``, the kernel's contract;
+    returns ``theta``."""
+    return theta.copy_(prox_theta_ref(theta, anchor, grad, eta, lam))
+
+
 def ssm_scan_states_ref(dA, dBx, C, chunk: int):
     """Sequential selective scan, h[t] = dA[t]⊙h[t−1] + dBx[t] from h = 0,
     y[t] = Σₙ h[t, d, n]·C[t, n]. dA, dBx: (B, S, D, N); C: (B, S, N).

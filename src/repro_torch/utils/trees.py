@@ -48,3 +48,20 @@ def tree_weighted_mean(trees: Sequence, weights):
         out = tree_map(lambda x, y, wi=w[i]: wi.to(x.device) * x + y,
                        trees[i], out)
     return out
+
+
+def tree_flatten_vector(tree, dtype=torch.float32) -> torch.Tensor:
+    """Flatten a tree into one 1-D vector of ``dtype``, leaves in
+    sorted-key order (Ψ's representation space, CFL's update vectors)."""
+    return torch.cat([leaf.reshape(-1).to(dtype) for leaf in leaves(tree)])
+
+
+def tree_unflatten_vector(vec: torch.Tensor, tree):
+    """Inverse of ``tree_flatten_vector`` given a template tree: each leaf
+    takes its shape and dtype from the template's."""
+    out, off = [], 0
+    for leaf in leaves(tree):
+        n = leaf.numel()
+        out.append(vec[off:off + n].reshape(leaf.shape).to(leaf.dtype))
+        off += n
+    return from_leaves(tree, out)

@@ -32,6 +32,10 @@ SLICE3 = ("repro_torch.configs", "repro_torch.configs.falcon_mamba_7b",
           "repro_torch.models.ssm_lm", "repro_torch.models.registry",
           "repro_torch.kernels.ssm_scan", "repro_torch.data.tokens",
           "repro_torch.core.extractor")
+# the baselines' slice: the legacy shims and the modules they run through
+SLICE6 = ("repro_torch.core.baselines", "repro_torch.core.stocfl",
+          "repro_torch.core.bilevel", "repro_torch.engine.strategies",
+          "repro_torch.kernels.prox_update", "repro_torch.utils.trees")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -43,6 +47,7 @@ def test_importing_every_module_loads_no_jax():
     names = names.split(",")
     assert len(names) >= 20
     assert set(SLICE3) <= set(names), sorted(set(SLICE3) - set(names))
+    assert set(SLICE6) <= set(names), sorted(set(SLICE6) - set(names))
     assert bad == "", f"port imports pulled in {bad}"
 
 

@@ -7,7 +7,9 @@ Marked ``cuda``: they skip without a GPU and run there with
 
 This file imports only torch and the port (the GPU machine has no JAX).
 Tolerances: prox_update fp32 within 1e-6 abs (the kernel rounds the same
-operations in the same order), bf16 within 1 ulp; cosine_sim within 1e-5
+operations in the same order), bf16 within 1 ulp; its local-SGD form
+(prox_theta) bitwise equal to its plain version in fp32 and bf16, the
+anchor's bytes unchanged; cosine_sim within 1e-5
 (3xTF32 on the tensor cores, summed in another order than the plain
 matmul; within ~1e-6 of float64, as tests/test_torch_cosine_tf32.py
 emulates). ssm_scan's saved
@@ -63,6 +65,38 @@ def test_prox_update_kernel_in_place(dev, dtype, n, offset):
         bits = lambda a: a.view(torch.int16).to(torch.int32)
         assert int((bits(th) - bits(want_t)).abs().max()) <= 1
         assert int((bits(om) - bits(want_o)).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,period,offset,anchor", [
+    (1, 1001, 0, "theta"), (1, 65537, 1, "theta"), (40, 153610, 0, "theta"),
+    (1, 1001, 0, "full"), (3, 65537, 1, "full"),
+    (40, 153610, 0, "broadcast"), (7, 1001, 1, "broadcast"), (5, 1, 0, "broadcast")])
+def test_prox_theta_kernel_matches_plain(dev, dtype, rows, period, offset, anchor):
+    """K1's local-SGD form, θ only, in place: λ = 0 with the anchor θ
+    itself, λ = μ with an anchor of θ's length or a (P,) anchor broadcast
+    over the rows; ragged lengths and misaligned starts take the tail and
+    the scalar loop."""
+    n = rows * period
+    g = torch.Generator().manual_seed(n + offset)
+    th, gr = (torch.randn(n + offset, generator=g).to(dtype).to(dev)[offset:]
+              for _ in range(2))
+    a = {"theta": th, "full": torch.randn(n, generator=g),
+         "broadcast": torch.randn(period, generator=g)}[anchor]
+    a = a.to(dtype).to(dev)
+    lam = 0.0 if anchor == "theta" else 0.05
+    want = ref.prox_theta_ref(th, a, gr, 0.1, lam)
+    keep = a.clone()
+    ptr = th.data_ptr()
+    before = prox_update.theta_launches
+    prox_update.prox_theta_flat(th, a, gr, 0.1, lam)
+    torch.cuda.synchronize()
+    assert prox_update.theta_launches == before + 1
+    assert th.data_ptr() == ptr
+    assert torch.equal(th.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    if anchor != "theta":
+        assert torch.equal(a, keep)
 
 
 @pytest.mark.parametrize("n,d,zero_from", [(5, 7, 4), (64, 20000, 44),
