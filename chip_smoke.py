@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Ten phases, each printing its lines; any failure exits non-zero and
+Eleven phases, each printing its lines; any failure exits non-zero and
 prints no result.
 
 1. Build: compile the CUDA kernels of ``kernels/csrc`` with nvcc.
@@ -16,7 +16,10 @@ prints no result.
    the anchor θ itself (λ = 0), a broadcast (P,) anchor and a full one, on
    ragged and misaligned lengths, in fp32 and bf16, the anchor unchanged;
    it is timed at the baselines' cohorts (40 and 400 clients × 153,610)
-   beside ``add_``. K4 is
+   beside ``add_``, with the L2 warm and cold (a 256 MB buffer written
+   before each call, its own time taken off). K1's bf16 entry runs on path
+   3's (2, 743,305,216) buffers, within 1 bf16 ulp of its plain version,
+   and is timed there. K4 is
    timed on the fully compressed arrays the path gives it and on chains,
    beside the launch floor (``torch.cuda._sleep(1)``); component_labels
    against its plain loop, which syncs once a pass, by a host clock around
@@ -90,6 +93,26 @@ prints no result.
    asserted; then 3 rounds of each on the CPU, whose cohorts, records,
    IFCA choices and CFL members must be identical and whose ω, bank rows
    and Ditto's personal rows of the sampled clients agree within 1e-4.
+11. The device sampler, the bf16 policy and the captured loop.
+   (a) The threefry draws (``engine.sampler``) at 400 and 4,000 clients on
+   the card, bitwise equal to the CPU's. (b) Path 3 with
+   ``EngineConfig(dtype="bfloat16")``: the round walls, ω's losses beside
+   phase 8's, the peak memory (gate 63.21 GB), K1's launches (all of its
+   bf16 entry), ω, θ and the bank in bf16 and Ψ, the means and the
+   objective in fp32; then traced (``[trace_bf16]``). (c) Path 2 at 400
+   clients (5 rounds) and 4,000 (2 rounds) under ``rng_backend="device"``
+   through ``run_round`` and through ``run_rounds`` from the same
+   ``init``, and (d) each baseline at phase 10's setting (5 rounds, CFL 3)
+   the same way: the eager walls, the first ``run_rounds`` call (its round
+   0 runs eagerly on the capture stream, then one round is captured in a
+   CUDA graph and replayed), the capture's time, a call of replays only
+   (its wall over its rounds) and one under the profiler (the device's busy
+   share). Gates: cohorts (the span's draws from its start key), records,
+   parent / live, members and bank roots equal the eager loop's; ω, bank
+   and personal rows within 1e-4. A kernel's launch counter counts at
+   capture, so the graph's owner takes the capture's counts back off and
+   adds them once per replay: the first call's launches must equal the
+   captured round's counts × the rounds.
 
 The line before the last is one JSON object describing every kernel of the
 paths; the last line is ``{"ok": true, "device": {...}}``.
@@ -264,6 +287,7 @@ def phase_kernels(dev, peaks):
         library_ms=None)
     print(f"[time] prox_update fp32 n={n}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
           f"bound {bound:.4f} ms ({6 * n * 4 / 1e6:.1f} MB)")
+    results["prox_update_bf16"] = check_prox_bf16_at_llm_size(dev, bw, flops)
     results["prox_theta"] = check_prox_theta(dev, bw, flops, rand)
 
     # --- K2 cosine_sim: fp32, zero rows exactly 0
@@ -315,6 +339,55 @@ def phase_kernels(dev, peaks):
     results["component_labels"] = check_component_labels(dev, bw)
     results.update(check_ssm_scan(dev, bw, flops))
     return results
+
+
+def check_prox_bf16_at_llm_size(dev, bw, flops):
+    """K1's bf16 entry (``prox_update_bf16``, the one the bf16 policy's
+    path 3 runs) on (2, 743,305,216) bf16 buffers, path 3's flat θ, ω and
+    gradients: within 1 bf16 ulp of its plain version, in place; then
+    timed beside the plain version and its bound, 12 bytes an element
+    (four bf16 reads, two writes) over the card's memory rate."""
+    import torch
+    from repro_torch.kernels import prox_update, ref
+
+    n = 2 * LLM_PARAMS
+    eta, lam = 0.05, 0.05
+    gen = torch.Generator(device=dev).manual_seed(13)
+    ops = [torch.randn(n, generator=gen, device=dev).to(torch.bfloat16) for _ in range(4)]
+    th, om = ops[0].clone(), ops[1].clone()
+    ptrs = (th.data_ptr(), om.data_ptr())
+    prox_update.prox_update_flat(th, om, ops[2], ops[3], eta, lam)
+    want_t, want_o = ref.prox_update_ref(*ops, eta, lam)
+    torch.cuda.synchronize()
+    ulps = max(bf16_ulps(th, want_t), bf16_ulps(om, want_o))
+    err = max(float((th.float() - want_t.float()).abs().max()),
+              float((om.float() - want_o.float()).abs().max()))
+    print(f"[check] prox_update bf16 n={n} (path 3's (2, {LLM_PARAMS}) buffers): "
+          f"max_abs_err={err:.3e}, {ulps} ulp (tol 1 ulp), in place="
+          f"{(th.data_ptr(), om.data_ptr()) == ptrs}")
+    assert ulps <= 1 and (th.data_ptr(), om.data_ptr()) == ptrs
+    del th, om, want_t, want_o
+    k_ms = time_ms(lambda: prox_update.prox_update_flat(*ops, eta, lam))
+    p_ms = time_ms(lambda: ref.prox_update_ref_(*ops, eta, lam))
+    t_bytes, t_ops = 12 * n / bw, 7 * n / flops
+    bound = max(t_bytes, t_ops) * 1e3
+    print(f"[time] prox_update bf16 n={n}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+          f"{bound:.3f} ms ({12 * n / 1e9:.2f} GB), {100 * bound / k_ms:.1f}% of bound")
+    del ops
+    torch.cuda.empty_cache()
+    return dict(name="prox_update_bf16", route="cuda",
+                source="src/repro_torch/kernels/csrc/prox_update.cu",
+                replaces="src/repro/kernels/prox_update.py:29",
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
+
+
+def time_cold_ms(fn, flush) -> float:
+    """``fn``'s device time with a cold L2: ``time_ms`` of ``flush.zero_()``
+    (a buffer larger than the card's 50 MB L2) then ``fn``, less that of
+    ``flush.zero_()`` alone."""
+    both = time_ms(lambda: (flush.zero_(), fn()))
+    return both - time_ms(lambda: flush.zero_())
 
 
 def prox_theta_bound(n, period, bw, flops):
@@ -380,6 +453,13 @@ def check_prox_theta(dev, bw, flops, rand):
               f"by {by} ({12 * n / 1e6:.1f} MB), {100 * bound / k_ms:.1f}% of bound; "
               f"lam={mu}, broadcast ({p},) anchor: kernel {kb_ms:.4f} ms, plain {pb_ms:.4f} ms, "
               f"bound {bound_b:.4f} ms, {100 * bound_b / kb_ms:.1f}% (no single PyTorch call)")
+        flush = torch.empty((64 << 20,), dtype=torch.float32, device=dev)   # 256 MB
+        kc_ms = time_cold_ms(lambda: prox_update.prox_theta_flat(th, th, g, eta, 0.0), flush)
+        lc_ms = time_cold_ms(lambda: th.add_(g, alpha=-eta), flush)
+        del flush
+        print(f"[time] prox_theta fp32 n={n}, lam=0, cold L2 (a 256 MB buffer written "
+              f"before each call, its time taken off): kernel {kc_ms:.4f} ms, add_ "
+              f"{lc_ms:.4f} ms (warm: {k_ms:.4f}, {l_ms:.4f}), bound {bound:.4f} ms")
         if rows == 40:
             out = dict(name="prox_theta", route="cuda",
                        source="src/repro_torch/kernels/csrc/prox_update.cu",
@@ -1684,7 +1764,7 @@ def check_llm_gradient(dev, params, clients):
         torch.cuda.empty_cache()
 
 
-def trace_llm(dev, model, params, clients, ecfg):
+def trace_llm(dev, model, params, clients, ecfg, tag="trace3"):
     """Path 3 again from a fresh start with rounds 1.. under the profiler:
     host time of each ``stocfl.*`` phase, the device's busy share and the
     kernels that take the most device time."""
@@ -1705,17 +1785,18 @@ def trace_llm(dev, model, params, clients, ecfg):
                 phases[ev.name] += ev.cpu_time_total / 1e3
         elif ev.device_type == DeviceType.CUDA:
             kernels[ev.name] += ev.device_time_total / 1e3
-    print(f"[trace3] rounds 1..{LLM_ROUNDS - 1} under the profiler: "
+    print(f"[{tag}] rounds 1..{LLM_ROUNDS - 1} under the profiler: "
           + ", ".join(f"{r['wall'] * 1e3:.1f}" for r in recs[1:]) + " ms")
     for name, ms in sorted(phases.items(), key=lambda kv: -kv[1]):
-        print(f"[trace3] host {name:22s} {ms:9.1f} ms ({100 * ms / wall:5.1f}%)")
+        print(f"[{tag}] host {name:22s} {ms:9.1f} ms ({100 * ms / wall:5.1f}%)")
     busy = sum(kernels.values())
     assert busy > 0, "the profiler recorded no device time"
     scan = sum(ms for n, ms in kernels.items() if "ssm_scan" in n)
-    print(f"[trace3] device busy {busy:.1f} ms of {wall:.1f} ms ({100 * busy / wall:.1f}%, "
-          f"idle {100 - 100 * busy / wall:.1f}%); K5 kernels {scan:.2f} ms")
+    k1 = sum(ms for n, ms in kernels.items() if "prox_update" in n)
+    print(f"[{tag}] device busy {busy:.1f} ms of {wall:.1f} ms ({100 * busy / wall:.1f}%, "
+          f"idle {100 - 100 * busy / wall:.1f}%); K5 kernels {scan:.2f} ms, K1 {k1:.2f} ms")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[trace3] device {ms:9.2f} ms  {name[:90]}")
+        print(f"[{tag}] device {ms:9.2f} ms  {name[:90]}")
 
 
 def phase_llm_smoke(dev):
@@ -1943,6 +2024,335 @@ def phase_baselines(dev):
     return total
 
 
+# ----------------------------------------------------------------- phase 11
+LLM_BF16_PEAK_GB = 63.21   # path 3's peak with fp32 params (PRs 13-16): the bf16 policy's ceiling
+# ω's loss after each round of path 3 under dtype="bfloat16", against the
+# fp32-param path 3's: bf16 params round every update to 8 significant
+# bits, and path 3's rounds already part by 27% of the update between two
+# sound bf16-compute runs an fp32 ulp apart (phase 8), so the gate is
+# half the fp32 run's loss, with the loss falling round over round
+LLM_BF16_LOSS_RTOL = 0.5
+SCAN_SEEDS = (0, 1, 7, 123)
+
+
+def phase_sampler(dev):
+    """11a: the threefry draws on the card bitwise equal to the CPU's, at
+    400 and 4,000 clients (pools padded to 512 and 4,096, a few departed
+    and unavailable ids), five chained draws from each of four seeds."""
+    import torch
+    from repro_torch.engine import fresh_rng_key, sampler
+
+    for n in (400, SCALE_CLIENTS):
+        cap = sampler.pool_capacity(n)
+        pool = sampler.cohort_pool(n, {3, 17, n - 1}, {5, 200}, capacity=cap)
+        m = sampler.cohort_size(0.1, n - 3, int(pool.sum()))
+        same = True
+        for seed in SCAN_SEEDS:
+            kc, kg = fresh_rng_key(seed), fresh_rng_key(seed, dev)
+            for _ in range(5):
+                u_same = torch.equal(sampler.uniform(kc, cap).view(torch.int32),
+                                     sampler.uniform(kg, cap).cpu().view(torch.int32))
+                kc, ic = sampler.draw_cohort(kc, pool, m)
+                kg, ig = sampler.draw_cohort(kg, pool, m)
+                same &= u_same and torch.equal(ic, ig.cpu()) and torch.equal(kc, kg.cpu())
+        print(f"[sampler] {n} clients (pool {cap}, cohort {m}): uniforms, cohorts and "
+              f"advanced keys of 5 chained draws from seeds {SCAN_SEEDS} on the card "
+              f"bitwise equal to the CPU's={same}")
+        assert same, f"the card's draws differ from the CPU's at {n} clients"
+
+
+@contextlib.contextmanager
+def recording_prox_dtypes():
+    """Within the block, the dtypes of θ and ω of every ``ops.prox_update_flat``
+    call are appended to the yielded list; the call goes through unchanged."""
+    from repro_torch.kernels import ops
+    real, records = ops.prox_update_flat, []
+
+    def record(theta, omega, *args, **kw):
+        records.append((theta.dtype, omega.dtype))
+        return real(theta, omega, *args, **kw)
+
+    ops.prox_update_flat = record
+    try:
+        yield records
+    finally:
+        ops.prox_update_flat = real
+
+
+def phase_llm_bf16(dev, fp32_recs):
+    """11b: path 3 with ``EngineConfig(dtype="bfloat16")``: params, θ, ω,
+    gradients and the bank in bf16 (K1's bf16 entry), Ψ, the cluster means
+    and the objective in fp32. Walls, losses beside the fp32-param run's
+    (``fp32_recs``, phase 8), peak memory under LLM_BF16_PEAK_GB, launches;
+    then traced as phase 8 is. Returns K1's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cosine_sim, prox_update, ssm_scan
+    from repro_torch.utils import trees
+
+    model, clients, ecfg = llm_setting()
+    ecfg = dataclasses.replace(ecfg, dtype="bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    prox_update.launches = cosine_sim.launches = 0
+    ssm_scan.fwd_launches = ssm_scan.bwd_launches = 0
+    with recording_prox_dtypes() as dtypes:
+        state, recs = _llm_rounds(dev, model, params, clients, ecfg, torch.cuda.synchronize)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = {"prox_update": prox_update.launches, "cosine_sim": cosine_sim.launches,
+                "ssm_scan_fwd": ssm_scan.fwd_launches, "ssm_scan_bwd": ssm_scan.bwd_launches}
+    for t, (r, f) in enumerate(zip(recs, fp32_recs)):
+        print(f"[bf16] path 3, dtype=bfloat16, round {t}: wall {r['wall'] * 1e3:.1f} ms, cohort "
+              f"{r['cohort']}, n_clusters {r['n_clusters']}, objective {r['objective']:.6f}, "
+              f"omega_loss on client 0 {r['loss0']:.4f} (fp32 params: {f['loss0']:.4f})")
+    print(f"[bf16] peak device memory {peak:.2f} GB (torch.cuda.max_memory_allocated, from "
+          f"{base / 1e9:.2f} GB before the path; gate {LLM_BF16_PEAK_GB} GB); launches {launches}")
+    L, E, R = model.cfg.n_layers, ecfg.local_steps, LLM_ROUNDS
+    new = len({c for r in recs for c in r["cohort"]})
+    expect = {"prox_update": R * E, "cosine_sim": R + sum(r["n_clusters"] >= 2 for r in recs),
+              "ssm_scan_fwd": R * E * 2 * L + new * L + R * L,
+              "ssm_scan_bwd": R * E * 2 * L + new * L}
+    assert launches == expect, (launches, expect)
+    assert peak <= LLM_BF16_PEAK_GB, f"path 3 in bf16 peaked at {peak:.2f} GB"
+    bf16 = torch.bfloat16
+    assert dtypes and all(d == (bf16, bf16) for d in dtypes), set(dtypes)
+    leaves = trees.leaves(state.omega) + trees.leaves(state.models.stacked)
+    assert all(x.dtype == bf16 and bool(torch.isfinite(x).all()) for x in leaves)
+    roots, means = state.clusters.cluster_means()
+    psi = state.ctx.extractor(state.ctx.clients[0])
+    assert state.clusters.reps[roots[0]].dtype == torch.float32
+    assert means.dtype == torch.float32 and psi.dtype == torch.float32
+    assert all(isinstance(r["objective"], float) and np.isfinite(r["objective"]) for r in recs)
+    losses = [r["loss0"] for r in recs]
+    rel = [abs(r["loss0"] - f["loss0"]) / f["loss0"] for r, f in zip(recs, fp32_recs)]
+    print(f"[bf16] K1 ran its bf16 entry in all {len(dtypes)} calls (theta and omega bf16); "
+          f"omega and {len(state.models.roots)} bank rows bf16; Psi {tuple(psi.shape)}, the "
+          f"cluster means and the objective fp32; omega_loss relative to the fp32-param run's "
+          f"after rounds 0..{R - 1}: " + ", ".join(f"{x:.3e}" for x in rel)
+          + f" (gate {LLM_BF16_LOSS_RTOL}, falling round over round)")
+    assert all(np.isfinite(losses)) and max(rel) <= LLM_BF16_LOSS_RTOL
+    assert all(a > b for a, b in zip(losses, losses[1:])), losses
+    del state, psi, means
+    torch.cuda.empty_cache()
+    trace_llm(dev, model, params, clients, ecfg, tag="trace_bf16")
+    return launches["prox_update"]
+
+
+def _device_kernels(prof) -> dict:
+    """{kernel name: device ms} of every CUDA event a profiler recorded."""
+    import collections
+
+    from torch.autograd import DeviceType
+    out = collections.defaultdict(float)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            out[ev.name] += ev.device_time_total / 1e3
+    return out
+
+
+def _zero_counts():
+    from repro_torch.kernels import _build
+    _build.add_launches(_build.launch_counts(), -1)
+
+
+def _scan_cohorts(start, rounds, dev):
+    """The cohorts a span from ``start`` draws: ``sampler.draw``, the
+    step's own draw, chained from the span's start key on the card."""
+    import torch
+    from repro_torch.engine import sampler
+    n = start.n_clients
+    pool = torch.as_tensor(sampler.cohort_pool(n, start.left, capacity=sampler.pool_capacity(n)),
+                           device=dev)
+    m = sampler.cohort_size(start.ctx.cfg.sample_rate, n - len(start.left), int(pool.sum()))
+    key, out = start.rng_key, []
+    for _ in range(rounds):
+        key, ids = sampler.draw(key, pool, m)
+        out.append(ids.tolist())
+    return out
+
+
+def _state_diff(a, b) -> float:
+    """Largest |difference| of ω, the bank rows (same roots) and the
+    personal rows of two states."""
+    from repro_torch.utils import trees
+    assert sorted(a.models.roots) == sorted(b.models.roots), "bank roots differ"
+    pairs = ([(a.omega, b.omega)] + [(a.models[r], b.models[r]) for r in a.models.roots]
+             + [(a.personal[c], b.personal[c]) for c in sorted(a.personal)])
+    return max(float((x.float() - y.float()).abs().max())
+               for ta, tb in pairs for x, y in zip(trees.leaves(ta), trees.leaves(tb)))
+
+
+def masked_cost(dev, state, tag):
+    """What the captured StoCFL step does every round that the reference's
+    ``lax.cond`` skips on a round with no new client and no merge, timed
+    on ``state``'s partition: the merge pass at the span's bound, the
+    row-keyed bank merge over every row and the objective (CUDA events,
+    ``time_ms``), and Ψ of all the cohort's members (device time under the
+    profiler: one autograd call each, which the host issues slower than
+    the card runs them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import engine
+    from repro_torch.core import device_clustering as devclust
+    from repro_torch.engine import sampler, strategies
+    from repro_torch.utils import trees
+
+    ctx = state.ctx
+    dcs, rows, has = engine.get_strategy("stocfl")._cold_carry(ctx, state, state.clusters)
+    cap = dcs.capacity
+    k_bound = strategies.merge_bound(state, cap)
+    ids = torch.arange(cap, dtype=torch.int32, device=dev)
+    merge = lambda: devclust.merge_round_impl(dcs, ctx.cfg.tau, k_bound)
+    _, live_rows, new_roots, counts = merge()
+    settled = bool((live_rows == new_roots).all())
+    t_merge = time_ms(merge)
+    t_bank = time_ms(lambda: strategies.row_bank_merge(rows, has, ctx.init_params, ids,
+                                                       live_rows, new_roots, counts))
+    t_obj = time_ms(lambda: devclust.objective_closed_impl(dcs))
+    n = state.n_clients
+    pool = sampler.cohort_pool(n, state.left, capacity=sampler.pool_capacity(n))
+    m = sampler.cohort_size(ctx.cfg.sample_rate, n - len(state.left), int(pool.sum()))
+    _, cohort = sampler.draw_cohort(state.rng_key, pool, m)
+    batches = ctx.arena.take(cohort)
+    psi_all = lambda: [ctx.extractor(trees.tree_map(lambda x, i=i: x[i], batches))
+                       for i in range(m)]
+    psi_all()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        psi_all()
+        torch.cuda.synchronize()
+    t_psi = sum(_device_kernels(prof).values())
+    print(f"[{tag}] masked work a round on the final partition ({state.clusters.n_clusters()} "
+          f"clusters, capacity {cap}, merge bound {k_bound}, settled={settled}): merge pass "
+          f"{t_merge:.4f} ms, bank "
+          f"merge over {cap} rows {t_bank:.4f} ms, objective {t_obj:.4f} ms (CUDA events); "
+          f"Psi of all {m} cohort members {t_psi:.3f} ms of device time (profiler)")
+    del dcs, rows, has
+
+
+def compare_captured(dev, name, clients, params, loss, cfg, rounds, tag, expect_per_round):
+    """``rounds`` eager rounds against ``engine.run_rounds`` from the same
+    ``init`` (arena, device rng): the first call (round 0 eager on the
+    capture stream, the capture, then replays), a second call (replays
+    only), a third under the profiler. Gates: cohorts, records (n_clusters,
+    sampled), parent / live, members and bank roots equal; ω, bank and
+    personal rows within MAIN_ATOL; the first call's launches equal
+    ``expect_per_round`` × rounds, the captured round's own counts. Prints
+    the eager walls, each call's wall over its rounds, the capture's time
+    and the captured span's device busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import engine
+    from repro_torch.engine.api import RoundProgram
+    from repro_torch.kernels import _build
+
+    start = engine.init(name, loss, params, clients, cfg, device=dev, arena=True)
+    full = engine.get_strategy(name).full_participation
+    eager, walls, cohorts = start, [], []
+    for _ in range(rounds):
+        if not full:
+            cohorts.append(engine.sample_clients(eager)[1].tolist())
+        t0 = time.perf_counter()
+        eager, _ = engine.run_round(eager)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    _zero_counts()
+    t0 = time.perf_counter()
+    first = engine.run_rounds(start, rounds)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: v for k, v in _build.launch_counts().items() if v}
+    program = next(v for v in start.ctx.cache.values() if isinstance(v, RoundProgram))
+    t0 = time.perf_counter()
+    second = engine.run_rounds(start, rounds)
+    torch.cuda.synchronize()
+    second_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run_rounds(start, rounds)
+        torch.cuda.synchronize()
+        third_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _device_kernels(prof)
+    busy = sum(kernels.values())
+    busy_txt = (f"device busy {busy:.2f} ms of {third_ms:.1f} ms ({100 * busy / third_ms:.1f}%, "
+                f"profiler)" if busy > 0 else "device busy not measured (the profiler "
+                f"recorded no device time in the replays)")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[{tag}] {name}: eager walls " + ", ".join(f"{w:.1f}" for w in walls)
+          + f" ms; run_rounds({rounds}): first call {first_ms:.1f} ms (round 0 eager on the "
+          f"capture stream, capture {program.capture_s * 1e3:.1f} ms, {rounds - 1} replays), "
+          f"replays only {second_ms:.1f} ms = {second_ms / rounds:.2f} ms a round; under the "
+          f"profiler {third_ms:.1f} ms, {busy_txt}")
+    for kname, ms in top:
+        print(f"[{tag}] {name}: device {ms:8.3f} ms in {rounds} replays  {kname[:80]}")
+    per_round = dict(program.per_round)
+    print(f"[{tag}] {name}: launches in the first call {launched} = the captured round's "
+          f"{per_round} x {rounds} (round 0 launched eagerly, the rest counted a replay each)")
+    assert per_round == expect_per_round, (per_round, expect_per_round)
+    assert launched == {k: v * rounds for k, v in per_round.items()}, launched
+    strip = lambda h: [{k: v for k, v in r.items() if k in ("n_clusters", "sampled")} for r in h]
+    worst = 0.0
+    for got in (first, second):
+        assert strip(got.history) == strip(eager.history), (got.history, eager.history)
+        assert got.members == eager.members
+        if not full:
+            assert torch.equal(got.rng_key, eager.rng_key)
+        if name == "stocfl":
+            a, b = got.clusters.state, eager.clusters.state
+            assert torch.equal(a.parent, b.parent) and torch.equal(a.live, b.live)
+        worst = max(worst, _state_diff(got, eager))
+    if not full:
+        assert _scan_cohorts(start, rounds, dev) == cohorts
+    obj = ""
+    if name == "stocfl":
+        od = max(abs(a["objective"] - b["objective"])
+                 for a, b in zip(first.history, eager.history))
+        obj = f", objectives within {od:.3e}"
+    print(f"[{tag}] {name}: both calls' cohorts (the span's draws from its start key), "
+          f"records, {'parent/live, ' if name == 'stocfl' else ''}members and bank roots "
+          f"equal the eager loop's; omega, bank and personal rows max |captured - eager| = "
+          f"{worst:.3e} (tol {MAIN_ATOL:g}){obj}")
+    assert worst <= MAIN_ATOL
+    if name == "stocfl":
+        masked_cost(dev, first, tag)
+    del start, eager, first, second, program
+    torch.cuda.empty_cache()
+
+
+def phase_captured(dev):
+    """11c and 11d: the captured loop against the eager loop, path 2 at 400
+    clients (5 rounds) and 4,000 (2), then each baseline at phase 10's
+    setting (5 rounds, CFL 3), all with rng_backend="device" over an
+    arena."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import pathological
+
+    t_phase = time.perf_counter()
+    clients, _, params, loss, cfg = main_setting()
+    dcfg = path2_config(cfg, rng_backend="device")
+    stocfl = {"prox_update.launches": cfg.local_steps, "cosine_sim.candidate_launches": 1,
+              "resolve_roots.launches": 2, "resolve_roots.label_launches": 1}
+    compare_captured(dev, "stocfl", clients, params, loss, dcfg, ROUNDS, "scan", stocfl)
+    big, _, _ = pathological(n_clients=SCALE_CLIENTS, n_per=128, seed=0)
+    # 400-client cohorts run in chunks of SCALE_CHUNK: K1 once a step a chunk
+    chunks = -(-SCALE_CLIENTS // 10 // SCALE_CHUNK)
+    compare_captured(dev, "stocfl", big, params, loss,
+                     dataclasses.replace(dcfg, cohort_chunk=SCALE_CHUNK), SCALE_ROUNDS,
+                     "scan4k", dict(stocfl, **{"prox_update.launches": chunks * cfg.local_steps}))
+    del big
+    for name, knobs, rounds in BASELINES:
+        steps = (2 if name == "ditto" else 1) * cfg.local_steps
+        compare_captured(dev, name, clients, params, loss,
+                         dataclasses.replace(cfg, rng_backend="device", **knobs), rounds,
+                         "scanbase", {"prox_update.theta_launches": steps})
+    print(f"[scan] phases 11c-d took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1993,6 +2403,9 @@ def main() -> int:
     phase_llm_parity(expect)
     phase_llm_smoke(dev)
     kernels["prox_theta"]["launches"] = phase_baselines(dev)
+    phase_sampler(dev)
+    kernels["prox_update_bf16"]["launches"] = phase_llm_bf16(dev, expect)
+    phase_captured(dev)
     print(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -15,10 +15,14 @@ import torch
 
 def to_torch(tree, device="cpu"):
     """Nested dict of arrays -> nested dict of tensors on ``device``
-    (dtypes kept)."""
+    (dtypes kept; a bfloat16 array, which numpy holds as ``ml_dtypes``'
+    type, travels as its 16-bit patterns)."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
-    return torch.as_tensor(np.array(tree), device=device)
+    a = np.array(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.as_tensor(a, device=device)
 
 
 def to_numpy(tree):

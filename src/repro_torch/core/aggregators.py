@@ -60,8 +60,8 @@ def krum_select(stacked, weights=None, f: int = 1):
     d2 = d2 + torch.eye(n, device=d2.device) * 1e30
     m = max(n - f - 2, 1)
     scores = torch.sum(torch.sort(d2, dim=1).values[:, :m], dim=1)
-    best = int(torch.argmin(scores))
-    return trees.tree_map(lambda x: x[best], stacked)
+    best = torch.argmin(scores).reshape(1)     # stays on the device: no host read
+    return trees.tree_map(lambda x: torch.index_select(x, 0, best)[0], stacked)
 
 
 AGGREGATORS = {

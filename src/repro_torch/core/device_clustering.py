@@ -134,8 +134,11 @@ def _deterministic():
 def _scatter_drop(x: torch.Tensor, idx: torch.Tensor, values) -> torch.Tensor:
     """New tensor: ``x`` with rows ``idx`` set to ``values``; rows equal to
     ``len(x)`` land in a scratch row that is sliced off (the reference's
-    ``mode="drop"``)."""
+    ``mode="drop"``). A scalar ``values`` is filled on ``x``'s device, so
+    the write makes no host copy."""
     ext = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    if not torch.is_tensor(values):
+        values = ext.new_full((), values)
     ext[idx] = values
     return ext[: x.shape[0]]
 
@@ -188,12 +191,11 @@ def component_labels(adj: torch.Tensor, backend: str = "auto") -> torch.Tensor:
 def _live_rows(counts_ext: torch.Tensor, cap: int, k_max: int) -> torch.Tensor:
     """Rows whose count is positive, ascending, cut or padded with ``cap``
     to ``k_max`` entries (the reference's ``jnp.nonzero(size=k_max,
-    fill_value=cap)``); ascending order makes the min row the min root id."""
-    (rows,) = torch.nonzero(counts_ext[:cap] > 0, as_tuple=True)
-    rows = rows[:k_max].to(torch.int32)
-    if rows.numel() < k_max:
-        rows = torch.cat([rows, rows.new_full((k_max - rows.numel(),), cap)])
-    return rows
+    fill_value=cap)``); ascending order makes the min row the min root id.
+    A stable sort that puts the live rows first, so no host read sizes it."""
+    live = counts_ext[:cap] > 0
+    order = torch.sort((~live).to(torch.int32), stable=True).indices[:k_max]
+    return torch.where(live[order], order, torch.full_like(order, cap)).to(torch.int32)
 
 
 def merge_round_impl(state: DeviceClusterState, tau: float, k_max: int):
@@ -588,16 +590,24 @@ class DeviceClusters:
 
     @classmethod
     def from_arrays(cls, tau: float, parent, live, rep, device="cpu") -> "DeviceClusters":
-        """Rebuild from ``arrays()`` output (exact mirror restore)."""
+        """Rebuild from ``arrays()`` output (exact mirror restore). Tensors
+        already on ``device`` are kept as they are (a captured span's final
+        state, which nothing else holds); arrays are copied."""
         out = cls(tau, capacity=max(len(parent), 1), device=device)
         if len(parent):
             dev = out.device
-            out._state = DeviceClusterState(
-                parent=torch.tensor(np.asarray(parent, np.int32), device=dev),
-                live=torch.tensor(np.asarray(live, bool), device=dev),
-                rep=torch.tensor(np.asarray(rep, np.float32), device=dev))
-            out.seen = {int(i) for i in np.nonzero(np.asarray(live))[0]}
-            out._parent = np.asarray(parent).astype(np.int64).copy()
+
+            def own(x, dtype):
+                if torch.is_tensor(x):
+                    return x.to(device=dev, dtype=dtype)
+                return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+            out._state = DeviceClusterState(parent=own(parent, torch.int32),
+                                            live=own(live, torch.bool),
+                                            rep=own(rep, torch.float32))
+            host = lambda x: x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+            out.seen = {int(i) for i in np.nonzero(host(live))[0]}
+            out._parent = host(parent).astype(np.int64).copy()
         return out
 
     def __repr__(self) -> str:

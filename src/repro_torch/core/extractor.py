@@ -90,12 +90,22 @@ def make_extractor(loss_fn: Callable, anchor_params,
     loss_fn(params, batch) -> scalar tensor. Only the leaves ``leaf_filter``
     keeps (all without one) take a gradient; with ``project_dim`` their
     gradients are sketched by ``JLSketch`` (seed 0, the reference's), built
-    at the first call."""
+    at the first call.
+
+    A batch whose floating leaves have another dtype than the anchor's
+    (bf16 batches of ``EngineConfig.dtype="bfloat16"`` under the fp32
+    anchor) is cast to the anchor's dtype first: JAX promotes the mixed
+    product to fp32 at its first operation, which torch's matmul does not
+    do, and the cast is exact."""
     anchor = trees.tree_map(lambda x: x.detach(), anchor_params)
     keep = [leaf_filter is None or leaf_filter(p) for p in leaf_paths(anchor)]
+    anchor_dt = next((x.dtype for x in trees.leaves(anchor) if x.is_floating_point()),
+                     torch.float32)
     sketch: List[JLSketch] = []
 
     def psi(batch) -> torch.Tensor:
+        batch = trees.tree_map(
+            lambda x: x.to(anchor_dt) if x.is_floating_point() else x, batch)
         # the kept leaves become views of the anchor that take a gradient
         kept = [x.detach().requires_grad_(True)
                 for x, k in zip(trees.leaves(anchor), keep) if k]

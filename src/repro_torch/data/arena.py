@@ -20,6 +20,10 @@ still gather it) until enough rows die that ``compact`` reclaims them in
 one gather. Client ids stay stable: gathers translate cid -> physical row
 through a host-side index.
 
+A captured round body cannot translate cids on the host: ``take_rows``
+gathers a cohort from a device id tensor through ``device_rows``, the
+cid -> row map as a cached device vector.
+
 Writes in place. ``append`` writes the new client into a spare row of the
 shared tensors: no older arena or state reads that row, since it lies past
 their ``n_rows``. ``update`` rewrites a resident row in place, as the
@@ -64,6 +68,7 @@ class ClientArena:
                      if rows is None else np.asarray(rows, np.int64))
         self.n_rows = int(len(self.sizes) if n_rows is None else n_rows)
         self.dead = frozenset(int(c) for c in dead)
+        self._device_rows = None
 
     # ------------------------------------------------------------- builders
     @classmethod
@@ -116,6 +121,20 @@ class ClientArena:
     @property
     def device(self) -> torch.device:
         return self.mask.device
+
+    @property
+    def device_rows(self) -> torch.Tensor:
+        """``rows`` (cid -> physical row) as an int64 device vector padded
+        to a power of two (pad slots map to row 0 and belong to
+        unregistered cids, which no cohort draws), built once per arena.
+        Every change builds a new ``ClientArena``, so it is never stale."""
+        if self._device_rows is None:
+            n = len(self.rows)
+            cap = 1 if n <= 1 else 1 << (n - 1).bit_length()
+            padded = np.zeros(cap, np.int64)
+            padded[:n] = self.rows
+            self._device_rows = torch.as_tensor(padded, device=self.device)
+        return self._device_rows
 
     def _live(self) -> np.ndarray:
         """Cids that are resident and not tombstoned."""
@@ -263,6 +282,11 @@ class ClientArena:
             batch["mask"] = torch.index_select(self.mask, 0, idx)
         return batch
 
+    def take(self, ids: torch.Tensor) -> Any:
+        """``gather`` for a device tensor of cids, with no host read (the
+        rows must be resident)."""
+        return take_rows(self.packed, self.mask, self.device_rows, ids, self.ragged)
+
     def client(self, cid: int) -> Any:
         """One client's unpadded shard (views into the packed tensors)."""
         row = int(self.rows[cid])
@@ -290,3 +314,16 @@ class ClientArena:
         return (f"ClientArena(n={self.n_clients}, live={self.n_live}, "
                 f"capacity={self.capacity}, n_max={self.n_max}, "
                 f"ragged={self.ragged}, mb={self.nbytes / 2**20:.1f})")
+
+
+def take_rows(packed, mask, rowmap: torch.Tensor, ids: torch.Tensor, ragged: bool):
+    """The cohort batch of the cids in device tensor ``ids``: rows
+    ``rowmap[ids]`` of every packed leaf, plus the ``"mask"`` leaf when
+    ``ragged``; the same gathers as ``ClientArena.gather``, so the batch is
+    bitwise the same."""
+    idx = torch.index_select(rowmap, 0, ids)
+    batch = trees.tree_map(lambda x: torch.index_select(x, 0, idx), packed)
+    if ragged:
+        batch = dict(batch)
+        batch["mask"] = torch.index_select(mask, 0, idx)
+    return batch

@@ -31,11 +31,8 @@ def resolve_device(device=None) -> torch.device:
 @dataclasses.dataclass
 class EngineConfig:
     """The knobs of every registered strategy: the JAX package's
-    ``EngineConfig`` fields the port implements so far. Cohorts are drawn
-    by the numpy bit-generator and params run in fp32 (the reference's
-    ``rng_backend="numpy"``, ``dtype="float32"``, no ``async_cfg``); the
-    fields for the other settings do not exist yet, so asking for them
-    raises.
+    ``EngineConfig`` fields the port implements so far (all but
+    ``async_cfg``; there is no asynchronous aggregation yet).
     StoCFL reads ``tau``, ``lam``, ``lr``, ``local_steps``,
     ``sample_rate``, ``aggregator`` and ``project_dim`` (Ψ's JL sketch
     width, ``extractor.JLSketch``; None keeps the full gradient); FedProx
@@ -47,7 +44,15 @@ class EngineConfig:
     ``"numpy"``, the host ``ClusterState``, or ``"device"``, the
     ``DeviceClusters`` union-find (kernels ``merge_candidates`` and
     ``resolve_roots``). ``cohort_chunk`` bounds how many clients one
-    cohort step runs (``bilevel.chunk_map``; 0 = off)."""
+    cohort step runs (``bilevel.chunk_map``; 0 = off).
+    ``rng_backend`` picks where cohort sampling lives: ``"device"`` draws
+    from a threefry key carried in ``ServerState.rng_key``
+    (``engine.sampler``: required by ``run_rounds``, identical draws eager
+    or captured, and the reference's draws for one seed); ``"numpy"`` is
+    the host bit-generator (the reference's numpy backend, bit for bit).
+    ``dtype`` is the compute precision of params, grads and batches
+    ("float32" | "bfloat16"); Ψ, the cluster means and the Eq. 2
+    objective always stay fp32 (see ``engine.init``)."""
     tau: float = 0.5
     lam: float = 0.05
     lr: float = 0.1
@@ -63,7 +68,9 @@ class EngineConfig:
     eps2: float = 0.01
     cohort_chunk: int = 0             # max clients per cohort step (0 = off)
     cluster_backend: str = "numpy"    # StoCFL partition: numpy | device
+    rng_backend: str = "numpy"        # cohort sampling: numpy | device
     fused_step: bool = False          # flat fused local update
+    dtype: str = "float32"            # param/grad compute precision
 
 
 @dataclasses.dataclass
@@ -83,7 +90,8 @@ class EngineContext:
     cache: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def cached(self, key: str, builder: Callable) -> Callable:
-        """Memoise a built update under ``key`` (per-context cache)."""
+        """Memoise a built update or round program under ``key``
+        (per-context cache)."""
         if key not in self.cache:
             self.cache[key] = builder()
         return self.cache[key]
@@ -97,7 +105,10 @@ class ServerState:
     device; the rest is host bookkeeping — strategy name, round counter,
     numpy bit-generator state (so sampling is checkpoint-exact), per-client
     sample counts, the departed set, the Ψ clustering state, CFL's
-    membership and the metric history."""
+    membership and the metric history. Under ``rng_backend="device"`` the
+    sampling state is instead ``rng_key``, a (2,) int64 threefry key on
+    the engine's device (``engine.sampler``), so a captured multi-round
+    loop (``engine.run_rounds``) samples with no host round trip."""
     ctx: EngineContext
     strategy: str
     round: int
@@ -110,6 +121,7 @@ class ServerState:
     clusters: Optional[Any] = None    # ClusterState or DeviceClusters
     members: Optional[Tuple[Tuple[int, ...], ...]] = None   # CFL partition
     history: Tuple[dict, ...] = ()
+    rng_key: Optional[torch.Tensor] = None   # device sampling key (rng_backend="device")
 
     @property
     def n_clients(self) -> int:
@@ -137,3 +149,21 @@ class ServerState:
 
 def fresh_rng_state(seed: int) -> dict:
     return np.random.default_rng(seed).bit_generator.state
+
+
+def fresh_rng_key(seed: int, device="cpu") -> torch.Tensor:
+    """Device sampling key for ``rng_backend="device"``: the key words of
+    the reference's ``jax.random.PRNGKey(seed)``, (0, seed) for
+    0 <= seed < 2³², as a (2,) int64 tensor on ``device``."""
+    seed = int(seed)
+    return torch.tensor([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                        dtype=torch.int64, device=device)
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of ``EngineConfig.dtype``; raises for a name that
+    is not a floating dtype."""
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"EngineConfig.dtype must be a float dtype, got {name!r}")
+    return dt

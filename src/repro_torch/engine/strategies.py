@@ -16,6 +16,16 @@ aggregate out). Cohorts larger than ``cfg.cohort_chunk`` run in chunks
 (``bilevel.chunk_map``). The phases of a StoCFL round are named
 ``torch.profiler`` ranges (``stocfl.*``), which only a recording profiler
 reads.
+
+Every strategy also has ``scan_round``: its round as one step over
+fixed-shape device tensors, with the cohort drawn on the device
+(``engine.sampler``) and gathered from the arena by a device id tensor,
+and no host read anywhere in it, which ``engine.run_rounds`` runs as a
+plain loop on the CPU and captures in a CUDA graph on the card. Where the
+reference's scanned step skips work with ``lax.cond`` (StoCFL's observe,
+merge pass, bank merge and objective; CFL's split seeds), the step does
+the work every round, masked: on the rounds the reference skips, that
+work changes nothing.
 """
 from __future__ import annotations
 
@@ -26,9 +36,12 @@ from torch.func import vmap
 from repro_torch.core import bilevel
 from repro_torch.core import device_clustering as devclust
 from repro_torch.core.aggregators import AGGREGATORS
+from repro_torch.data.arena import take_rows
+from repro_torch.engine import sampler
 from repro_torch.engine.bank import ClusterBank, _pow2 as bank_pow2
 from repro_torch.engine.registry import register
-from repro_torch.engine.state import EngineContext, ServerState, fresh_rng_state
+from repro_torch.engine.state import (EngineContext, ServerState, fresh_rng_key,
+                                      fresh_rng_state)
 from repro_torch.utils import trees
 
 _span = torch.profiler.record_function
@@ -79,6 +92,101 @@ def _weights(state: ServerState, ids) -> torch.Tensor:
     return torch.as_tensor(w, device=state.ctx.device)
 
 
+# ------------------------------------------------------- scan scaffolding
+def _arena_consts(ctx: EngineContext) -> dict:
+    """The arena's device operands for a round step: packed shards, the
+    row mask and the cid -> row map. Passed to the step as consts, so a
+    captured step is fed the arena as it stands at each call."""
+    ar = ctx.arena
+    return {"packed": ar.packed, "amask": ar.mask, "rowmap": ar.device_rows}
+
+
+def _gather_scan(consts: dict, ids: torch.Tensor, ragged: bool):
+    """Cohort batch of the device ids ``ids`` from ``_arena_consts``
+    operands: the same gathers (and ragged ``"mask"`` leaf) as
+    ``ClientArena.gather``, so the batch is bitwise the eager round's."""
+    return take_rows(consts["packed"], consts["amask"], consts["rowmap"], ids, ragged)
+
+
+def _sizes_f32(state: ServerState) -> torch.Tensor:
+    """Per-client sample counts as a device f32 vector padded to the pool's
+    power-of-two capacity (``sampler.pool_capacity``; pad slots weigh 0
+    and are never drawn): the step's counterpart of ``_weights``, uploaded
+    once per distinct size tuple and kept on the context."""
+    ctx = state.ctx
+    hit = ctx.cache.get("sizes_f32")
+    if hit is None or hit[0] != state.sizes:
+        arr = np.zeros(sampler.pool_capacity(len(state.sizes)), np.float32)
+        arr[: len(state.sizes)] = state.sizes
+        hit = (state.sizes, torch.as_tensor(arr, device=ctx.device))
+        ctx.cache["sizes_f32"] = hit
+    return hit[1]
+
+
+def _row_mask(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """Broadcast a (rows,) mask against a (rows, ...) leaf."""
+    return mask.reshape((-1,) + (1,) * (leaf.dim() - 1))
+
+
+def _count(n: int, device) -> torch.Tensor:
+    """A step record's constant count as a 0-d int32 device tensor."""
+    return torch.full((), n, dtype=torch.int32, device=device)
+
+
+def _scan_history(ys, rounds: int) -> tuple:
+    """Stacked step records -> eager-style history records (``engine.api.
+    scan_history``; imported here to keep the module import order)."""
+    from repro_torch.engine.api import scan_history
+    return scan_history(ys, rounds)
+
+
+def merge_bound(state: ServerState, cap: int) -> int:
+    """The live-cluster bound of a span's merge passes (``k_max`` of
+    ``merge_round_impl``): the current clusters plus every still-unseen
+    live client, each of which could open a singleton, as a power of two
+    at most ``cap``; it only shrinks during the span."""
+    clusters = state.clusters
+    n_live = state.n_clients - len(state.left)
+    k_now = clusters.n_clusters() if clusters.state is not None else 0
+    unseen = max(n_live - len(clusters.seen), 0)
+    return min(bank_pow2(max(k_now + unseen, 1)), cap)
+
+
+def row_bank_merge(rows, has, init, ids, rows_live, new_roots, counts):
+    """``ClusterBank.merge`` over a row-keyed bank (``rows[r]`` the model
+    of the cluster rooted at r, ``has[r]`` whether it has one, ``init``
+    otherwise): each merged group's rows become their member-count-weighted
+    mean, the absorbed rows lose ``has``, every other row is kept. The
+    merge is given by a merge pass's outputs (``rows_live`` pre-merge live
+    roots, ``new_roots`` their post-merge roots, ``counts`` their member
+    counts; pads = capacity / 0); ``ids`` is ``arange(capacity)``. Segment
+    sums run over ascending rows, ``ClusterBank.merge``'s order. Without a
+    merge it changes nothing: the masked form of the reference's
+    ``lax.cond``. Returns ``(rows, has)``."""
+    cap = ids.numel()
+    dev = ids.device
+    rl = rows_live.long()
+    mapped = devclust._scatter_drop(ids, rl, new_roots).long()
+    w_full = devclust._scatter_drop(torch.zeros((cap,), dtype=torch.float32, device=dev),
+                                    rl, counts.to(torch.float32))
+    counted = w_full > 0
+    gsize = torch.zeros((cap,), dtype=torch.int32, device=dev).index_add_(
+        0, mapped, counted.to(torch.int32))
+    merged = gsize > 1
+    absorbed = counted & (mapped != ids)
+    denom = torch.zeros((cap,), dtype=torch.float32, device=dev).index_add_(
+        0, mapped, w_full)[mapped]
+    wn = torch.where(denom > 0, w_full / denom, torch.zeros_like(w_full))
+
+    def leaf(r, i):
+        full = torch.where(_row_mask(has, r), r, i[None].to(r.dtype))
+        contrib = full * _row_mask(wn, full)
+        agg = torch.zeros_like(contrib).index_add_(0, mapped, contrib)
+        return torch.where(_row_mask(merged, r), agg.to(r.dtype), r)
+
+    return trees.tree_map(leaf, rows, init), (has & ~absorbed) | merged
+
+
 def merge_cluster_models(models, merges, counts, init_params):
     """Merge θ along partition merges, each side weighted by its member
     count. ``counts`` is the pre-merge {root: n_members} snapshot.
@@ -108,14 +216,36 @@ class Strategy:
     full_participation = False        # run_round trains every live client
 
     def init_state(self, ctx: EngineContext) -> ServerState:
-        """Round-0 state: ω = ω₀, empty bank, fresh sampling rng."""
+        """Round-0 state: ω = ω₀, empty bank, fresh sampling rng (the numpy
+        bit-generator, plus a device threefry key under
+        ``rng_backend="device"``)."""
+        key = (fresh_rng_key(ctx.cfg.seed, ctx.device)
+               if ctx.cfg.rng_backend == "device" else None)
         return ServerState(ctx=ctx, strategy=self.name, round=0,
                            rng_state=fresh_rng_state(ctx.cfg.seed),
                            sizes=client_sizes(ctx.clients), left=frozenset(),
-                           omega=ctx.init_params, models=ClusterBank.empty())
+                           omega=ctx.init_params, models=ClusterBank.empty(),
+                           rng_key=key)
 
     def round(self, ctx: EngineContext, state: ServerState, client_ids):
         raise NotImplementedError
+
+    def scan_round(self, ctx: EngineContext, state: ServerState,
+                   pool: np.ndarray, m: int):
+        """The strategy's round as a step for ``engine.run_rounds``.
+
+        Returns ``(carry0, consts, step, finalize, statics)``: ``carry0``
+        is a tuple of tensors and trees built from ``state`` (key, models,
+        banks, partition), ``consts`` a dict of the round-invariant device
+        operands (arena, pool, sample counts), ``step(carry, consts) ->
+        (carry', record)`` one round with no host read and no input
+        written (the eager ``round``'s results), ``finalize(state, carry,
+        ys, rounds)`` the host conversion back to a ``ServerState``, and
+        ``statics`` a hashable tuple of every value the step bakes in
+        beyond the carry and const shapes. ``pool`` is the boolean draw
+        pool, ``m`` the cohort size."""
+        raise NotImplementedError(
+            f"strategy {self.name!r} has no scannable round step")
 
     def evaluate(self, ctx, state, test_sets, true_cluster=None) -> dict:
         """Held-out evaluation; the base serves every test set with ω."""
@@ -226,6 +356,148 @@ class StoCFLStrategy(Strategy):
                "sampled": len(client_ids),
                "merges": tuple(merges)}
         return state.replace(omega=omega, models=models, clusters=clusters), rec
+
+    def _cold_carry(self, ctx, state, clusters):
+        """The step's partition and row-keyed bank built from ``state``:
+        ``(DeviceClusterState grown to the population, row-keyed model
+        rows (cap, ...), has (cap,))``. The warm-resume path in
+        ``scan_round`` skips this for back-to-back ``run_rounds`` calls on
+        an untouched state."""
+        dev = ctx.device
+        if clusters.state is None:
+            dim = int(ctx.extractor(ctx.clients[0]).shape[0])
+            dcs0 = devclust.init_state(max(clusters._capacity_hint, state.n_clients),
+                                       dim, dev)
+        else:
+            dcs0 = devclust.grow(clusters.state, state.n_clients)
+        cap = dcs0.capacity
+        has0 = torch.zeros((cap,), dtype=torch.bool, device=dev)
+        roots0 = state.models.roots
+        if roots0:
+            idx = torch.as_tensor(roots0, dtype=torch.int64, device=dev)
+            rows0 = trees.tree_map(
+                lambda i, b: torch.zeros((cap,) + tuple(i.shape), dtype=i.dtype,
+                                         device=dev).index_copy_(
+                    0, idx, b[: len(roots0)].to(i.dtype)),
+                ctx.init_params, state.models.stacked)
+            has0[idx] = True
+        else:
+            rows0 = trees.tree_map(
+                lambda i: torch.zeros((cap,) + tuple(i.shape), dtype=i.dtype, device=dev),
+                ctx.init_params)
+        return dcs0, rows0, has0
+
+    def scan_round(self, ctx, state, pool, m):
+        """StoCFL's whole round (Ψ of the new clients, observe, merge pass,
+        count-weighted bank merge, bi-level cohort step, per-cluster
+        aggregation) as one step with no host read (``cluster_backend=
+        "device"``; ``run_rounds`` checks it).
+
+        The carry holds the partition as the three ``DeviceClusterState``
+        tensors and the cluster models as a row-keyed bank: ``rows[r]``
+        is the model of the cluster rooted at client r, ``has[r]`` whether
+        it has one (lazy θ_k = ω₀ otherwise); ``finalize`` rebuilds the
+        ``DeviceClusters`` and the ``ClusterBank``. The reference's
+        ``lax.cond`` skips run every round here, masked: Ψ of every
+        cohort member (one per-client call each, kept for the new ones), a
+        merge pass (a no-op on a settled partition), the bank merge (a
+        no-op without merges) and the objective. Segment sums run over
+        ascending rows and cohort positions, the eager round's order."""
+        cfg = ctx.cfg
+        dev = ctx.device
+        tau = float(cfg.tau)
+        ragged = ctx.arena.ragged
+        clusters = state.clusters
+        # warm resume: finalize stashes the final carry under the exact
+        # models / clusters objects it returned; any transition between
+        # spans replaces those objects, so identity is a sound staleness key
+        resume = ctx.cache.get("stocfl_scan_resume")
+        if (resume is not None and resume["models"] is state.models
+                and resume["clusters"] is state.clusters
+                and state.n_clients <= resume["dcs"].capacity):
+            dcs0, rows0, has0 = resume["dcs"], resume["rows"], resume["has"]
+        else:
+            dcs0, rows0, has0 = self._cold_carry(ctx, state, clusters)
+        cap = dcs0.capacity
+        consts = dict(_arena_consts(ctx), pool=torch.as_tensor(pool, device=dev),
+                      sizes=_sizes_f32(state), init=ctx.init_params,
+                      ids=torch.arange(cap, dtype=torch.int32, device=dev))
+        carry0 = (state.rng_key, state.omega, dcs0.parent, dcs0.live, dcs0.rep,
+                  rows0, has0)
+        cohort = self._cohort(ctx)
+        psi = ctx.extractor
+        aggregate = AGGREGATORS[cfg.aggregator]
+        fused = bool(cfg.fused_step)
+        k_bound = merge_bound(state, cap)
+
+        def step(carry, cs):
+            key, omega, parent, live, rep, rows, has = carry
+            ids_arr = cs["ids"]
+            key, ids = sampler.draw(key, cs["pool"], m)
+            batches = _gather_scan(cs, ids, ragged)
+            new = ~live[ids]
+            with _span("stocfl.psi_extract"):
+                reps = torch.stack([psi(trees.tree_map(lambda x, i=i: x[i], batches))
+                                    for i in range(m)])
+                idx = torch.where(new, ids.to(torch.int32), cap)
+                dcs = devclust.observe(devclust.DeviceClusterState(parent, live, rep),
+                                       idx, reps)
+            with _span("stocfl.merge_pass"):
+                dcs, rows_live, new_roots, counts_c = devclust.merge_round_impl(
+                    dcs, tau, k_bound)
+            with _span("stocfl.bank_merge"):
+                rows, has = row_bank_merge(rows, has, cs["init"], ids_arr, rows_live,
+                                           new_roots, counts_c)
+            with _span("stocfl.gather"):
+                r_ids = dcs.parent[ids].long()      # fully compressed roots
+                has_r = has[r_ids]
+                thetas = trees.tree_map(
+                    lambda r, init: torch.where(_row_mask(has_r, r),
+                                                torch.index_select(r, 0, r_ids),
+                                                init[None].to(r.dtype)),
+                    rows, cs["init"])
+                if fused:
+                    thetas = bilevel.flatten_tree(thetas, batch_dims=1)
+            with _span("stocfl.cohort_update"):
+                thetas_i, omegas_i = cohort(thetas, omega, batches)
+            with _span("stocfl.aggregate"):
+                w = cs["sizes"][ids]
+                omega = aggregate(omegas_i, w)
+                # per-cluster FedAvg over compact cohort slots (the first
+                # position of each root), then a scatter of the touched rows
+                pos = torch.arange(m, device=dev)
+                firsts = torch.argmax((r_ids[:, None] == r_ids[None, :]).to(torch.int32),
+                                      dim=1)
+                is_first = firsts == pos
+                slot = (torch.cumsum(is_first.to(torch.int64), 0) - 1)[firsts]
+                agg = bilevel.aggregate_segments(thetas_i, w, slot, m)
+                target = torch.where(is_first, r_ids, cap)
+                rows = trees.tree_map(
+                    lambda r, a: devclust._scatter_drop(r, target, a[slot].to(r.dtype)),
+                    rows, agg)
+                has = devclust._scatter_drop(has, target, True)
+            with _span("stocfl.objective"):
+                n_clusters = (dcs.live & (dcs.parent == ids_arr)).sum().to(torch.int32)
+                objective = devclust.objective_closed_impl(dcs).to(torch.float32)
+            rec = {"n_clusters": n_clusters, "objective": objective,
+                   "sampled": _count(m, dev)}
+            return (key, omega, dcs.parent, dcs.live, dcs.rep, rows, has), rec
+
+        def finalize(state, carry, ys, rounds):
+            key, omega, parent, live, rep, rows, has = carry
+            clusters = devclust.DeviceClusters.from_arrays(tau, parent, live, rep,
+                                                           device=dev)
+            roots = [int(r) for r in torch.nonzero(has).flatten().tolist()]
+            models = ClusterBank.from_dict(
+                {r: trees.tree_map(lambda x, rr=r: x[rr], rows) for r in roots})
+            # the warm-resume stash, keyed by the objects returned below
+            ctx.cache["stocfl_scan_resume"] = dict(
+                models=models, clusters=clusters, dcs=clusters.state, rows=rows, has=has)
+            return state.replace(omega=omega, rng_key=key, clusters=clusters,
+                                 models=models, round=state.round + rounds,
+                                 history=state.history + _scan_history(ys, rounds))
+
+        return carry0, consts, step, finalize, (ragged, cap, k_bound)
 
     def evaluate(self, ctx, state, test_sets, true_cluster=None):
         """Each true cluster is evaluated with the model of the learned
@@ -339,6 +611,29 @@ class FedAvgStrategy(Strategy):
         omega = bilevel.aggregate_stacked(outs, _weights(state, ids))
         return state.replace(omega=omega), {"sampled": len(ids)}
 
+    def scan_round(self, ctx, state, pool, m):
+        """FedAvg / FedProx as a step: draw, gather, the eager round's local
+        SGD, weighted mean; the carry is ``(key, ω)``."""
+        ragged = ctx.arena.ragged
+        upd = self._upd(ctx)
+        dev = ctx.device
+        consts = dict(_arena_consts(ctx), pool=torch.as_tensor(pool, device=dev),
+                      sizes=_sizes_f32(state))
+
+        def step(carry, cs):
+            key, omega = carry
+            key, ids = sampler.draw(key, cs["pool"], m)
+            outs = upd(omega, _gather_scan(cs, ids, ragged))
+            omega = bilevel.aggregate_stacked(outs, cs["sizes"][ids])
+            return (key, omega), {"sampled": _count(m, dev)}
+
+        def finalize(state, carry, ys, rounds):
+            key, omega = carry
+            return state.replace(omega=omega, rng_key=key, round=state.round + rounds,
+                                 history=state.history + _scan_history(ys, rounds))
+
+        return (state.rng_key, state.omega), consts, step, finalize, (ragged,)
+
 
 @register("fedprox")
 class FedProxStrategy(FedAvgStrategy):
@@ -385,6 +680,44 @@ class DittoStrategy(Strategy):
         for j, c in enumerate(ids):
             personal[int(c)] = trees.tree_map(lambda x: x[j].clone(), v_outs)
         return state.replace(omega=omega, personal=personal), {"sampled": len(ids)}
+
+    def scan_round(self, ctx, state, pool, m):
+        """Ditto as a step. The personal models ride the carry as one
+        stacked (capacity, ...) tree, cid ↔ row, capacity the pool's power
+        of two (pad rows repeat row 0 and are never drawn); a round gathers
+        the cohort's rows, proxes them to the broadcast ω and writes them
+        back. ``finalize`` hands out the rows as the per-cid dict."""
+        ragged = ctx.arena.ragged
+        gupd, pupd = self._upds(ctx)
+        dev = ctx.device
+        n = state.n_clients
+        capn = sampler.pool_capacity(n)
+        personal0 = trees.tree_map(
+            lambda *xs: torch.stack(xs),
+            *[state.personal[i if i < n else 0] for i in range(capn)])
+        consts = dict(_arena_consts(ctx), pool=torch.as_tensor(pool, device=dev),
+                      sizes=_sizes_f32(state))
+
+        def step(carry, cs):
+            key, omega, personal = carry
+            key, ids = sampler.draw(key, cs["pool"], m)
+            batches = _gather_scan(cs, ids, ragged)
+            g_outs = gupd(omega, batches)
+            v = trees.tree_map(lambda p: torch.index_select(p, 0, ids), personal)
+            v_outs = pupd(v, omega, batches)
+            omega = bilevel.aggregate_stacked(g_outs, cs["sizes"][ids])
+            personal = trees.tree_map(lambda p, x: p.index_copy(0, ids, x.to(p.dtype)),
+                                      personal, v_outs)
+            return (key, omega, personal), {"sampled": _count(m, dev)}
+
+        def finalize(state, carry, ys, rounds):
+            key, omega, personal = carry
+            rows = {i: trees.tree_map(lambda p, ii=i: p[ii], personal) for i in range(n)}
+            return state.replace(omega=omega, rng_key=key, personal=rows,
+                                 round=state.round + rounds,
+                                 history=state.history + _scan_history(ys, rounds))
+
+        return (state.rng_key, state.omega, personal0), consts, step, finalize, (ragged,)
 
     def evaluate(self, ctx, state, test_sets, true_cluster=None):
         """Per true cluster: the mean accuracy of its first 8 clients'
@@ -465,6 +798,44 @@ class IFCAStrategy(Strategy):
         models = state.models.put([int(m) for m in um], agg)
         return state.replace(models=models), {"sampled": len(ids)}
 
+    def scan_round(self, ctx, state, pool, m):
+        """IFCA as a step: the M̃ hypotheses ride the carry stacked; the
+        choice is a device argmin of the batched losses (the first
+        minimum, as ``choices``), the update local SGD from the chosen
+        hypothesis, the write-back a full-M̃ segment mean that keeps the
+        hypotheses no client chose."""
+        ragged = ctx.arena.ragged
+        n_models = int(ctx.cfg.n_models)
+        choice, upd = self._choice(ctx), self._upd(ctx)
+        dev = ctx.device
+        rows0 = state.models.take(np.arange(n_models), ctx.init_params)
+        consts = dict(_arena_consts(ctx), pool=torch.as_tensor(pool, device=dev),
+                      sizes=_sizes_f32(state))
+
+        def step(carry, cs):
+            key, rows = carry
+            key, ids = sampler.draw(key, cs["pool"], m)
+            batches = _gather_scan(cs, ids, ragged)
+            choices = torch.argmin(choice(rows, batches), dim=1)
+            thetas = trees.tree_map(lambda r: torch.index_select(r, 0, choices), rows)
+            outs = upd(thetas, batches)
+            w = cs["sizes"][ids]
+            agg = bilevel.aggregate_segments(outs, w, choices, n_models)
+            present = torch.zeros((n_models,), dtype=torch.int32, device=dev).index_add_(
+                0, choices, torch.ones_like(choices, dtype=torch.int32)) > 0
+            rows = trees.tree_map(
+                lambda r, a: torch.where(_row_mask(present, r), a.to(r.dtype), r), rows, agg)
+            return (key, rows), {"sampled": _count(m, dev)}
+
+        def finalize(state, carry, ys, rounds):
+            key, rows = carry
+            models = ClusterBank.from_dict(
+                {i: trees.tree_map(lambda r, ii=i: r[ii], rows) for i in range(n_models)})
+            return state.replace(models=models, rng_key=key, round=state.round + rounds,
+                                 history=state.history + _scan_history(ys, rounds))
+
+        return (state.rng_key, rows0), consts, step, finalize, (ragged, n_models)
+
     def evaluate(self, ctx, state, test_sets, true_cluster=None):
         """Each test set with its best hypothesis (oracle assignment)."""
         out = {}
@@ -491,16 +862,21 @@ class CFLStrategy(Strategy):
     def _core(self, ctx):
         """The whole CFL round over a fixed L-client layout: ``(assign
         (L,), k, model rows (L, ...), batches, sizes) -> (assign', k',
-        rows')``, the reference's jitted ``_core``.
+        rows')``, the reference's jitted ``_core``; ``k`` and ``k'`` are
+        0-d device tensors (``k`` may be an int). The eager round and the
+        ``run_rounds`` step both call it.
 
         Every client trains from its cluster's model; per-cluster FedAvg
         and the Sattler split statistics are segment reductions over the
         client axis (within a segment in ascending cid, the member-tuple
         order); split emission renumbers clusters by cumulative-split
-        offset (split cluster j → slots j+off and j+off+1). The O(L²·d)
-        similarity product and the seeds run only on rounds with a split
-        candidate, as the reference's ``lax.cond`` gates them; deciding
-        that reads one flag on the host."""
+        offset (split cluster j → slots j+off and j+off+1). The split
+        seeds of every cluster (the least similar member pair, the first
+        minimum in row-major order, as ``np.unravel_index`` finds it) come
+        from one masked segment minimum over the L × L similarity matrix,
+        every round, where the reference's ``lax.cond`` skips them on
+        rounds with no split candidate; only the candidates' seeds are
+        used. No host read."""
         cfg = ctx.cfg
 
         def build():
@@ -526,23 +902,27 @@ class CFLStrategy(Strategy):
                 candidate = ((ks < k) & (cnt > 2) & (max_norm > cfg.eps2)
                              & (mean_norm < cfg.eps_rel * max_norm))
 
-                # split seeds: the least-similar member pair, the first
-                # minimum in row-major member order (np.unravel_index's rule)
-                c2 = torch.zeros((L, L), dtype=torch.bool, device=dev)
-                seed_ok = torch.zeros(L, dtype=torch.bool, device=dev)
-                cands = candidate.nonzero().flatten().tolist()
-                if cands:
-                    sims = flat / (norms[:, None] + 1e-12)
-                    m = sims @ sims.T
-                    for j in cands:
-                        mask = assign == j
-                        mj = torch.where(mask[:, None] & mask[None, :], m, torch.inf)
-                        amin = torch.argmin(mj).reshape(1)
-                        gi, gj = amin // L, amin % L
-                        c1 = mask & (m.index_select(1, gi)[:, 0] >= m.index_select(1, gj)[:, 0])
-                        c2[j] = mask & ~c1
-                        seed_ok[j] = c1.any() & c2[j].any()
-                split = candidate & seed_ok
+                # split seeds: per cluster the least cosine over its member
+                # pairs, then the first pair (row-major) holding it
+                sims = flat / (norms[:, None] + 1e-12)
+                m = sims @ sims.T
+                same = assign[:, None] == assign[None, :]
+                seg = assign[:, None].expand(L, L).reshape(-1)
+                least = torch.full((L,), torch.inf, device=dev).scatter_reduce_(
+                    0, seg, torch.where(same, m, torch.inf).reshape(-1), "amin",
+                    include_self=True)
+                pair = torch.arange(L * L, device=dev).view(L, L)
+                at_least = same & (m == least[assign][:, None])
+                first = torch.full((L,), L * L, dtype=torch.int64, device=dev)
+                first = first.scatter_reduce_(
+                    0, seg, torch.where(at_least, pair, L * L).reshape(-1), "amin",
+                    include_self=True)
+                first = torch.where(first < L * L, first, 0)      # empty clusters
+                gi, gj = first // L, first % L
+                member = assign[None, :] == ks[:, None]           # (cluster, client)
+                c1 = member & (m[:, gi].T >= m[:, gj].T)
+                c2 = member & ~c1
+                split = candidate & c1.any(dim=1) & c2.any(dim=1)
                 s = split.to(torch.int64)
                 new_pos = ks + torch.cumsum(s, 0) - s
                 base = new_pos[assign]
@@ -558,7 +938,7 @@ class CFLStrategy(Strategy):
                     return ext.index_copy_(0, idx1, nm).index_copy_(0, idx2, nm)[:L]
 
                 rows2 = trees.tree_map(leaf, rows, new_models)
-                return assign2, k + int(s.sum()), rows2
+                return assign2, k + torch.where(ks < k, s, 0).sum(), rows2
 
             return core
 
@@ -600,10 +980,42 @@ class CFLStrategy(Strategy):
         assign2, k2, rows2 = self._core(ctx)(
             torch.as_tensor(assign, device=ctx.device), k, rows,
             _batches(ctx, live), sizes)
-        members, models = self._untangle(live, assign2.cpu().numpy(), k2, rows2)
+        members, models = self._untangle(live, assign2.cpu().numpy(), int(k2), rows2)
         state = state.replace(members=members, models=models)
         return state, {"n_clusters": len(members),
                        "sampled": sum(len(m) for m in members)}
+
+    def scan_round(self, ctx, state, pool, m):
+        """CFL as a step: the carry is the matrix partition (``assign``,
+        ``k``, model rows) and each step is one ``_core`` over the whole
+        live population (availability does not apply to full
+        participation, as in the eager loop)."""
+        ragged = ctx.arena.ragged
+        live, assign, k, rows = self._matrix(ctx, state)
+        L = len(live)
+        core = self._core(ctx)
+        dev = ctx.device
+        consts = dict(_arena_consts(ctx), live=torch.as_tensor(live, device=dev),
+                      sizes=torch.as_tensor(np.asarray(state.sizes, np.float32)[live],
+                                            device=dev))
+        carry0 = (torch.as_tensor(assign, device=dev),
+                  torch.tensor(k, dtype=torch.int64, device=dev), rows)
+
+        def step(carry, cs):
+            assign, k, rows = carry
+            assign, k, rows = core(assign, k, rows, _gather_scan(cs, cs["live"], ragged),
+                                   cs["sizes"])
+            return (assign, k, rows), {"n_clusters": k.to(torch.int32),
+                                       "sampled": _count(L, dev)}
+
+        def finalize(state, carry, ys, rounds):
+            assign, k, rows = carry
+            members, models = self._untangle(live, assign.cpu().numpy(), int(k), rows)
+            return state.replace(members=members, models=models,
+                                 round=state.round + rounds,
+                                 history=state.history + _scan_history(ys, rounds))
+
+        return carry0, consts, step, finalize, (ragged, L)
 
     def cluster_of(self, state, cid: int) -> int:
         for k, c in enumerate(state.members):

@@ -10,11 +10,19 @@ The wrappers call the exported C functions with raw pointers from
 ``tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream().cuda_stream``; every C function returns the
 CUDA error of its launches (0 when they were accepted).
+
+Under CUDA graph capture a wrapper's launch is recorded, not run, and
+runs at each replay. The wrappers count launches in Python when they are
+called, so a graph's owner takes the counts its capture added
+(``launch_counts`` before and after), takes them back off, and adds them
+once per replay (``add_launches``): the counters then count the launches
+that ran.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -47,6 +55,13 @@ _SIGNATURES = {
     "ssm_scan_fwd_f32": [_P, _P, _P, _P, _P] + [ctypes.c_int] * 5 + [_P],
     "ssm_scan_bwd_f32": [_P] * 9 + [ctypes.c_int] * 5 + [_P],
 }
+
+# every wrapper's counter of the work it puts on the card: module, attribute
+LAUNCH_COUNTERS = (("prox_update", "launches"), ("prox_update", "theta_launches"),
+                   ("cosine_sim", "launches"), ("cosine_sim", "candidate_launches"),
+                   ("cosine_sim", "padded_copies"), ("resolve_roots", "launches"),
+                   ("resolve_roots", "label_launches"), ("ssm_scan", "fwd_launches"),
+                   ("ssm_scan", "bwd_launches"))
 
 _lib: Optional[ctypes.CDLL] = None
 last_build_log = ""
@@ -139,14 +154,42 @@ def arrival_counters(device, stream: int, need: int):
     """At least ``need`` int32 counters on ``device`` for kernels launched on
     ``stream`` whose blocks count themselves in, the last to arrive finishing
     the work. They are 0 at every launch: each kernel leaves them 0, and
-    launches on one stream run in order."""
+    launches on one stream run in order (a graph's replays too).
+
+    They are allocated outside any graph capture, on the first launch on
+    the stream: during a capture, an allocation would come from the
+    graph's private pool, so a missing or short buffer raises there; the
+    captured work must first run once on the capture stream."""
     import torch
     key = (device.index, stream)
     cnt = _counters.get(key)
     if cnt is None or cnt.numel() < need:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "arrival counters for this stream do not exist yet: run the "
+                "captured work once on the capture stream before capturing it")
         cnt = torch.zeros((max(need, 4096),), dtype=torch.int32, device=device)
         _counters[key] = cnt
     return cnt
+
+
+def _counter_module(name: str):
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
+def launch_counts() -> dict:
+    """``{"module.counter": value}`` of every wrapper's counter
+    (``LAUNCH_COUNTERS``)."""
+    return {f"{mod}.{attr}": getattr(_counter_module(mod), attr)
+            for mod, attr in LAUNCH_COUNTERS}
+
+
+def add_launches(delta: dict, times: int = 1) -> None:
+    """Add ``times`` × ``delta`` (``launch_counts``-keyed) to the counters."""
+    for name, n in delta.items():
+        mod, attr = name.split(".")
+        module = _counter_module(mod)
+        setattr(module, attr, getattr(module, attr) + times * n)
 
 
 def check(err: int, name: str) -> None:

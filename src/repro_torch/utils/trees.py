@@ -65,3 +65,8 @@ def tree_unflatten_vector(vec: torch.Tensor, tree):
         out.append(vec[off:off + n].reshape(leaf.shape).to(leaf.dtype))
         off += n
     return from_leaves(tree, out)
+
+
+def tree_cast(tree, dtype):
+    """Every leaf cast to ``dtype``."""
+    return tree_map(lambda x: x.to(dtype), tree)

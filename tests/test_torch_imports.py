@@ -36,6 +36,9 @@ SLICE3 = ("repro_torch.configs", "repro_torch.configs.falcon_mamba_7b",
 SLICE6 = ("repro_torch.core.baselines", "repro_torch.core.stocfl",
           "repro_torch.core.bilevel", "repro_torch.engine.strategies",
           "repro_torch.kernels.prox_update", "repro_torch.utils.trees")
+# the device sampler and the captured multi-round loop, and what they run
+SLICE7 = ("repro_torch.engine.sampler", "repro_torch.engine.api",
+          "repro_torch.data.arena", "repro_torch.kernels._build")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -48,6 +51,7 @@ def test_importing_every_module_loads_no_jax():
     assert len(names) >= 20
     assert set(SLICE3) <= set(names), sorted(set(SLICE3) - set(names))
     assert set(SLICE6) <= set(names), sorted(set(SLICE6) - set(names))
+    assert set(SLICE7) <= set(names), sorted(set(SLICE7) - set(names))
     assert bad == "", f"port imports pulled in {bad}"
 
 

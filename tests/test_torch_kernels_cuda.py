@@ -468,3 +468,91 @@ def test_falcon_mamba_smoke_loss_and_gradient_on_card(dev):
     assert (ssm_scan.fwd_launches - f0, ssm_scan.bwd_launches - b0) == (2, 2)
     for a, b in zip(got, run("cpu")):
         _near(a.detach(), b.detach(), rel=1e-4)
+
+
+def test_captured_merge_pass_replays_give_the_same_labels(dev):
+    """A step of K3 and ``component_labels`` captured in a CUDA graph
+    (``engine.api.RoundProgram``: round 0 runs eagerly on the capture
+    stream, which allocates the kernels' arrival counters, then one step is
+    captured) and replayed twice in a row gives the plain labels each time;
+    the kernels leave their arrival counters 0 between replays, and the
+    launch counters count the launches that ran (one a round each). The
+    labels are held against an eager call of the same kernels."""
+    from repro_torch.engine.api import RoundProgram
+    from repro_torch.kernels import _build, ops
+    k, d, tau = 512, 4096, 0.2
+    gen = torch.Generator().manual_seed(5)
+    x = cosine_sim.row_padded(k, d, dev)
+    x.copy_(torch.randn(k, 3, generator=gen) @ torch.randn(3, d, generator=gen))
+    live = torch.rand(k, generator=gen) < 0.8
+    want = ops.component_labels(ops.merge_pairs(x, live.to(dev), tau)).cpu()
+
+    def step(carry, cs):
+        adj = ops.merge_pairs(cs["x"], cs["live"], tau)
+        return carry, {"labels": ops.component_labels(adj)}
+
+    program = RoundProgram(step, dev)
+    before = (cosine_sim.candidate_launches, resolve_roots.label_launches)
+    carry, ys = program((torch.zeros(1, device=dev),), {"x": x, "live": live.to(dev)}, 3)
+    torch.cuda.synchronize()
+    assert program.graph is not None and program.capture_s is not None
+    for t in range(3):
+        assert torch.equal(ys["labels"][t].cpu(), want), t
+    assert program.per_round == {"cosine_sim.candidate_launches": 1,
+                                 "resolve_roots.label_launches": 1}
+    assert (cosine_sim.candidate_launches, resolve_roots.label_launches) == \
+        (before[0] + 3, before[1] + 3)
+    assert all(int(c.abs().sum()) == 0 for c in _build._counters.values())
+    _, ys = program(carry, {"x": x, "live": live.to(dev)}, 2)    # replays only
+    torch.cuda.synchronize()
+    assert all(torch.equal(ys["labels"][t].cpu(), want) for t in range(2))
+
+
+def test_arrival_counters_are_not_allocated_under_capture(dev):
+    from repro_torch.kernels import _build
+    stream = torch.cuda.Stream(dev)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="arrival counters"):
+        with torch.cuda.graph(graph, stream=stream):
+            _build.arrival_counters(dev, stream.cuda_stream, 1)
+
+
+@pytest.mark.parametrize("name", ["stocfl", "fedavg", "fedprox", "ditto", "ifca", "cfl"])
+def test_run_rounds_on_card_matches_eager(dev, name):
+    """``run_rounds`` on the card (a captured round body) against the eager
+    loop on the card: cohorts, records, partitions and members equal; ω,
+    bank and personal rows within 1e-5 (segment sums use atomics on the
+    card, in an order that changes between runs)."""
+    from repro_torch import engine
+    from repro_torch.data.synthetic import pathological
+    from repro_torch.models import simple
+    from repro_torch.utils import trees
+    task = simple.TaskConfig("synth_mlp", "mlp", (64,), 10, hidden=32)
+    clients, _, _ = pathological(n_clients=12, n_per=16, seed=5)
+    params = simple.init(torch.Generator().manual_seed(0), task)
+    knobs = {"stocfl": {"cluster_backend": "device", "tau": 0.3}, "fedprox": {"mu": 0.05},
+             "ditto": {"mu": 0.05}, "ifca": {"n_models": 3},
+             "cfl": {"eps_rel": 0.7, "eps2": 0.01}}.get(name, {})
+    cfg = engine.EngineConfig(lr=0.1, local_steps=2, sample_rate=0.5, seed=0,
+                              rng_backend="device", fused_step=True, **knobs)
+    start = engine.init(name, lambda p, b: simple.loss_fn(p, b, task), params, clients,
+                        cfg, device=dev, arena=True)
+    eager = start
+    for _ in range(4):
+        eager, _ = engine.run_round(eager)
+    scanned = engine.run_rounds(start, 4)
+    strip = lambda h: [{k: v for k, v in r.items() if k not in ("merges", "objective")}
+                       for r in h]
+    assert strip(eager.history) == strip(scanned.history)
+    assert torch.equal(eager.rng_key, scanned.rng_key) if eager.rng_key is not None else True
+    pairs = [(eager.omega, scanned.omega)]
+    assert sorted(eager.models.roots) == sorted(scanned.models.roots)
+    pairs += [(eager.models[r], scanned.models[r]) for r in eager.models.roots]
+    pairs += [(eager.personal[c], scanned.personal[c]) for c in eager.personal]
+    for a, b in pairs:
+        for x, y in zip(trees.leaves(a), trees.leaves(b)):
+            assert float((x - y).abs().max()) <= 1e-5
+    assert eager.members == scanned.members
+    if name == "stocfl":
+        assert eager.clusters.assignment() == scanned.clusters.assignment()
+        assert torch.equal(eager.clusters.state.parent, scanned.clusters.state.parent)
