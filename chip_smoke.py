@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven phases, each printing its lines; any failure exits non-zero and
+Twelve phases, each printing its lines; any failure exits non-zero and
 prints no result.
 
 1. Build: compile the CUDA kernels of ``kernels/csrc`` with nvcc.
@@ -113,6 +113,36 @@ prints no result.
    capture, so the graph's owner takes the capture's counts back off and
    adds them once per replay: the first call's launches must equal the
    captured round's counts × the rounds.
+
+12. The varying federation at paths 1 and 2's model and knobs (device rng)
+   over ``rotated(n_clusters=4, n_clients=400, n_per=128, seed=0)``, whose
+   latent clusters ``rotated_factory`` draws newcomers from. The
+   timelines follow ``benchmarks/churn_sweep.py``'s churn model over 30
+   rounds (Poisson joins and leaves from round 0, drift every 10 rounds),
+   with an availability window and the §5 burst of 80 joins at round 10.
+   (a) Its 5% point (1/3 joins and 1/3 leaves a round) through
+   ``sim.simulate`` on the device backend over an arena, eagerly and with
+   ``scan_spans`` (event-free spans replayed from captured graphs), eval
+   every 5 rounds: records, joined, departed, partitions and bank roots
+   equal, rows within 1e-4; per-round walls, CUDA graphs captured,
+   ``memory_reserved`` before and after, the joined-versus-incumbent
+   accuracy curve and the final gap; K3 and component_labels held against
+   their plain versions on the churned path's merge-pass inputs. (b) Five
+   rounds of ``run_round_async`` at zero delay against ``run_round`` (StoCFL
+   on the host backend, FedAvg): cohorts, records, partitions equal, rows
+   within 1e-5 (``index_add_`` sums in no fixed order on the card); then
+   the 20% point (4/3 and 4/3) with a third of the ids 0-2 rounds late
+   each round, ``async_mode=True``, ``AsyncConfig(staleness_decay=0.8,
+   staleness_cap=3)``, cohorts quantised to 20, for StoCFL and FedAvg;
+   merged / dropped / in flight per round; K2 held against its plain
+   version on every matrix the StoCFL run gave it. (c) At round 15 of (b)
+   the state is saved with ``block=False`` (deltas in flight), loaded into
+   a fresh card engine over the world as it stood and finished: records,
+   buffer entries and partitions equal the uninterrupted run's, rows
+   within 1e-5; the save call's and the write's times; the same checkpoint
+   loaded with ``device="cpu"`` runs one round with the card's cohort,
+   record and partition. K1's launches equal 5 × the trained rounds in
+   every run; the phase's launches are added to the kernels line.
 
 The line before the last is one JSON object describing every kernel of the
 paths; the last line is ``{"ok": true, "device": {...}}``.
@@ -1452,7 +1482,7 @@ def phase_llm_path(dev):
     del state, psi, a, b
     check_scan_on_path(first_scan[0])
     del first_scan
-    check_cosine_on_llm_path(cosine_inputs, ecfg.tau)
+    check_cosine_on_records(cosine_inputs, ecfg.tau, "path3", 1e-5)
     del cosine_inputs
     torch.cuda.empty_cache()
     check_prox_at_llm_size(dev)
@@ -1632,15 +1662,15 @@ def recording_cosine_inputs():
         ops.pairwise_cosine = real
 
 
-def check_cosine_on_llm_path(records, tau):
-    """Hold K2 against its plain version on every matrix path 3 gave it
-    (cluster means of the sketched Ψ, D = 8192, zero rows padding them):
-    within 1e-5, the zero rows' cosines exactly 0, the same merge
-    decisions (cosine ≥ τ) among the live rows."""
+def check_cosine_on_records(records, tau, tag, atol=1e-4):
+    """Hold K2 against its plain version on every matrix a path gave it
+    (recorded by ``recording_cosine_inputs``): within ``atol``, the zero
+    rows' cosines exactly 0, the same merge decisions (cosine ≥ τ) among
+    the live rows. Returns the largest error."""
     import torch
     from repro_torch.kernels import cosine_sim, ref
 
-    assert records, "path 3 gave K2 no input"
+    assert records, f"{tag} gave K2 no input"
     worst = 0.0
     for t, x in enumerate(records):
         got, want = cosine_sim.cosine_sim(x), ref.cosine_sim_ref(x)
@@ -1652,10 +1682,10 @@ def check_cosine_on_llm_path(records, tau):
         pad_zero = bool((got[~live] == 0).all() and (got[:, ~live] == 0).all())
         same = bool(torch.equal((got >= tau) & both, (want >= tau) & both))
         margin = float((want[both] - tau).abs().min()) if bool(both.any()) else float("inf")
-        print(f"[path3] cosine_sim on path 3's call {t}, {tuple(x.shape)} ({int(live.sum())} "
-              f"live rows): max_abs_err={err:.3e} tol 1e-5 pad_exactly_0={pad_zero} merge "
+        print(f"[{tag}] cosine_sim on the path's call {t}, {tuple(x.shape)} ({int(live.sum())} "
+              f"live rows): max_abs_err={err:.3e} tol {atol:g} pad_exactly_0={pad_zero} merge "
               f"decisions equal={same} (closest |cos - tau| {margin:.3e})")
-        assert err <= 1e-5 and pad_zero and same, f"cosine_sim disagrees on path 3's call {t}"
+        assert err <= atol and pad_zero and same, f"cosine_sim disagrees on {tag}'s call {t}"
         worst = max(worst, err)
     return worst
 
@@ -2353,6 +2383,374 @@ def phase_captured(dev):
     print(f"[scan] phases 11c-d took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------- phase 12
+CHURN_ROUNDS = 30         # benchmarks/churn_sweep.py's horizon
+CHURN_BURST = 80          # §5's newly-joined-client burst: 20% of 400, at round 10
+CHURN_BURST_AT = 10
+CHURN_SPLIT = 15          # (c): the checkpoint's round
+CHURN_ATOL = 1e-4         # (a): omega and bank rows, captured spans against eager
+ASYNC_ATOL = 1e-5         # (b), (c): rows, async against sync and resumed against uninterrupted
+ASYNC_CFG = dict(staleness_decay=0.8, staleness_cap=3)
+CHURN_QUANTUM = 20        # churn_sweep.py:181: min(32, max(int(0.1 * 400 / 2), 2))
+OBJECTIVE_RTOL = 1e-5     # (b): the round's objective, async against sync on the card
+
+
+def churn_setting():
+    """Phase 12's federation: paths 1 and 2's model and knobs
+    (``main_setting``, the 153,610-parameter MLP, fused_step) with device
+    rng over ``rotated(n_clusters=4, n_clients=400, n_per=128, seed=0)``,
+    whose latent clusters ``rotated_factory`` draws newcomers from.
+    Returns (clients, true_cluster, test_sets, params, loss, accuracy,
+    cfg, factory)."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import rotated, rotated_factory
+    from repro_torch.models import simple
+
+    _, _, params, loss, cfg = main_setting()
+    clients, true_cluster, tests = rotated(n_clusters=4, n_clients=400, n_per=128, seed=0)
+    task = dataclasses.replace(simple.MNIST_MLP, input_shape=(64,), name="mlp2048")
+    acc = lambda p, b: simple.accuracy(p, b, task)
+    return (clients, true_cluster, tests, params, loss, acc,
+            dataclasses.replace(cfg, rng_backend="device"),
+            rotated_factory(n_clusters=4, n_per=128, seed=0))
+
+
+def churn_timeline(rate, n_clients, delays=False):
+    """``benchmarks/churn_sweep.py``'s churn model (joins and leaves each
+    Poisson(``rate``) a round from round 0, 30 rounds, drift every 10),
+    one availability window (client 7 offline in the first and last 2
+    rounds), the §5 burst of 80 joins at round 10 and, with ``delays``,
+    each round a third of the ids reporting 0-2 rounds late."""
+    import numpy as np
+    from repro_torch.sim import Availability, Delay, Join, Timeline
+
+    base = Timeline.from_poisson(rounds=CHURN_ROUNDS, join_rate=rate, leave_rate=rate,
+                                 n_clusters=4, drift_every=10, seed=0, start=0)
+    rng = np.random.default_rng(1)
+    events = base.events() + [Join(t=CHURN_BURST_AT, cluster=int(rng.integers(4)))
+                              for _ in range(CHURN_BURST)]
+    if delays:
+        ids = n_clients + CHURN_BURST + len(base.events())
+        events += [Delay(t=t, rounds=int(rng.integers(0, 3)),
+                         cids=tuple(int(c) for c in rng.choice(ids, ids // 3, replace=False)))
+                   for t in range(CHURN_ROUNDS)]
+    return Timeline(events, windows=[Availability(cid=7, start=2, end=CHURN_ROUNDS - 2)])
+
+
+def shifted(timeline, k):
+    """``timeline``'s rounds from ``k`` on, renumbered from 0."""
+    import dataclasses
+
+    from repro_torch.sim import Availability, Timeline
+    return Timeline([dataclasses.replace(ev, t=ev.t - k) for ev in timeline.events() if ev.t >= k],
+                    windows=[Availability(w.cid, w.start - k, w.end - k) for w in timeline.windows])
+
+
+def _log_ints(log):
+    """What two runs of one timeline must share: each record's events,
+    cohort, population, skip flag, n_clusters and flush bookkeeping."""
+    keys = ("t", "events", "cohort", "skipped", "n_registered", "n_live", "n_clusters",
+            "merged", "dropped_stale", "dropped_left", "in_flight", "max_staleness")
+    return [{k: r.get(k) for k in keys} for r in log.records]
+
+
+def _launched():
+    from repro_torch.kernels import _build
+    return {k: v for k, v in _build.launch_counts().items() if v}
+
+
+def churn_run(dev, setting, timeline, cfg, scan, records):
+    """One ``simulate`` over ``timeline`` from a fresh card engine:
+    returns (state, log, launches, wall s, CUDA graphs captured,
+    reserved bytes before and after)."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.engine.api import RoundProgram
+    from repro_torch.sim import simulate
+
+    clients, tc, tests, params, loss, acc, _cfg, factory = setting
+    start = engine.init("stocfl", loss, params, clients, cfg, eval_fn=acc, device=dev,
+                        arena=True)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_reserved(dev)
+    _zero_counts()
+    with (recording_merge_inputs() if records is not None else contextlib.nullcontext()) as recs:
+        t0 = time.perf_counter()
+        state, log = simulate(start, timeline, rounds=CHURN_ROUNDS, client_factory=factory,
+                              seed=0, eval_every=5, test_sets=tests, true_cluster=tc,
+                              scan_spans=scan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = _launched()
+    graphs = sum(isinstance(v, RoundProgram) and v.graph is not None
+                 for v in state.ctx.cache.values())
+    mem1 = torch.cuda.memory_reserved(dev)
+    if records is not None:
+        records.extend(recs)
+    return state, log, launched, wall, graphs, (mem0, mem1)
+
+
+def phase_churn(dev):
+    """12a: ``simulate`` over timeline (a) on the device backend with an
+    arena, eagerly and with ``scan_spans``; returns the launches of both
+    runs."""
+    import torch
+
+    t_phase = time.perf_counter()
+    setting = churn_setting()
+    clients, _, _, params, _, _, cfg, _ = setting
+    dcfg = path2_config(cfg)
+    tl = churn_timeline(1 / 3, len(clients))
+    print(f"[churn] rotated 4 clusters, 400 clients x 128 x 64, MLP 2048 hidden "
+          f"({sum(p.numel() for p in params.values())} params), tau {cfg.tau}, lam {cfg.lam}, "
+          f"lr {cfg.lr}, E={cfg.local_steps}, sample rate {cfg.sample_rate}, fused_step, device "
+          f"rng, device backend, arena; timeline (a) {tl} (Poisson 1/3 joins and 1/3 leaves a "
+          f"round, the 5% point of churn_sweep.py, plus {CHURN_BURST} joins at round "
+          f"{CHURN_BURST_AT}); eval every 5 rounds")
+    records, out, total = [], {}, {}
+    for scan in (False, True):
+        tag = "scan" if scan else "eager"
+        state, log, launched, wall, graphs, (m0, m1) = churn_run(
+            dev, setting, tl, dcfg, scan, records if not scan else None)
+        trained = sum(not r["skipped"] for r in log.records)
+        n_scanned = sum(bool(r.get("scanned")) for r in log.records)
+        walls = ", ".join(f"{r['sec_train'] * 1e3:.1f}/{r['sec_round'] * 1e3:.1f}"
+                          for r in log.records if "sec_train" in r)
+        print(f"[churn] {tag}: {wall:.2f} s for {CHURN_ROUNDS} rounds ({trained} trained, "
+              f"{n_scanned} in captured spans), {len(log.joined)} joined, {len(log.departed)} "
+              f"departed, {state.n_clients - len(state.left)} live, "
+              f"{state.clusters.n_clusters()} clusters; CUDA graphs captured {graphs}; "
+              f"memory_reserved {m0 / 2**20:.0f} -> {m1 / 2**20:.0f} MiB")
+        print(f"[churn] {tag} per-round sec_train/sec_round (ms; the round call alone / with "
+              f"its events; spans at their average): {walls}")
+        ts, joined = log.curve("joined_acc")
+        _, incumbent = log.curve("incumbent_acc")
+        gaps = [r["gap"] for r in log.records if "gap" in r]
+        print(f"[churn] {tag} §5 routed accuracy at rounds {log.curve('incumbent_acc')[0]}: "
+              f"incumbents {[round(a, 4) for a in incumbent]}; joined (rounds {ts}) "
+              f"{[round(a, 4) for a in joined]}; final gap {gaps[-1] if gaps else None}")
+        print(f"[churn] {tag} launches {launched}")
+        assert launched.get("prox_update.launches", 0) == cfg.local_steps * trained, launched
+        for k in ("cosine_sim.candidate_launches", "resolve_roots.launches",
+                  "resolve_roots.label_launches"):
+            assert launched.get(k, 0) > 0, (k, launched)
+        assert launched.get("cosine_sim.launches", 0) == 0, launched
+        assert launched.get("cosine_sim.padded_copies", 0) == 0, launched
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+        for leaf in list(state.omega.values()) + list(state.models.stacked.values()):
+            assert bool(torch.isfinite(leaf).all()), "non-finite model values"
+        out[scan] = (state, log)
+    (a, alog), (b, blog) = out[False], out[True]
+    assert sum(bool(r.get("scanned")) for r in blog.records) > 0, "no span was captured"
+    assert _log_ints(alog) == _log_ints(blog), "the captured run's records differ"
+    assert alog.joined == blog.joined and alog.departed == blog.departed
+    assert a.clusters.assignment() == b.clusters.assignment()
+    assert torch.equal(a.rng_key, b.rng_key)
+    err = _state_diff(a, b)
+    print(f"[churn] eager and scan_spans runs: records (events, cohorts, skipped, "
+          f"n_clusters), joined, departed, partitions and bank roots equal; omega and "
+          f"{len(a.models)} bank rows max |scan - eager| = {err:.3e} (tol {CHURN_ATOL:g})")
+    assert err <= CHURN_ATOL
+    del a, b, out
+    check_candidates_on_path(records, "churn")
+    check_labels_on_path(records, "churn")
+    del records
+    torch.cuda.empty_cache()
+    print(f"[churn] phase 12a took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def check_zero_delay(dev, setting, cfg):
+    """12b's gate: five rounds of ``run_round_async`` at zero delay equal
+    ``run_round`` from the same ``init``, for StoCFL (host backend) and
+    FedAvg: cohorts, records and partitions exact, rows within 1e-5
+    (``aggregate_segments``' ``index_add_`` sums in no fixed order on
+    the card)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import engine
+
+    clients, _, _, params, loss, _, _, _ = setting
+    acfg = dataclasses.replace(cfg, async_cfg=engine.AsyncConfig(**ASYNC_CFG))
+    for name in ("stocfl", "fedavg"):
+        sync = engine.init(name, loss, params, clients, cfg, device=dev, arena=True)
+        asy = engine.init(name, loss, params, clients, acfg, device=dev, arena=True)
+        for t in range(ROUNDS):
+            cohort = engine.sample_clients(sync)[1].tolist()
+            assert engine.sample_clients(asy)[1].tolist() == cohort
+            sync, srec = engine.run_round(sync)
+            asy, arec = engine.run_round_async(asy)
+            # the objective sums cosines of cluster means that ClusterState
+            # builds with index_add_, whose float order the card does not fix
+            assert all(arec[k] == v for k, v in srec.items()
+                       if k not in ("merges", "objective")), (srec, arec)
+            if "objective" in srec:
+                assert abs(arec["objective"] - srec["objective"]) <= \
+                    OBJECTIVE_RTOL * max(1.0, abs(srec["objective"])), (srec, arec)
+            assert arec["merged"] == len(cohort) and arec["in_flight"] == 0
+            if name == "stocfl":
+                assert sync.clusters.assignment() == asy.clusters.assignment()
+        torch.cuda.synchronize()
+        err = _state_diff(sync, asy)
+        assert err <= ASYNC_ATOL, err
+        print(f"[async] {name}: {ROUNDS} rounds of run_round_async at zero delay against "
+              f"run_round: cohorts, records (the objective within {OBJECTIVE_RTOL:g} "
+              f"relative){', partitions' if name == 'stocfl' else ''} equal; omega and bank "
+              f"rows max |async - sync| = {err:.3e} (tol {ASYNC_ATOL:g})")
+
+
+def async_half(state, timeline, setting, seed):
+    """``simulate`` in async mode over ``timeline``'s first rounds (all
+    that it holds), cohorts quantised to ``CHURN_QUANTUM``; returns
+    (state, log, wall s)."""
+    import torch
+    from repro_torch.sim import simulate
+
+    rounds = min(CHURN_SPLIT, CHURN_ROUNDS)
+    t0 = time.perf_counter()
+    state, log = simulate(state, timeline, rounds=rounds, client_factory=setting[7], seed=seed,
+                          cohort_quantum=CHURN_QUANTUM, async_mode=True)
+    torch.cuda.synchronize()
+    return state, log, time.perf_counter() - t0
+
+
+def phase_async_churn(dev):
+    """12b and 12c: the zero-delay gate; then StoCFL (host backend) and
+    FedAvg through timeline (b) in async mode, checkpointed at round 15
+    with deltas in flight, the uninterrupted run against the one resumed
+    in a fresh card engine, and the checkpoint loaded on the CPU for one
+    round. Returns the launches of the card runs."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import engine
+
+    t_phase = time.perf_counter()
+    setting = churn_setting()
+    clients, _, _, _, _, _, cfg, _ = setting
+    check_zero_delay(dev, setting, cfg)
+    tl = churn_timeline(4 / 3, len(clients), delays=True)
+    second = shifted(tl, CHURN_SPLIT)
+    acfg = dataclasses.replace(cfg, async_cfg=engine.AsyncConfig(**ASYNC_CFG))
+    print(f"[async] timeline (b) {tl} (Poisson 4/3 joins and 4/3 leaves a round, the 20% "
+          f"point of churn_sweep.py, plus {CHURN_BURST} joins at round {CHURN_BURST_AT}, a "
+          f"third of the ids 0-2 rounds late each round); AsyncConfig({ASYNC_CFG}), "
+          f"cohort_quantum {CHURN_QUANTUM}, host backend, arena")
+    total, k2 = {}, 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt") as root:
+        for name in ("stocfl", "fedavg"):
+            t, err = async_checkpointed_run(dev, name, setting, tl, second, acfg, root)
+            for k, v in t.items():
+                total[k] = total.get(k, 0) + v
+            k2 = max(k2, err)
+    print(f"[async] phases 12b-c took {time.perf_counter() - t_phase:.1f} s")
+    return total, k2
+
+
+def async_checkpointed_run(dev, name, setting, tl, second, acfg, root):
+    """12b-c for one strategy: timeline (b)'s first 15 rounds, the
+    checkpoint (``block=False``), the uninterrupted last 15, then the
+    resume in a fresh card engine (and for StoCFL the CPU load). Returns
+    (launches of the card run, K2's largest error on its inputs)."""
+    import torch
+    from repro_torch import checkpoint, convert, engine
+
+    clients, _, _, params, loss, _, cfg, _ = setting
+    k2 = 0.0
+    start = engine.init(name, loss, params, clients, acfg, device=dev, arena=True)
+    _zero_counts()
+    with recording_cosine_inputs() as mats:
+        first, log1, w1 = async_half(start, tl, setting, seed=0)
+        path = os.path.join(root, name)
+        t0 = time.perf_counter()
+        checkpoint.save_server_state(path, first, block=False)
+        t_call = time.perf_counter() - t0
+        checkpoint.wait_pending()
+        t_write = time.perf_counter() - t0
+        world = [convert.to_numpy(c) for c in first.ctx.clients]
+        entries = first.buffer.entries
+        full, log2, w2 = async_half(first, second, setting, seed=1)
+    launched = _launched()
+    trained = sum(not r["skipped"] for r in log1.records + log2.records)
+    records = log1.records + log2.records
+    print(f"[async] {name}: {CHURN_ROUNDS} rounds in {w1 + w2:.2f} s, {trained} trained, "
+          f"{len(log1.joined) + len(log2.joined)} joined, "
+          f"{len(log1.departed) + len(log2.departed)} departed; per round (merged, "
+          f"dropped_stale, dropped_left, in_flight, sec_train/sec_round ms): "
+          + " ".join(f"{r['t'] + (CHURN_SPLIT if i >= len(log1.records) else 0)}:"
+                     f"({r.get('merged')},{r.get('dropped_stale')},{r.get('dropped_left')},"
+                     f"{r.get('in_flight')},{r.get('sec_train', 0) * 1e3:.1f}/"
+                     f"{r['sec_round'] * 1e3:.1f})" for i, r in enumerate(records)))
+    print(f"[async] {name}: launches {launched}")
+    kname = "prox_update.launches" if name == "stocfl" else "prox_update.theta_launches"
+    assert launched.get(kname, 0) == cfg.local_steps * trained, launched
+    other = "prox_update.theta_launches" if name == "stocfl" else "prox_update.launches"
+    assert launched.get(other, 0) == 0, launched
+    assert launched.get("cosine_sim.candidate_launches", 0) == 0, launched
+    if name == "stocfl":
+        assert launched.get("cosine_sim.launches", 0) > 0, launched
+        k2 = check_cosine_on_records(mats, cfg.tau, "async")
+    del mats
+    assert len(entries) > 0, "no delta was in flight at the checkpoint"
+    print(f"[ckpt] {name}: save_server_state(block=False) at round {CHURN_SPLIT} with "
+          f"{len(entries)} deltas in flight returned in {t_call * 1e3:.1f} ms, "
+          f"the write landed at {t_write * 1e3:.1f} ms (wait_pending)")
+
+    fresh = engine.init(name, loss, params, world, acfg, device=dev, arena=True)
+    loaded = checkpoint.load_server_state(path, fresh)
+    assert loaded.buffer.entries == entries and loaded.round == CHURN_SPLIT
+    if name == "stocfl":
+        # before the resumed run grows this engine's world
+        check_cpu_resume(dev, path, setting, world, acfg, loaded)
+    resumed, log3, _ = async_half(loaded, second, setting, seed=1)
+    assert _log_ints(log3) == _log_ints(log2), "the resumed run's records differ"
+    assert log3.joined == log2.joined and log3.departed == log2.departed
+    assert resumed.buffer.entries == full.buffer.entries
+    if name == "stocfl":
+        assert resumed.clusters.assignment() == full.clusters.assignment()
+    err = _state_diff(full, resumed)
+    assert err <= ASYNC_ATOL, err
+    print(f"[ckpt] {name}: resumed in a fresh card engine and finished: records, joined, "
+          f"departed, buffer entries{', partition' if name == 'stocfl' else ''} equal the "
+          f"uninterrupted run's; omega and bank rows max |resumed - uninterrupted| = "
+          f"{err:.3e} (tol {ASYNC_ATOL:g})")
+    del start, first, full, fresh, loaded, resumed
+    torch.cuda.empty_cache()
+    return launched, k2
+
+
+def check_cpu_resume(dev, path, setting, world, acfg, card):
+    """12c: the checkpoint loaded with ``device="cpu"``; one round there
+    and one on the card from the loaded state: cohort, record and
+    partition equal."""
+    import torch
+    from repro_torch import checkpoint, engine
+
+    _, _, _, params, loss, _, _, _ = setting
+    cpu = checkpoint.load_server_state(path, engine.init("stocfl", loss, params, world, acfg,
+                                                         device="cpu", arena=True))
+    assert cpu.clusters.device.type == "cpu" and card.clusters.device == torch.device(dev)
+    cohort = engine.sample_clients(card)[1].tolist()
+    assert engine.sample_clients(cpu)[1].tolist() == cohort
+    t0 = time.perf_counter()
+    cpu_next, crec = engine.run_round_async(cpu)
+    t_cpu = time.perf_counter() - t0
+    card_next, grec = engine.run_round_async(card)
+    assert crec.keys() == grec.keys()
+    assert all(crec[k] == grec[k] for k in grec if k != "objective"), (crec, grec)
+    assert abs(crec["objective"] - grec["objective"]) <= \
+        OBJECTIVE_RTOL * max(1.0, abs(grec["objective"])), (crec, grec)
+    assert cpu_next.clusters.assignment() == card_next.clusters.assignment()
+    print(f"[ckpt] stocfl: the same checkpoint loaded with device='cpu' (its partition on "
+          f"the CPU): one round there ({t_cpu:.2f} s) and on the card give the same cohort "
+          f"({len(cohort)} clients), record {grec} (the objective within "
+          f"{OBJECTIVE_RTOL:g} relative: K2 on the card, the plain product on the CPU) and "
+          f"partition")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2406,6 +2804,17 @@ def main() -> int:
     phase_sampler(dev)
     kernels["prox_update_bf16"]["launches"] = phase_llm_bf16(dev, expect)
     phase_captured(dev)
+    churn = phase_churn(dev)
+    async_launches, k2_err = phase_async_churn(dev)
+    names = {"prox_update.launches": "prox_update", "prox_update.theta_launches": "prox_theta",
+             "cosine_sim.launches": "cosine_sim", "cosine_sim.candidate_launches":
+             "merge_candidates", "resolve_roots.launches": "resolve_roots",
+             "resolve_roots.label_launches": "component_labels"}
+    for counts in (churn, async_launches):
+        for counter, n in counts.items():
+            if counter in names:
+                kernels[names[counter]]["launches"] += n
+    kernels["cosine_sim"]["max_abs_err"] = max(kernels["cosine_sim"]["max_abs_err"], k2_err)
     print(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

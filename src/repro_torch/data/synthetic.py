@@ -11,7 +11,12 @@ rng consumption order, so the same seed gives byte-identical federations):
   hybrid       — feature-concept skew: same labels, disjoint generative
                  domains;
   femnist      — latent writer-style mixture with per-client jitter;
-  rotated_partial — clusters differ only in a rotated subspace, scarce data.
+  rotated_partial — clusters differ only in a rotated subspace, scarce data;
+  rotated_pathological — the §4.3 τ study: 2 rotations × 4 label groups.
+
+Plus the churn hooks of the simulator (``repro_torch.sim``):
+``rotated_factory`` draws fresh clients from ``rotated``'s latent
+clusters, ``drift_batch`` rotates a client's feature space a little.
 
 Each builder returns (clients, true_cluster, test_sets):
   clients:      list of {"x": (n, dim) f32, "y": (n,) i32} numpy dicts
@@ -173,6 +178,24 @@ def rotated_partial(n_clusters=4, n_clients=40, n_per=12, seed=1, rot_dims=16):
     return clients, true_cluster, test_sets
 
 
+def rotated_pathological(n_clients=400, n_per=128, seed=0):
+    """§4.3 τ-study setting: 2 rotations × 4 label groups = 8 fine clusters."""
+    rng = np.random.default_rng(seed)
+    protos = _protos(rng)
+    qs = [np.eye(DIM, dtype=np.float32), _orthogonal(rng, DIM)]
+    groups = [[0, 1, 2], [3, 4], [5, 6], [7, 8, 9]]
+    per = n_clients // (len(qs) * len(groups))
+    clients, true_fine, true_rot, true_label = [], [], [], []
+    for r, q in enumerate(qs):
+        for gidx, g in enumerate(groups):
+            clients += _make_clients(rng, protos, lambda x, q=q: x @ q, lambda y: y,
+                                     per, n_per, labels_allowed=np.array(g))
+            true_fine += [r * len(groups) + gidx] * per
+            true_rot += [r] * per
+            true_label += [gidx] * per
+    return clients, {"fine": true_fine, "rotation": true_rot, "label": true_label}
+
+
 SETTINGS = {
     "pathological": pathological,
     "rotated": rotated,
@@ -185,3 +208,48 @@ SETTINGS = {
 
 def make_federation(setting: str, **kw):
     return SETTINGS[setting](**kw)
+
+
+# ----------------------------------------------------------- churn hooks
+def rotated_factory(n_clusters=4, n_per=128, seed=0):
+    """Client factory for §5 churn simulations over the ``rotated``
+    setting: fresh clients from the same latent distributions as
+    ``rotated(n_clusters=..., seed=...)`` (the class prototypes and the
+    per-cluster orthogonal transforms are rebuilt with the same rng
+    consumption order), so a client made for ``cluster=k`` is a new draw
+    from the distribution incumbent cluster k trained on.
+
+    Returns ``factory(cluster, rng, n=n_per) -> {"x", "y"}``, the
+    ``client_factory`` signature ``repro_torch.sim.simulate`` expects."""
+    rng = np.random.default_rng(seed)
+    protos = _protos(rng)
+    qs = [np.eye(DIM, dtype=np.float32)] + [_orthogonal(rng, DIM)
+                                            for _ in range(n_clusters - 1)]
+
+    def factory(cluster, rng2, n=n_per):
+        k = int(cluster) % n_clusters if cluster is not None else \
+            int(rng2.integers(n_clusters))
+        y = rng2.integers(0, N_CLASSES, size=n)
+        return _batch(_sample(rng2, protos, y) @ qs[k], y)
+
+    return factory
+
+
+SETTING_FACTORIES = {
+    "rotated": rotated_factory,
+}
+
+
+def drift_batch(batch, rng, strength: float = 0.05):
+    """Distribution-drift hook (the simulator's ``Drift`` events): rotate a
+    client's feature space by a small random orthogonal transform
+    ``Q = qr(I + strength·G)``. Labels and shard length are kept, so arena
+    rows are rewritten in place (``ClientArena.update``). ``batch`` holds
+    numpy arrays."""
+    x = np.asarray(batch["x"], np.float32)
+    d = x.shape[1]
+    g = rng.normal(size=(d, d)).astype(np.float32)
+    q, _ = np.linalg.qr(np.eye(d, dtype=np.float32) + strength * g)
+    out = {k: np.asarray(v) for k, v in batch.items() if k not in ("x",)}
+    out["x"] = (x @ q.astype(np.float32)).astype(np.float32)
+    return out

@@ -10,6 +10,7 @@
     engine.infer_batch(state, [b1, b2, b3])         # many at once
 
     state = engine.run_rounds(state, 20)            # a captured multi-round span
+    state, rec = engine.run_round_async(state, delays=[0, 2, 1])  # buffered, late
 
 The engine runs on ``cuda`` unless ``init`` is given another device
 (``device="cpu"``); with no GPU and no device given, ``init`` raises.
@@ -38,27 +39,12 @@ import torch
 from repro_torch.core.extractor import make_extractor
 from repro_torch.data.arena import ClientArena
 from repro_torch.engine import sampler
+from repro_torch.engine.async_agg import AsyncConfig, run_round_async  # noqa: F401
 from repro_torch.engine.registry import get_strategy
 from repro_torch.engine.state import (EngineConfig, EngineContext, ServerState,
-                                      compute_dtype, resolve_device)
+                                      cast_floating, compute_dtype, on_device,
+                                      resolve_device)
 from repro_torch.kernels import _build
-from repro_torch.utils import trees
-
-
-def _on_device(tree, device: torch.device):
-    """Arrays or tensors -> tensors on ``device`` (dtypes kept)."""
-    def leaf(x):
-        if not isinstance(x, torch.Tensor):
-            x = torch.as_tensor(np.array(x))
-        return x.to(device)
-
-    return trees.tree_map(leaf, tree)
-
-
-def _cast_floating(tree, dt: torch.dtype):
-    """Every floating leaf cast to ``dt``; integer and bool leaves (labels,
-    masks, counters) keep their dtype."""
-    return trees.tree_map(lambda x: x.to(dt) if x.is_floating_point() else x, tree)
 
 
 def init(strategy: str, loss_fn, init_params, clients,
@@ -96,15 +82,13 @@ def init(strategy: str, loss_fn, init_params, clients,
     """
     cfg = cfg or EngineConfig()
     dev = resolve_device(device)
-    params = psi_anchor = _on_device(init_params, dev)
-    clients = [_on_device(c, dev) for c in clients]
+    params = psi_anchor = on_device(init_params, dev)
     if cfg.dtype != "float32":
-        dt = compute_dtype(cfg.dtype)
-        params = _cast_floating(params, dt)
-        clients = [_cast_floating(c, dt) for c in clients]
-    ctx = EngineContext(loss_fn=loss_fn, init_params=params, clients=clients,
+        params = cast_floating(params, compute_dtype(cfg.dtype))
+    ctx = EngineContext(loss_fn=loss_fn, init_params=params, clients=[],
                         cfg=cfg, device=dev, eval_fn=eval_fn,
                         leaf_filter=leaf_filter)
+    ctx.clients = [ctx.client_batch(c) for c in clients]
     if arena:
         ctx.arena = ClientArena.from_clients(ctx.clients, device=dev)
     strat = get_strategy(strategy)
@@ -453,7 +437,7 @@ def evaluate(state: ServerState, test_sets, true_cluster=None) -> dict:
     ``{latent cluster id: batch}`` test sets, routed through the learned
     cluster holding most of each latent cluster's clients."""
     dev = state.ctx.device
-    test_sets = {k: _on_device(b, dev) for k, b in test_sets.items()}
+    test_sets = {k: on_device(b, dev) for k, b in test_sets.items()}
     return get_strategy(state.strategy).evaluate(state.ctx, state,
                                                  test_sets, true_cluster)
 
@@ -461,7 +445,7 @@ def evaluate(state: ServerState, test_sets, true_cluster=None) -> dict:
 def join(state: ServerState, batch):
     """Register a newly-arrived client (§5); StoCFL places it by Ψ
     inference against the existing partition. Returns (state', new id)."""
-    batch = _on_device(batch, state.ctx.device)
+    batch = on_device(batch, state.ctx.device)
     return get_strategy(state.strategy).join(state.ctx, state, batch)
 
 
@@ -473,7 +457,7 @@ def leave(state: ServerState, cid: int) -> ServerState:
 def infer(state: ServerState, batch) -> dict:
     """Cluster inference for an UNSEEN client (§4.4), without joining:
     ``{"cluster", "seed_from", "similarity", "model"}``."""
-    batch = _on_device(batch, state.ctx.device)
+    batch = on_device(batch, state.ctx.device)
     return get_strategy(state.strategy).infer(state.ctx, state, batch)
 
 
@@ -483,4 +467,4 @@ def infer_batch(state: ServerState, batches) -> list:
     batch, in order."""
     dev = state.ctx.device
     return get_strategy(state.strategy).infer_many(
-        state.ctx, state, [_on_device(b, dev) for b in batches])
+        state.ctx, state, [on_device(b, dev) for b in batches])

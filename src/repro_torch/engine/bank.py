@@ -14,7 +14,8 @@ update count, as in the JAX package, writing only the rows that belong to
 roots (the JAX package sends the rest to a scratch row; here the new bank
 is built at its final capacity in one copy, which matters at LLM width).
 Every update returns a NEW bank; the tensors of the old one are never
-written.
+written (``__setitem__``, for the legacy checkpoint surface, re-points the
+bank itself).
 """
 from __future__ import annotations
 
@@ -93,6 +94,23 @@ class ClusterBank(Mapping):
         except (TypeError, ValueError):
             return False
 
+    def __eq__(self, other) -> bool:
+        """Same roots and, root by root, equal leaves (values and shapes);
+        any ``{root: tree}`` mapping compares."""
+        if not isinstance(other, Mapping):
+            return NotImplemented
+        if set(self.roots) != {int(k) for k in other.keys()}:
+            return False
+        for r in self.roots:
+            mine, theirs = trees.leaves(self[r]), trees.leaves(other[r])
+            if len(mine) != len(theirs) or not all(
+                    torch.equal(a, torch.as_tensor(b, device=a.device))
+                    for a, b in zip(mine, theirs)):
+                return False
+        return True
+
+    __hash__ = None
+
     def __repr__(self) -> str:
         return f"ClusterBank(roots={self.roots})"
 
@@ -146,6 +164,13 @@ class ClusterBank(Mapping):
     def set(self, root: int, model) -> "ClusterBank":
         """Write one root's model (grows a row if the root is new)."""
         return self.put([root], trees.tree_map(lambda x: x[None], model))
+
+    def __setitem__(self, root, model) -> None:
+        """In-place ``set``, for the legacy checkpoint surface
+        (``checkpoint.load_stocfl``): the bank object is re-pointed at the
+        new rows; the tensors of the old ones are not written."""
+        nb = self.set(int(root), model)
+        self.stacked, self.roots, self._index = nb.stacked, nb.roots, nb._index
 
     def drop(self, roots) -> "ClusterBank":
         """Remove rows for ``roots`` (one keep-gather per leaf, re-padded

@@ -15,6 +15,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.utils import trees
+
 
 def resolve_device(device=None) -> torch.device:
     """The engine's device: ``cuda`` unless the caller names another. With
@@ -30,13 +32,11 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass
 class EngineConfig:
-    """The knobs of every registered strategy: the JAX package's
-    ``EngineConfig`` fields the port implements so far (all but
-    ``async_cfg``; there is no asynchronous aggregation yet).
-    StoCFL reads ``tau``, ``lam``, ``lr``, ``local_steps``,
-    ``sample_rate``, ``aggregator`` and ``project_dim`` (Ψ's JL sketch
-    width, ``extractor.JLSketch``; None keeps the full gradient); FedProx
-    and Ditto read ``mu``; IFCA reads ``n_models`` and ``init_key``; CFL
+    """The knobs of every registered strategy, the JAX package's
+    ``EngineConfig`` fields. StoCFL reads ``tau``, ``lam``, ``lr``,
+    ``local_steps``, ``sample_rate``, ``aggregator`` and ``project_dim``
+    (Ψ's JL sketch width, ``extractor.JLSketch``; None keeps the full
+    gradient); FedProx and Ditto read ``mu``; IFCA reads ``n_models`` and ``init_key``; CFL
     reads ``eps_rel`` and ``eps2`` and always runs full participation.
     ``fused_step`` routes every strategy's local update through the flat
     (C, P) path and K1 (``prox_update``, or its local-SGD form for the
@@ -52,7 +52,9 @@ class EngineConfig:
     the host bit-generator (the reference's numpy backend, bit for bit).
     ``dtype`` is the compute precision of params, grads and batches
     ("float32" | "bfloat16"); Ψ, the cluster means and the Eq. 2
-    objective always stay fp32 (see ``engine.init``)."""
+    objective always stay fp32 (see ``engine.init``). ``async_cfg``
+    (``engine.AsyncConfig``) holds the knobs of ``run_round_async``, the
+    buffered asynchronous round (None: the defaults)."""
     tau: float = 0.5
     lam: float = 0.05
     lr: float = 0.1
@@ -71,6 +73,7 @@ class EngineConfig:
     rng_backend: str = "numpy"        # cohort sampling: numpy | device
     fused_step: bool = False          # flat fused local update
     dtype: str = "float32"            # param/grad compute precision
+    async_cfg: Optional[Any] = None   # AsyncConfig of run_round_async
 
 
 @dataclasses.dataclass
@@ -88,6 +91,14 @@ class EngineContext:
     extractor: Optional[Callable] = None
     arena: Optional[Any] = None       # ClientArena: device-resident shards
     cache: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def client_batch(self, batch):
+        """A client batch as the engine holds its world: tensors on the
+        engine's device, floating leaves in the compute dtype."""
+        batch = on_device(batch, self.device)
+        if self.cfg.dtype != "float32":
+            batch = cast_floating(batch, compute_dtype(self.cfg.dtype))
+        return batch
 
     def cached(self, key: str, builder: Callable) -> Callable:
         """Memoise a built update or round program under ``key``
@@ -108,7 +119,9 @@ class ServerState:
     membership and the metric history. Under ``rng_backend="device"`` the
     sampling state is instead ``rng_key``, a (2,) int64 threefry key on
     the engine's device (``engine.sampler``), so a captured multi-round
-    loop (``engine.run_rounds``) samples with no host round trip."""
+    loop (``engine.run_rounds``) samples with no host round trip.
+    ``buffer`` is the ``AsyncBuffer`` of in-flight deltas that
+    ``run_round_async`` keeps (None until its first round)."""
     ctx: EngineContext
     strategy: str
     round: int
@@ -122,6 +135,7 @@ class ServerState:
     members: Optional[Tuple[Tuple[int, ...], ...]] = None   # CFL partition
     history: Tuple[dict, ...] = ()
     rng_key: Optional[torch.Tensor] = None   # device sampling key (rng_backend="device")
+    buffer: Optional[Any] = None      # AsyncBuffer (run_round_async)
 
     @property
     def n_clients(self) -> int:
@@ -145,6 +159,22 @@ class ServerState:
 
     def replace(self, **kw) -> "ServerState":
         return dataclasses.replace(self, **kw)
+
+
+def on_device(tree, device):
+    """Arrays or tensors -> tensors on ``device`` (dtypes kept)."""
+    def leaf(x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.array(x))
+        return x.to(device)
+
+    return trees.tree_map(leaf, tree)
+
+
+def cast_floating(tree, dt: torch.dtype):
+    """Every floating leaf cast to ``dt``; integer and bool leaves (labels,
+    masks, counters) keep their dtype."""
+    return trees.tree_map(lambda x: x.to(dt) if x.is_floating_point() else x, tree)
 
 
 def fresh_rng_state(seed: int) -> dict:

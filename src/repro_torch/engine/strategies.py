@@ -86,6 +86,21 @@ def _psi(ctx: EngineContext, cid: int):
     return ctx.extractor(ctx.clients[cid])
 
 
+def eval_model(ctx: EngineContext, model, batch) -> float:
+    """``ctx.eval_fn(model, batch)`` as a float, computed as the JAX
+    package computes it when the dtypes differ: JAX promotes a bf16 ×
+    fp32 product to fp32, so under ``EngineConfig(dtype="bfloat16")`` the
+    model's floating leaves are up-cast (exactly) to the batch's floating
+    dtype for the forward pass. The batch is never down-cast."""
+    xs = [x for x in trees.leaves(batch) if x.is_floating_point()]
+    if xs:
+        want = xs[0].dtype
+        model = trees.tree_map(
+            lambda p: p.to(want) if p.is_floating_point() and
+            torch.finfo(p.dtype).bits < torch.finfo(want).bits else p, model)
+    return float(ctx.eval_fn(model, batch))
+
+
 def _weights(state: ServerState, ids) -> torch.Tensor:
     """Per-client sample counts of the cohort, f32 on the engine device."""
     w = np.asarray(state.sizes, np.float32)[np.asarray(ids)]
@@ -214,6 +229,7 @@ class Strategy:
     name = "base"
     needs_extractor = False
     full_participation = False        # run_round trains every live client
+    supports_async = False            # async_dispatch / async_merge exist
 
     def init_state(self, ctx: EngineContext) -> ServerState:
         """Round-0 state: ω = ω₀, empty bank, fresh sampling rng (the numpy
@@ -249,14 +265,17 @@ class Strategy:
 
     def evaluate(self, ctx, state, test_sets, true_cluster=None) -> dict:
         """Held-out evaluation; the base serves every test set with ω."""
-        accs = {k: float(ctx.eval_fn(state.omega, b)) for k, b in test_sets.items()}
+        accs = {k: eval_model(ctx, state.omega, b) for k, b in test_sets.items()}
         return {"cluster_avg": float(np.mean(list(accs.values()))), "per": accs}
 
     def join(self, ctx, state, batch):
         """Register a new client (§5): append its data to the world (client
         list and arena) and its size to the state; returns
-        ``(state', cid)``."""
+        ``(state', cid)``. The stored batch's floating leaves take the
+        compute dtype, as ``engine.init`` casts every client's; the caller
+        keeps the batch as given (StoCFL's Ψ of the newcomer reads it)."""
         cid = len(ctx.clients)
+        batch = ctx.client_batch(batch)
         ctx.clients.append(batch)
         _append_to_arena(ctx, batch)
         sizes = state.sizes + (int(trees.leaves(batch)[0].shape[0]),)
@@ -275,6 +294,20 @@ class Strategy:
         """Batched ``infer``: one result dict per batch, in order."""
         return [self.infer(ctx, state, b) for b in batches]
 
+    def async_dispatch(self, ctx, state, client_ids, buf, slots):
+        """The async round's pre-aggregation half: this strategy's
+        clustering and local training for the dispatched cohort, the
+        trained rows scattered into the buffer's ``slots``;
+        ``-> (state', buf')``. Only strategies with ``supports_async``."""
+        raise NotImplementedError(f"strategy {self.name!r} has no async dispatch hook")
+
+    def async_merge(self, ctx, state, batch, weights):
+        """The async round's aggregation half: merge one ``FlushBatch``
+        under the staleness-effective ``weights`` (host f32, dispatch
+        order) through the synchronous round's aggregation;
+        ``-> (state', metrics)``."""
+        raise NotImplementedError(f"strategy {self.name!r} has no async merge hook")
+
 
 # --------------------------------------------------------------------- stocfl
 @register("stocfl")
@@ -282,6 +315,7 @@ class StoCFLStrategy(Strategy):
     """Algorithm 1: stochastic Ψ-clustering + bi-level cohort update."""
 
     needs_extractor = True
+    supports_async = True
 
     def init_state(self, ctx):
         """Adds the Ψ-clustering bookkeeping: the host ``ClusterState`` or,
@@ -304,19 +338,24 @@ class StoCFLStrategy(Strategy):
                                        fused=fused),
             (0, None, 0), cfg.cohort_chunk))
 
-    def round(self, ctx, state, client_ids):
-        """One server round. The metrics add ``merges``, the (kept,
-        absorbed) root pairs of this round's merge pass, to the JAX
-        package's ``n_clusters`` / ``objective`` / ``sampled``."""
+    def _train(self, ctx, state, client_ids, handshake=None):
+        """The round's pre-aggregation half (Algorithm 1 lines 5-16): Ψ of
+        the new clients and ``observe``, the merge pass, the bank merge,
+        the gather and the bi-level cohort step. ``handshake(new_ids,
+        reps) -> reps`` routes the new clients' Ψ on its way to
+        ``observe`` (the async round's buffer rows). Returns ``(clusters,
+        models, merges, thetas_i, omegas_i)``; ``state`` is not touched."""
         cfg = ctx.cfg
-        client_ids = np.asarray(client_ids)
         clusters = state.clusters.copy()
 
         # --- stochastic client clustering (Algorithm 1 lines 5-13)
         new_ids = [int(c) for c in client_ids if c not in clusters.seen]
         with _span("stocfl.psi_extract"):
             if new_ids:
-                clusters.observe(new_ids, [_psi(ctx, c) for c in new_ids])
+                reps = [_psi(ctx, c) for c in new_ids]
+                if handshake is not None:
+                    reps = handshake(new_ids, reps)
+                clusters.observe(new_ids, reps)
         counts = {r: len(m) for r, m in clusters.clusters().items()}
         with _span("stocfl.merge_pass"):
             merges = clusters.merge_round()
@@ -324,7 +363,7 @@ class StoCFLStrategy(Strategy):
             models = merge_cluster_models(state.models, merges, counts,
                                           ctx.init_params)
 
-        # --- bi-level CFL (lines 14-19): one cohort step
+        # --- bi-level CFL (lines 14-16): one cohort step
         roots = np.fromiter((clusters.uf.find(int(c)) for c in client_ids),
                             np.int64, len(client_ids))
         with _span("stocfl.gather"):
@@ -336,13 +375,18 @@ class StoCFLStrategy(Strategy):
             batches = _batches(ctx, client_ids)
         with _span("stocfl.cohort_update"):
             thetas_i, omegas_i = self._cohort(ctx)(thetas, state.omega, batches)
+        return clusters, models, merges, thetas_i, omegas_i
 
+    def _aggregate(self, ctx, state, clusters, models, cids, thetas_i, omegas_i, w):
+        """The round's aggregation half (lines 17-19): ω by the configured
+        aggregator, each cluster's θ by a segment FedAvg over the rows of
+        ``cids``, each rooted through ``clusters`` as it stands now; then
+        the metrics. Returns ``(state', {n_clusters, objective})``."""
         with _span("stocfl.aggregate"):
-            w = _weights(state, client_ids)
-            omega = AGGREGATORS[cfg.aggregator](omegas_i, w)
+            omega = AGGREGATORS[ctx.cfg.aggregator](omegas_i, w)
+            roots = np.fromiter((clusters.uf.find(int(c)) for c in cids), np.int64, len(cids))
             uroots, seg = np.unique(roots, return_inverse=True)
-            agg = bilevel.aggregate_segments(thetas_i, w, seg,
-                                             bank_pow2(len(uroots)))
+            agg = bilevel.aggregate_segments(thetas_i, w, seg, bank_pow2(len(uroots)))
             models = models.put([int(r) for r in uroots], agg)
 
         with _span("stocfl.objective"):
@@ -351,11 +395,47 @@ class StoCFLStrategy(Strategy):
                 objective = devclust.objective_closed(clusters.state)
             else:
                 objective = clusters.objective()
-        rec = {"n_clusters": clusters.n_clusters(),
-               "objective": objective,
-               "sampled": len(client_ids),
-               "merges": tuple(merges)}
+        rec = {"n_clusters": clusters.n_clusters(), "objective": objective}
         return state.replace(omega=omega, models=models, clusters=clusters), rec
+
+    def round(self, ctx, state, client_ids):
+        """One server round. The metrics add ``merges``, the (kept,
+        absorbed) root pairs of this round's merge pass, to the JAX
+        package's ``n_clusters`` / ``objective`` / ``sampled``."""
+        client_ids = np.asarray(client_ids)
+        clusters, models, merges, thetas_i, omegas_i = self._train(ctx, state, client_ids)
+        state, rec = self._aggregate(ctx, state, clusters, models, client_ids, thetas_i,
+                                     omegas_i, _weights(state, client_ids))
+        rec.update(sampled=len(client_ids), merges=tuple(merges))
+        return state, rec
+
+    def async_dispatch(self, ctx, state, client_ids, buf, slots):
+        """``_train`` with the Ψ handshake routed through the buffer: the
+        new clients' Ψ rows are scattered into its Ψ bank and ``observe``
+        reads them back from there; the cohort's (θᵢ, ωᵢ) rows land in
+        ``slots``. With ``fused_step`` those rows are views of the flat
+        (C, P) buffer K1 wrote; the write copies them out."""
+        client_ids = np.asarray(client_ids)
+        at = {int(c): int(s) for c, s in zip(client_ids, slots)}
+
+        def handshake(new_ids, reps):
+            nonlocal buf
+            new_slots = [at[c] for c in new_ids]
+            buf = buf.write_psi(new_slots, torch.stack(reps))
+            back = buf.read_psi(new_slots)
+            return [back[i] for i in range(len(new_ids))]
+
+        clusters, models, _merges, thetas_i, omegas_i = self._train(
+            ctx, state, client_ids, handshake)
+        buf = buf.write(slots, thetas_i, omegas_i)
+        return state.replace(models=models, clusters=clusters), buf
+
+    def async_merge(self, ctx, state, batch, weights):
+        """``_aggregate`` over one flush: each delta re-roots through the
+        current partition, so merges made while it was in flight count."""
+        w = torch.as_tensor(weights, device=ctx.device)
+        return self._aggregate(ctx, state, state.clusters, state.models, batch.cids,
+                               batch.payload, batch.aux, w)
 
     def _cold_carry(self, ctx, state, clusters):
         """The step's partition and row-keyed bank built from ``state``:
@@ -512,8 +592,8 @@ class StoCFLStrategy(Strategy):
                 model = state.cluster_model(root)
             else:
                 model = state.omega
-            out[tc] = float(ctx.eval_fn(model, batch))
-            glob[tc] = float(ctx.eval_fn(state.omega, batch))
+            out[tc] = eval_model(ctx, model, batch)
+            glob[tc] = eval_model(ctx, state.omega, batch)
         return {"cluster": out, "cluster_avg": float(np.mean(list(out.values()))),
                 "global": glob, "global_avg": float(np.mean(list(glob.values())))}
 
@@ -593,6 +673,7 @@ class FedAvgStrategy(Strategy):
     """Single global model; λ=0 ∧ τ=−1 degeneration of StoCFL."""
 
     prox = False
+    supports_async = True
 
     def _upd(self, ctx):
         cfg = ctx.cfg
@@ -610,6 +691,19 @@ class FedAvgStrategy(Strategy):
         outs = self._upd(ctx)(state.omega, _batches(ctx, ids))
         omega = bilevel.aggregate_stacked(outs, _weights(state, ids))
         return state.replace(omega=omega), {"sampled": len(ids)}
+
+    def async_dispatch(self, ctx, state, client_ids, buf, slots):
+        """Broadcast ω and run the cohort's local SGD (the round's update),
+        the local params scattered into ``slots``."""
+        ids = np.asarray(client_ids)
+        outs = self._upd(ctx)(state.omega, _batches(ctx, ids))
+        return state, buf.write(slots, outs)
+
+    def async_merge(self, ctx, state, batch, weights):
+        """The weighted mean of the flushed local params under the
+        staleness-effective weights (the round's ``aggregate_stacked``)."""
+        w = torch.as_tensor(weights, device=ctx.device)
+        return state.replace(omega=bilevel.aggregate_stacked(batch.payload, w)), {}
 
     def scan_round(self, ctx, state, pool, m):
         """FedAvg / FedProx as a step: draw, gather, the eager round's local
@@ -726,9 +820,9 @@ class DittoStrategy(Strategy):
         n = state.n_clients
         for tc, batch in test_sets.items():
             members = [i for i in range(n) if true_cluster[i] == tc]
-            accs = [float(ctx.eval_fn(state.personal[i], batch)) for i in members[:8]]
+            accs = [eval_model(ctx, state.personal[i], batch) for i in members[:8]]
             out[tc] = (float(np.mean(accs)) if accs
-                       else float(ctx.eval_fn(state.omega, batch)))
+                       else eval_model(ctx, state.omega, batch))
         return {"cluster_avg": float(np.mean(list(out.values()))), "per": out}
 
     def join(self, ctx, state, batch):
@@ -840,7 +934,7 @@ class IFCAStrategy(Strategy):
         """Each test set with its best hypothesis (oracle assignment)."""
         out = {}
         for tc, batch in test_sets.items():
-            accs = [float(ctx.eval_fn(state.models[m], batch))
+            accs = [eval_model(ctx, state.models[m], batch)
                     for m in range(ctx.cfg.n_models)]
             out[tc] = float(np.max(accs))
         return {"cluster_avg": float(np.mean(list(out.values()))), "per": out}
@@ -1061,6 +1155,6 @@ class CFLStrategy(Strategy):
             ks = [self.cluster_of(state, i) for i in range(state.n_clients)
                   if true_cluster[i] == tc]
             k = max(set(ks), key=ks.count)
-            out[tc] = float(ctx.eval_fn(state.models[k], batch))
+            out[tc] = eval_model(ctx, state.models[k], batch)
         return {"cluster_avg": float(np.mean(list(out.values()))), "per": out,
                 "n_clusters": len(state.members)}

@@ -39,6 +39,11 @@ SLICE6 = ("repro_torch.core.baselines", "repro_torch.core.stocfl",
 # the device sampler and the captured multi-round loop, and what they run
 SLICE7 = ("repro_torch.engine.sampler", "repro_torch.engine.api",
           "repro_torch.data.arena", "repro_torch.kernels._build")
+# the varying federation: async rounds, the simulator, the checkpoint
+SLICE8 = ("repro_torch.engine.async_agg", "repro_torch.sim", "repro_torch.sim.events",
+          "repro_torch.sim.timeline", "repro_torch.sim.simulate", "repro_torch.checkpoint",
+          "repro_torch.checkpoint.ckpt", "repro_torch.data.dirichlet",
+          "repro_torch.data.synthetic")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -52,6 +57,7 @@ def test_importing_every_module_loads_no_jax():
     assert set(SLICE3) <= set(names), sorted(set(SLICE3) - set(names))
     assert set(SLICE6) <= set(names), sorted(set(SLICE6) - set(names))
     assert set(SLICE7) <= set(names), sorted(set(SLICE7) - set(names))
+    assert set(SLICE8) <= set(names), sorted(set(SLICE8) - set(names))
     assert bad == "", f"port imports pulled in {bad}"
 
 

@@ -202,3 +202,49 @@ def test_bf16_run_rounds_matches_eager():
     for r in eager.models.roots:
         assert np.array_equal(_flat(eager.models[r]), _flat(scanned.models[r]))
         assert all(x.dtype == torch.bfloat16 for x in trees.leaves(scanned.models[r]))
+
+
+# --------------------------------------------- evaluation, inference, join
+ACC_TOL = 2 / 512      # one or two of a 512-example test set flipping
+
+
+def test_bf16_evaluate_infer_join_match_reference():
+    """Under bf16 the models meet fp32 test and newcomer batches: the
+    port's ``evaluate`` up-casts the model for the forward pass, as JAX
+    promotes the mixed product, and returns the reference's accuracies;
+    ``infer`` and ``join`` (Ψ on the fp32 newcomer, anchored at the fp32
+    parameters) choose the reference's cluster."""
+    _, true_cluster, tests = jsynthetic.rotated(n_clusters=2, n_clients=12, n_per=32, seed=3)
+    js = jengine.init("stocfl", _jloss, _params(), [jax.tree.map(jnp.asarray, c) for c in _fed()],
+                      jengine.EngineConfig(**_kw("stocfl", dtype="bfloat16")), arena=True,
+                      eval_fn=lambda p, b: jsimple.accuracy(p, b, J_TASK))
+    ts = tengine.init("stocfl", _tloss, convert.to_torch(_params()), _fed(),
+                      tengine.EngineConfig(**_kw("stocfl", dtype="bfloat16")), device="cpu",
+                      arena=True, eval_fn=lambda p, b: tsimple.accuracy(p, b, T_TASK))
+    for _ in range(2):
+        js, _ = jengine.run_round(js)
+        ts, _ = tengine.run_round(ts)
+    want = jengine.evaluate(js, tests, true_cluster)
+    got = tengine.evaluate(ts, tests, true_cluster)
+    assert sorted(got["cluster"]) == sorted(want["cluster"])
+    for k in want["cluster"]:
+        assert abs(got["cluster"][k] - float(want["cluster"][k])) <= ACC_TOL, k
+        assert abs(got["global"][k] - float(want["global"][k])) <= ACC_TOL, k
+    assert abs(got["cluster_avg"] - float(want["cluster_avg"])) <= ACC_TOL
+    factory = jsynthetic.rotated_factory(n_clusters=2, n_per=32, seed=3)
+    newcomers = [factory(k, np.random.default_rng(k)) for k in (0, 1, 1)]
+    for batch in newcomers:
+        ji = jengine.infer(js, jax.tree.map(jnp.asarray, batch))
+        ti = tengine.infer(ts, batch)
+        assert (ti["cluster"], ti["seed_from"]) == (ji["cluster"], ji["seed_from"])
+        assert abs(ti["similarity"] - float(ji["similarity"])) <= 1e-5
+    for batch in newcomers:
+        js, jcid = jengine.join(js, jax.tree.map(jnp.asarray, batch))
+        ts, tcid = tengine.join(ts, batch)
+        assert tcid == jcid
+        assert ts.clusters.assignment() == js.clusters.assignment()
+        assert sorted(ts.models.roots) == sorted(js.models.roots)
+        assert ts.ctx.clients[tcid]["x"].dtype == torch.bfloat16
+    ts, _ = tengine.run_round(ts)
+    js, _ = jengine.run_round(js)
+    assert ts.clusters.assignment() == js.clusters.assignment()
