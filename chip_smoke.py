@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twelve phases, each printing its lines; any failure exits non-zero and
+Thirteen phases, each printing its lines; any failure exits non-zero and
 prints no result.
 
 1. Build: compile the CUDA kernels of ``kernels/csrc`` with nvcc.
@@ -143,6 +143,29 @@ prints no result.
    loaded with ``device="cpu"`` runs one round with the card's cohort,
    record and partition. K1's launches equal 5 × the trained rounds in
    every run; the phase's launches are added to the kernels line.
+13. Cluster-routed serving (``repro_torch.serve``) through the serve CLI's
+   entry points (``launch.serve.build_server_state`` / ``make_requests``,
+   ``ServeEngine``) at the reference CLI's defaults: 2 clusters, 4
+   slots a cluster, prompts of 32 tokens, 16 generated, τ 0.3, fp32
+   compute with TF32 off. (a) qwen2-1.5b at its full config (28 layers,
+   d_model 1536, 12/2 heads, d_ff 8960, vocab 151,936, QKV bias): a first
+   wave of 8 requests (it pays the CUDA graph capture of the decode step),
+   ``reset``, then a warm wave of 16 new clients with every decode burst
+   under sync-debug mode "error" and no new capture, then its requests
+   again with their routes cached under the profiler: first_compile_s,
+   wall_s, tok_per_s, the routing Ψ's share, the device's busy share while
+   serving, the decode step eager and as a graph replay and a prefill
+   group (CUDA events), the peak memory. (b) path 3's falcon-mamba (full
+   width, 2 layers, ``use_pallas=True``), 2 waves of 4 requests: K5's
+   launches while routing (forward and backward once a layer per Ψ; none
+   while serving) and K5 against its plain versions on the first input
+   the router's Ψ gave it; its launches are added to the kernels line.
+   Gates of (a) and (b): every route is ``engine.infer``'s, and every
+   request's tokens equal ``SequentialLoop``'s under the near-tie rule
+   (``serve.near_tie_compare``, ε 1e-3 on the card). (c) The smoke
+   configs of qwen2 and falcon-mamba on the card against the same values
+   on the CPU: routes equal, tokens under the near-tie rule with the CPU's
+   sequential stream the reference.
 
 The line before the last is one JSON object describing every kernel of the
 paths; the last line is ``{"ok": true, "device": {...}}``.
@@ -1740,10 +1763,11 @@ def recording_first_scan(shape):
         ssm_scan.scan_fwd = real
 
 
-def check_scan_on_path(record):
+def check_scan_on_path(record, tag="path3", what="the path's first cohort-step input"):
     """K5 both ways against the plain versions on the operands the path's
     first scan received (a random output gradient): states, g_dA and g_dBx
-    exactly equal, y and g_C within 1e-5 of their largest magnitude."""
+    exactly equal, y and g_C within 1e-5 of their largest magnitude.
+    Returns the errors of y and of g_C."""
     import torch
     from repro_torch.kernels import ref, ssm_scan
     dA, dBx, C = record
@@ -1759,10 +1783,11 @@ def check_scan_on_path(record):
     errs = [float((a - b).abs().max()) for a, b in ((y, want_y), (grads[2], want[2]))]
     ok = all(e <= 1e-5 * float(b.abs().max()) + 1e-5
              for e, b in zip(errs, (want_y, want[2])))
-    print(f"[path3] ssm_scan on the path's first cohort-step input {tuple(dA.shape)} (dA in "
+    print(f"[{tag}] ssm_scan on {what} {tuple(dA.shape)} (dA in "
           f"[{float(dA.min()):.3e}, {float(dA.max()):.3e}]): y max_abs_err {errs[0]:.3e}, "
           f"g_C max_abs_err {errs[1]:.3e}; states, g_dA, g_dBx exactly equal={exact}")
     assert ok and exact, "ssm_scan disagrees with its plain version on the path's input"
+    return errs
 
 
 def check_llm_gradient(dev, params, clients):
@@ -2751,6 +2776,326 @@ def check_cpu_resume(dev, path, setting, world, acfg, card):
           f"partition")
 
 
+# ----------------------------------------------------------------- phase 13
+# the reference CLI's defaults (src/repro/launch/serve.py): 2 clusters,
+# 4 slots a cluster, prompts of 32 tokens, 16 generated, tau 0.3, seed 0
+SERVE_CLUSTERS, SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN, SERVE_TAU = 2, 4, 32, 16, 0.3
+SERVE_FIRST, SERVE_WARM = 8, 16     # qwen2: the first wave, then a warm wave
+SERVE_MAMBA = 4                     # falcon-mamba: requests a wave
+SERVE_SMOKE = 6                     # 13c: requests on 2 x 2 lanes (two admission waves)
+SERVE_MAX_STOPS = 1                 # near-tie stops a wave may make (13a, 13b, 13c)
+
+
+def bound_stops(tag, reqs, stops):
+    """The bound on one wave's near-tie stops (rid, step): at most
+    ``SERVE_MAX_STOPS``, so a fault that shows only where top-2 gaps are
+    small cannot pass as a run of stops. Returns the share of the wave's
+    tokens that were compared."""
+    gen = {r.rid: r.gen for r in reqs}
+    total = sum(gen.values())
+    compared = total - sum(gen[rid] - step for rid, step in stops)
+    assert len(stops) <= SERVE_MAX_STOPS, (tag, stops)
+    return compared / total
+
+
+def serve_setting(arch, smoke=False, **kw):
+    """(config, model) of a served architecture in fp32 compute: greedy
+    argmax ties flip under bf16, and the card is held to its own
+    sequential loop and to the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build
+    cfg = get_config(arch, smoke=smoke).with_(dtype="float32", **kw)
+    return cfg, build(cfg)
+
+
+@contextlib.contextmanager
+def sync_free_bursts(eng):
+    """Within the block every decode burst of ``eng`` runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync there raises."""
+    from repro_torch.engine.api import _sync_errors
+    real = eng._decode_burst
+
+    def guarded(n):
+        with _sync_errors():
+            real(n)
+
+    eng._decode_burst = guarded
+    try:
+        yield
+    finally:
+        del eng._decode_burst
+
+
+def serve_wave(eng, reqs):
+    """One admission wave through the engine, as the serve CLI times it:
+    returns (results, routes, routing s, wall s), walls ending in a
+    synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    routes = eng.submit_many(reqs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    return res, routes, t1 - t0, time.perf_counter() - t0
+
+
+def hold_wave(tag, eng, state, reqs, routes, res):
+    """13's gates on one wave: each route's cluster is ``engine.infer``'s
+    (the accepted cluster, else the nearest), and each request's tokens
+    equal ``SequentialLoop``'s on the card under the near-tie rule (ε =
+    ``NEAR_TIE_EPS["cuda"]``); the loop takes the engine's router, whose
+    routes were just held to ``infer``, so it runs no Ψ of its own.
+    The wave's near-tie stops are bounded by ``bound_stops``."""
+    from repro_torch import engine, serve
+    loop = serve.SequentialLoop(eng.model, state, max_len=eng.cfg.max_len,
+                                max_gen=eng.cfg.max_gen)
+    loop.router = eng.router
+    eps, stops, gaps = serve.NEAR_TIE_EPS["cuda"], [], []
+    for r, rt in zip(reqs, routes):
+        inf = engine.infer(state, r.history)
+        want = inf["cluster"] if inf["cluster"] is not None else inf["seed_from"]
+        assert rt.root == want, (tag, r.rid, rt, want)
+        sr = loop.serve(r)
+        assert sr.cluster == rt.root and len(res[r.rid].tokens) == r.gen
+        stop = serve.near_tie_compare(sr.tokens, res[r.rid].tokens, sr.gaps, eps)
+        if stop is not None:
+            stops.append((r.rid, stop))
+        gaps.append(float(sr.gaps.min()))
+    share = bound_stops(tag, reqs, stops)
+    print(f"[{tag}] {len(reqs)} routes equal engine.infer's; tokens equal SequentialLoop's "
+          f"on the card under the near-tie rule (eps {eps:g}): {len(stops)} near-tie stops "
+          f"{stops} (at most {SERVE_MAX_STOPS}), {100 * share:.1f}% of the tokens compared; "
+          f"smallest top-2 gap of a reference stream {min(gaps):.3e}")
+
+
+def phase_serve_qwen(dev, peaks):
+    """13a: qwen2-1.5b at its full config served through the port's
+    engine: the serve CLI's state, a first wave of 8 requests (the capture),
+    a warm wave of 16 new clients with every burst under sync-debug mode
+    "error", the same requests again (routes cached) under the profiler;
+    timings, the peak memory, the gates."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import serve
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.utils import trees
+
+    t_phase = time.perf_counter()
+    cfg, model = serve_setting("qwen2-1.5b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    st = launch_serve.build_server_state(cfg, model, SERVE_CLUSTERS, SERVE_TAU, 0, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trees.leaves(st.ctx.init_params))
+    max_len = SERVE_PROMPT + SERVE_GEN
+    eng = serve.ServeEngine(model, st, serve.ServeConfig(slots=SERVE_SLOTS, max_len=max_len,
+                                                         max_gen=SERVE_GEN))
+    print(f"[serve] {cfg.name} full config ({cfg.source}): {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, qkv_bias {cfg.qkv_bias}; {n_params} parameters "
+          f"({n_params * 4 / 1e9:.2f} GB fp32 a model), fp32 compute, TF32 off; "
+          f"build_server_state ({SERVE_CLUSTERS} clusters, Psi on the vocab matrices "
+          f"sketched to 8192) {setup_s:.2f} s; {SERVE_SLOTS} slots a cluster, prompt "
+          f"{SERVE_PROMPT}, gen {SERVE_GEN}; cluster models stacked as views of the bank "
+          f"{eng._stacked['embed'].data_ptr() == st.models.stacked['embed'].data_ptr()}")
+
+    first = launch_serve.make_requests(cfg, SERVE_FIRST, SERVE_PROMPT, SERVE_GEN, SERVE_CLUSTERS)
+    res1, routes1, route1_s, first_s = serve_wave(eng, first)
+    assert eng.captures == 1, eng.captures
+    graph = eng._graph().graph
+    capture_s = eng._graph().capture_s
+    eng.reset()
+    warm = launch_serve.make_requests(cfg, SERVE_WARM, SERVE_PROMPT, SERVE_GEN, SERVE_CLUSTERS,
+                                seed_base=SERVE_FIRST)
+    with sync_free_bursts(eng):
+        res2, routes2, route2_s, wall = serve_wave(eng, warm)
+    assert eng.captures == 1 and eng._graph().graph is graph, "the warm wave captured a graph"
+    stats = eng.stats()
+    n_tok = sum(len(r.tokens) for r in res2.values())
+    print(f"[serve] first wave ({SERVE_FIRST} requests, capture included): first_compile_s "
+          f"{first_s:.3f} (routing {route1_s:.3f} s, the capture {capture_s:.3f} s); warm wave "
+          f"({SERVE_WARM} new clients, every burst under sync-debug mode 'error', no new "
+          f"graph): wall_s {wall:.4f}, tokens {n_tok}, tok_per_s {n_tok / wall:.2f}; Psi "
+          f"routing {route2_s * 1e3:.1f} ms for the wave ({route2_s * 1e3 / SERVE_WARM:.1f} ms "
+          f"a client, one infer_batch), serving after routing {(wall - route2_s) * 1e3:.1f} ms "
+          f"({n_tok / (wall - route2_s):.2f} tok/s); stats {stats}")
+
+    # the warm wave's requests again, their routes cached: serving alone
+    # under the profiler (with the routing's Psi passes in the trace too,
+    # the phase took about a minute longer)
+    eng.reset()
+    again = [serve.Request(rid=-1 - r.rid, client_id=r.client_id, prompt=r.prompt, gen=r.gen)
+             for r in warm]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    t0 = time.perf_counter()
+    with prof:
+        res_again, _, _, pwall = serve_wave(eng, again)
+    kernels = _device_kernels(prof)
+    busy = sum(kernels.values())
+    assert busy > 0, "the profiler recorded no device time"
+    assert all(list(res_again[-1 - r.rid].tokens) == list(res2[r.rid].tokens) for r in warm)
+    print(f"[serve] the warm wave again, routes cached, under the profiler (trace and its "
+          f"parse {time.perf_counter() - t0:.1f} s): wall {pwall * 1e3:.1f} ms, device busy "
+          f"{busy:.1f} ms ({100 * busy / (pwall * 1e3):.1f}%, idle "
+          f"{100 - 100 * busy / (pwall * 1e3):.1f}%); tokens equal the warm wave's")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[serve] device {ms:9.3f} ms  {name[:90]}")
+    del prof, kernels
+
+    # device times by CUDA events, on the engine's own buffers
+    params0 = eng._params_list[0]
+    batch = {"tokens": torch.as_tensor(np.stack([r.prompt for r in first[:SERVE_SLOTS]]),
+                                       device=dev)}
+    prefill_ms = time_ms(lambda: eng._prefill(params0, batch))
+    eager_ms = time_ms(lambda: eng._step(eng._stacked, eng.sl))
+    replay_ms = time_ms(eng._graph().graph.replay)
+    step_bytes = sum(p.numel() * p.element_size() for p in trees.leaves(eng._stacked))
+    print(f"[serve] decode step over {SERVE_CLUSTERS} clusters x {SERVE_SLOTS} slots: eager "
+          f"{eager_ms:.3f} ms, graph replay {replay_ms:.3f} ms (CUDA events, "
+          f"{TIMED_CALLS} calls); its bytes floor {step_bytes / peaks[0] * 1e3:.3f} ms (the "
+          f"{step_bytes / 1e9:.2f} GB of stacked cluster weights read once at "
+          f"{peaks[0] / 1e12:.2f} TB/s); prefill of a group of {SERVE_SLOTS} x {SERVE_PROMPT} "
+          f"tokens {prefill_ms:.3f} ms")
+
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[serve] peak device memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated, "
+          f"from {base / 1e9:.2f} GB before the phase)")
+    t0 = time.perf_counter()
+    for tag, reqs, routes, res in (("first", first, routes1, res1), ("warm", warm, routes2, res2)):
+        hold_wave(f"serve {tag}", eng, st, reqs, routes, res)
+    print(f"[serve] the gates took {time.perf_counter() - t0:.1f} s")
+    del eng, st
+    torch.cuda.empty_cache()
+    print(f"[serve] phase 13a took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_serve_mamba(dev):
+    """13b: path 3's falcon-mamba (full width, 2 layers, ``use_pallas=True``)
+    in fp32 served with 2 clusters: K5 launched forward and backward while
+    routing (the router's Ψ) and held against its plain version on the
+    first input Ψ gave it; none while serving (prefill and decode take the
+    plain scan, which returns the state); then the gates of 13a on two
+    waves. Returns (K5's launches while routing, K5's errors on y and g_C)."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.launch import serve as launch_serve
+
+    t_phase = time.perf_counter()
+    cfg, model = serve_setting("falcon-mamba-7b", n_layers=2, use_pallas=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    st = launch_serve.build_server_state(cfg, model, SERVE_CLUSTERS, SERVE_TAU, 0, device=dev)
+    max_len = SERVE_PROMPT + SERVE_GEN
+    eng = serve.ServeEngine(model, st, serve.ServeConfig(slots=SERVE_SLOTS, max_len=max_len,
+                                                         max_gen=SERVE_GEN))
+    first = launch_serve.make_requests(cfg, SERVE_MAMBA, SERVE_PROMPT, SERVE_GEN, SERVE_CLUSTERS)
+    shape = (8, 256, cfg.d_inner, cfg.ssm_state)      # Psi's history batch: 8 x 256 tokens
+    _zero_counts()
+    with recording_first_scan(shape) as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        routes1 = eng.submit_many(first)
+        torch.cuda.synchronize()
+        route_s = time.perf_counter() - t0
+    routing = _launched()
+    want = SERVE_MAMBA * cfg.n_layers
+    print(f"[serve3] {cfg.name} at full width, {cfg.n_layers} layers, use_pallas, fp32: "
+          f"routing {SERVE_MAMBA} new clients took {route_s * 1e3:.1f} ms; launches while "
+          f"routing {routing} (K5 once a layer each way per Psi: {want})")
+    assert routing.get("ssm_scan.fwd_launches", 0) == want, routing
+    assert routing.get("ssm_scan.bwd_launches", 0) == want, routing
+    t0 = time.perf_counter()
+    res1 = eng.run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    assert _launched() == routing, "serving launched a counted kernel"
+    assert eng.captures == 1, eng.captures
+    graph = eng._graph().graph
+    eng.reset()
+    warm = launch_serve.make_requests(cfg, SERVE_MAMBA, SERVE_PROMPT, SERVE_GEN, SERVE_CLUSTERS,
+                                seed_base=SERVE_MAMBA)
+    with sync_free_bursts(eng):
+        res2, routes2, route2_s, wall = serve_wave(eng, warm)
+    assert eng.captures == 1 and eng._graph().graph is graph, "the warm wave captured a graph"
+    n_tok = sum(len(r.tokens) for r in res2.values())
+    launches = {k: v for k, v in _launched().items() if k.startswith("ssm_scan.")}
+    print(f"[serve3] first wave served in {first_s:.3f} s (the capture "
+          f"{eng._graph().capture_s:.3f} s); warm wave ({SERVE_MAMBA} new clients, bursts "
+          f"under sync-debug mode 'error', no new graph): wall_s {wall:.4f} (routing "
+          f"{route2_s:.3f} s), tokens {n_tok}, tok_per_s {n_tok / wall:.2f}; peak device "
+          f"memory {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB; K5 launches "
+          f"in both waves' routing {launches}")
+    errs = check_scan_on_path(rec[0], "serve3", "the router's first Psi input")
+    del rec
+    for tag, reqs, routes, res in (("first", first, routes1, res1), ("warm", warm, routes2, res2)):
+        hold_wave(f"serve3 {tag}", eng, st, reqs, routes, res)
+    del eng, st
+    torch.cuda.empty_cache()
+    print(f"[serve3] phase 13b took {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs
+
+
+def state_on(cpu_state, model, dev):
+    """The serve CLI's serving state built anew on ``dev`` from a CPU state's
+    parameters (ω₀, the joined reference batches, the cluster models), so
+    the two hold equal values."""
+    from repro_torch import engine
+    from repro_torch.core.extractor import llm_leaf_filter
+    from repro_torch.engine.bank import ClusterBank
+    from repro_torch.utils import trees
+    st = engine.init("stocfl", model.loss_fn, cpu_state.ctx.init_params, [],
+                     cpu_state.ctx.cfg, device=dev, leaf_filter=llm_leaf_filter)
+    for batch in cpu_state.ctx.clients:
+        st, _ = engine.join(st, batch)
+    assert st.clusters.assignment() == cpu_state.clusters.assignment()
+    models = {r: trees.tree_map(lambda x: x.to(dev), cpu_state.models[r])
+              for r in cpu_state.models}
+    return st.replace(models=ClusterBank.from_dict(models))
+
+
+def phase_serve_smoke(dev):
+    """13c: the smoke configs of qwen2 (d_model 192, vocab 512) and
+    falcon-mamba (``use_pallas=True``) in fp32, one state on the CPU and
+    the same values on the card: the card's engine against the CPU's
+    sequential loop, routes equal, tokens under the near-tie rule (ε =
+    ``NEAR_TIE_EPS["cuda"]``, the CPU stream the reference)."""
+    from repro_torch import serve
+    from repro_torch.launch import serve as launch_serve
+
+    for arch, kw in (("qwen2-1.5b", {}), ("falcon-mamba-7b", {"use_pallas": True})):
+        cfg, model = serve_setting(arch, smoke=True, **kw)
+        cpu = launch_serve.build_server_state(cfg, model, SERVE_CLUSTERS, SERVE_TAU, 0, device="cpu")
+        card = state_on(cpu, model, dev)
+        max_len = SERVE_PROMPT + SERVE_GEN
+        reqs = launch_serve.make_requests(cfg, SERVE_SMOKE, SERVE_PROMPT, SERVE_GEN, SERVE_CLUSTERS)
+        eng = serve.ServeEngine(model, card, serve.ServeConfig(slots=2, max_len=max_len,
+                                                               max_gen=SERVE_GEN))
+        res, routes, _, wall = serve_wave(eng, reqs)
+        loop = serve.SequentialLoop(model, cpu, max_len=max_len, max_gen=SERVE_GEN)
+        eps, stops, sims = serve.NEAR_TIE_EPS["cuda"], [], 0.0
+        for r, rt in zip(reqs, routes):
+            sr = loop.serve(r)
+            assert sr.cluster == rt.root, (arch, r.rid)
+            sims = max(sims, abs(sr.similarity - rt.similarity))
+            stop = serve.near_tie_compare(sr.tokens, res[r.rid].tokens, sr.gaps, eps)
+            if stop is not None:
+                stops.append((r.rid, stop))
+        share = bound_stops(f"serve-smoke {arch}", reqs, stops)
+        print(f"[serve-smoke] {cfg.name} smoke fp32{' use_pallas' if kw else ''}: "
+              f"{SERVE_SMOKE} requests on {SERVE_CLUSTERS} x 2 lanes of the card's engine "
+              f"({wall:.2f} s) against the CPU's SequentialLoop: routes equal (similarity "
+              f"max |cuda - cpu| {sims:.2e}), tokens equal under the near-tie rule (eps "
+              f"{eps:g}): {len(stops)} near-tie stops {stops} (at most {SERVE_MAX_STOPS}), "
+              f"{100 * share:.1f}% of the tokens compared")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2815,6 +3160,13 @@ def main() -> int:
             if counter in names:
                 kernels[names[counter]]["launches"] += n
     kernels["cosine_sim"]["max_abs_err"] = max(kernels["cosine_sim"]["max_abs_err"], k2_err)
+    phase_serve_qwen(dev, card_peaks(name))
+    serve_launches, k5_errs = phase_serve_mamba(dev)
+    for k, err in zip(("fwd", "bwd"), k5_errs):
+        entry = kernels[f"ssm_scan_{k}"]
+        entry["launches"] += serve_launches[f"ssm_scan.{k}_launches"]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    phase_serve_smoke(dev)
     print(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -335,6 +335,25 @@ def _sync_errors():
         torch.cuda.set_sync_debug_mode(was)
 
 
+def capture_graph(stream, fn):
+    """Capture ``fn()`` into a new CUDA graph on ``stream`` under sync-debug
+    mode "error". The kernels' launch counters count at capture, so the
+    launches the capture recorded are taken back off and returned for the
+    caller to add once per replay. Returns (graph, ``fn``'s result, the
+    launches of one replay, the capture's host seconds)."""
+    before = _build.launch_counts()
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        with _sync_errors():
+            out = fn()
+    seconds = time.perf_counter() - t0
+    after = _build.launch_counts()
+    per_replay = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    _build.add_launches(per_replay, -1)
+    return graph, out, per_replay, seconds
+
+
 class RoundProgram:
     """A strategy's round step run ``rounds`` times: ``program(carry0,
     consts, rounds) -> (carry, ys)``.
@@ -417,19 +436,13 @@ class RoundProgram:
         return _rebuild(self.carry, [x.clone() for x in _leaves(self.carry)]), ys
 
     def _capture(self) -> None:
-        before = _build.launch_counts()
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self.stream):
-            with _sync_errors():
-                new, rec = self.step(self.carry, self.consts)
-                self._copy_into(self.carry, new)
-        self.capture_s = time.perf_counter() - t0
-        after = _build.launch_counts()
-        # the capture recorded these launches; they run at each replay
-        self.per_round = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        _build.add_launches(self.per_round, -1)
-        self.graph, self.record = graph, rec
+        def body():
+            new, rec = self.step(self.carry, self.consts)
+            self._copy_into(self.carry, new)
+            return rec
+
+        self.graph, self.record, self.per_round, self.capture_s = \
+            capture_graph(self.stream, body)
 
 
 def evaluate(state: ServerState, test_sets, true_cluster=None) -> dict:

@@ -1,0 +1,191 @@
+"""Grouped-query attention (optionally with a sliding window), the port of
+the GQA part of the JAX package's ``models/attention.py``.
+
+Three entry points:
+  gqa_train   — full-sequence causal attention (teacher forcing)
+  gqa_prefill — full sequence, returns the KV cache for decoding
+  gqa_decode  — one new token per row against an existing cache
+
+Cache: {"k", "v": (B, S_max, H_kv, hd)}, keys stored already roped; with a
+sliding window S_max is the window and writes wrap around it.
+
+Long sequences use query-chunked attention (``_CHUNK`` query rows at a
+time) so the S×S logits never materialise above that many rows. The
+reference's flash-decode path is a ``shard_map`` over a sequence-sharded
+cache; on one device it is the plain decode. Attention, RoPE and the MLP
+sit outside any TPU kernel in the reference, so they are plain PyTorch
+here too. MLA, cross-attention and bidirectional (encoder) attention are
+not ported yet (ROADMAP.md queue 1 item 2).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.layers import apply_rope, dense_init
+
+_CHUNK = 1024          # query-chunk rows for long-sequence attention
+_NEG = -1e30
+_LATER = "not ported yet: ROADMAP.md queue 1 item 2"
+
+
+def gqa_init(generator: torch.Generator, cfg, dtype=torch.float32, device="cpu"):
+    hd = cfg.resolved_head_dim
+    p = {
+        "wq": dense_init(generator, cfg.d_model, cfg.n_heads * hd, dtype, device=device),
+        "wk": dense_init(generator, cfg.d_model, cfg.n_kv_heads * hd, dtype, device=device),
+        "wv": dense_init(generator, cfg.d_model, cfg.n_kv_heads * hd, dtype, device=device),
+        "wo": dense_init(generator, cfg.n_heads * hd, cfg.d_model, dtype, device=device),
+    }
+    if cfg.qkv_bias:
+        p["b_q"] = torch.zeros((cfg.n_heads * hd,), dtype=dtype, device=device)
+        p["b_k"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=dtype, device=device)
+        p["b_v"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=dtype, device=device)
+    return p
+
+
+def _qkv(params, x, cfg, positions):
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    dt = x.dtype
+    q = x @ params["wq"].to(dt)
+    k = x @ params["wk"].to(dt)
+    v = x @ params["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + params["b_q"].to(dt)
+        k = k + params["b_k"].to(dt)
+        v = v + params["b_v"].to(dt)
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _repeat_kv(k, n_heads: int):
+    """(B,S,H_kv,hd) -> (B,S,H,hd) by group broadcast."""
+    B, S, Hkv, hd = k.shape
+    rep = n_heads // Hkv
+    if rep == 1:
+        return k
+    return k[:, :, :, None, :].expand(B, S, Hkv, rep, hd).reshape(B, S, n_heads, hd)
+
+
+def _scale(hd: int) -> float:
+    """1/sqrt(hd) rounded to fp32, as the reference computes it."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+def _attend_rows(q_rows, k, v, mask_rows, scale):
+    """q_rows: (B,R,H,hd); k,v: (B,S,H,hd); mask_rows: (R,S) or (B,R,S)."""
+    logits = torch.einsum("brhd,bshd->bhrs", q_rows, k).to(torch.float32) * scale
+    mask = mask_rows[None, None] if mask_rows.dim() == 2 else mask_rows[:, None]
+    logits = torch.where(mask, logits, _NEG)
+    probs = torch.softmax(logits, dim=-1).to(q_rows.dtype)
+    return torch.einsum("bhrs,bshd->brhd", probs, v)
+
+
+def causal_attention(q, k, v, cfg, q_offset: int = 0):
+    """Chunked causal (optionally sliding-window) attention.
+
+    q: (B,Sq,H,hd); k,v: (B,Sk,H_kv,hd). ``q_offset`` is the absolute
+    position of q[0] relative to k[0] (prefill: 0)."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    k = _repeat_kv(k, H)
+    v = _repeat_kv(v, H)
+    scale = _scale(hd)
+    kpos = torch.arange(Sk, device=q.device)
+
+    def mask_for(qpos):
+        m = kpos[None, :] <= qpos[:, None]
+        if cfg.sliding_window:
+            m = m & (kpos[None, :] > (qpos[:, None] - cfg.sliding_window))
+        return m
+
+    if Sq <= _CHUNK:
+        qpos = torch.arange(Sq, device=q.device) + q_offset
+        return _attend_rows(q, k, v, mask_for(qpos), scale)
+    outs = []
+    for start in range(0, Sq, _CHUNK):
+        qpos = torch.arange(start, min(start + _CHUNK, Sq), device=q.device) + q_offset
+        outs.append(_attend_rows(q[:, start:start + _CHUNK], k, v, mask_for(qpos), scale))
+    return torch.cat(outs, dim=1)
+
+
+def _positions(B: int, S: int, device):
+    return torch.arange(S, device=device).expand(B, S)
+
+
+def gqa_train(params, x, cfg, positions=None):
+    B, S, _ = x.shape
+    if positions is None:
+        positions = _positions(B, S, x.device)
+    q, k, v = _qkv(params, x, cfg, positions)
+    out = causal_attention(q, k, v, cfg).reshape(B, S, -1)
+    return out @ params["wo"].to(x.dtype)
+
+
+def gqa_prefill(params, x, cfg, positions=None):
+    """Returns (out, cache); the cache holds roped keys at absolute
+    positions (the last ``sliding_window`` of them with a window)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = _positions(B, S, x.device)
+    q, k, v = _qkv(params, x, cfg, positions)
+    out = causal_attention(q, k, v, cfg).reshape(B, S, -1) @ params["wo"].to(x.dtype)
+    if cfg.sliding_window and S > cfg.sliding_window:
+        k = k[:, -cfg.sliding_window:]
+        v = v[:, -cfg.sliding_window:]
+    return out, {"k": k, "v": v}
+
+
+def gqa_decode(params, x, cache, pos, cfg):
+    """One token per row. x: (B,1,d); cache k/v: (B,S_max,H_kv,hd); pos:
+    the number of tokens already in context (the new token's absolute
+    position), a scalar or one per row (B,).
+
+    Row b writes its k/v at ``pos[b]`` (modulo the window when
+    ``sliding_window`` is set; a position past the cache lands on its last
+    entry, where the reference's ``dynamic_update_slice`` clamps it) and
+    attends to its first ``valid_len[b]`` entries. The write is a one-hot
+    ``where``, so the cache passed in is not modified."""
+    B = x.shape[0]
+    dt = x.dtype
+    S_max = cache["k"].shape[1]
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(x.device).expand(B)
+    else:   # a host int: filled on the device, no host-to-device copy
+        pos = torch.full((B,), int(pos), dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _qkv(params, x, cfg, pos[:, None])
+    if cfg.sliding_window:
+        slot = pos % S_max
+        valid_len = torch.clamp(pos + 1, max=S_max)
+    else:
+        slot = torch.clamp(pos, max=S_max - 1)
+        valid_len = pos + 1
+    idx = torch.arange(S_max, device=x.device)
+    write = (idx[None, :] == slot[:, None])[:, :, None, None]          # (B,S_max,1,1)
+    k = torch.where(write, k_new.to(cache["k"].dtype), cache["k"])
+    v = torch.where(write, v_new.to(cache["v"].dtype), cache["v"])
+
+    kk = _repeat_kv(k.to(dt), cfg.n_heads)
+    vv = _repeat_kv(v.to(dt), cfg.n_heads)
+    logits = torch.einsum("bqhd,bshd->bhqs", q, kk).to(torch.float32) * _scale(q.shape[-1])
+    mask = (idx[None, :] < valid_len[:, None])[:, None, None, :]      # (B,1,1,S_max)
+    logits = torch.where(mask, logits, _NEG)
+    probs = torch.softmax(logits, dim=-1).to(dt)
+    out = torch.einsum("bhqs,bshd->bqhd", probs, vv).reshape(B, 1, -1)
+    return out @ params["wo"].to(dt), {"k": k, "v": v}
+
+
+def mla_init(*_args, **_kw):
+    raise NotImplementedError(f"MLA (multi-head latent attention) is {_LATER}")
+
+
+def cross_attn_init(*_args, **_kw):
+    raise NotImplementedError(f"cross-attention (encoder-decoder) is {_LATER}")
+
+
+def bidir_attention(*_args, **_kw):
+    raise NotImplementedError(f"bidirectional (encoder) attention is {_LATER}")

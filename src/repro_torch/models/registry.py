@@ -2,26 +2,37 @@
 families the port has.
 
 ``build(cfg)`` gives ``loss_fn`` / ``forward_train`` / ``prefill`` /
-``decode`` / ``make_cache`` for ``arch_type == "ssm"`` (falcon-mamba).
-The other families raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them.
+``decode`` / ``make_cache`` for ``arch_type == "dense"`` (the GQA
+transformer: qwen2, llama3, internlm2, granite) and ``"ssm"``
+(falcon-mamba). The other families raise ``NotImplementedError`` naming
+the ROADMAP.md item that ports them. ``grow_cache``, ``decode_specs`` and
+``serve_cache_specs`` are the reference's cache helpers; their shapes come
+from ``make_cache`` on the ``meta`` device, which allocates nothing.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.models import ssm_lm
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import ssm_lm, transformer
+from repro_torch.models.config import InputShape, ModelConfig
+from repro_torch.utils import trees
 
 _NOT_PORTED = {
-    "dense": "queue 1 item 15 (transformer)",
-    "moe": "queue 1 item 15 (transformer, moe)",
-    "hybrid": "queue 1 item 15 (hybrid: zamba2, Mamba2)",
-    "audio": "queue 1 item 15 (encdec)",
-    "vlm": "queue 1 item 15 (vlm)",
+    "moe": "queue 1 item 2 (transformer, moe)",
+    "hybrid": "queue 1 item 2 (hybrid: zamba2, Mamba2)",
+    "audio": "queue 1 item 2 (encdec)",
+    "vlm": "queue 1 item 2 (vlm)",
 }
+_MODULES = {"dense": transformer, "ssm": ssm_lm}
+
+
+class Spec(NamedTuple):
+    """A tensor's shape and dtype, without its storage (the port's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 class Model(NamedTuple):
@@ -50,12 +61,14 @@ def build(cfg: ModelConfig) -> Model:
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} ({cfg.name}) is not ported yet: "
             f"ROADMAP.md {_NOT_PORTED[cfg.arch_type]}")
-    if cfg.arch_type != "ssm":
+    if cfg.arch_type not in _MODULES:
         raise ValueError(f"unknown arch_type {cfg.arch_type}")
-    if cfg.ssm_version != 1:
+    if cfg.arch_type == "ssm" and cfg.ssm_version != 1:
         raise NotImplementedError("Mamba2 is not ported yet: ROADMAP.md queue 1 "
-                                  "item 15 (hybrid: zamba2, Mamba2)")
-    mod = ssm_lm
+                                  "item 2 (hybrid: zamba2, Mamba2)")
+    if cfg.arch_type == "dense":
+        transformer._check(cfg)
+    mod = _MODULES[cfg.arch_type]
 
     def forward_train(params, batch):
         return mod.forward_train(params, batch["tokens"], cfg)
@@ -82,3 +95,43 @@ def build(cfg: ModelConfig) -> Model:
         decode=decode,
         make_cache=make_cache,
     )
+
+
+def _specs(tree):
+    return trees.tree_map(lambda x: Spec(tuple(x.shape), x.dtype), tree)
+
+
+def embed_prefix_(full: torch.Tensor, got: torch.Tensor) -> None:
+    """Write ``got`` into ``full`` at the origin (each axis of ``got`` no
+    longer than ``full``'s), in place, in ``full``'s dtype."""
+    full[tuple(slice(0, n) for n in got.shape)].copy_(got)
+
+
+def grow_cache(model: Model, cache, batch: int, seq_len: int):
+    """Embed a prefill cache into a larger zero decode cache of
+    ``make_cache(batch, seq_len)``'s shapes on the cache's device
+    (prefix-preserving: each leaf lands at the origin)."""
+    device = trees.leaves(cache)[0].device
+    full = model.make_cache(batch, seq_len, device=device)
+    for f, g in zip(trees.leaves(full), trees.leaves(cache)):
+        embed_prefix_(f, g)
+    return full
+
+
+def decode_specs(model: Model, shape: InputShape):
+    """Shapes and dtypes of a decode step's operands: (token, cache, pos)."""
+    B = shape.global_batch
+    return {"token": Spec((B,), torch.int32),
+            "cache": _specs(model.make_cache(B, shape.seq_len, device="meta")),
+            "pos": Spec((), torch.int32)}
+
+
+def serve_cache_specs(model: Model, clusters: int, slots: int, max_len: int):
+    """The serving engine's decode-state cache (``repro_torch.serve``):
+    ``make_cache(slots, max_len)`` with a leading routed-cluster-group
+    axis, every leaf ``(clusters,) + leaf.shape``, so cluster k's slot s
+    lives at ``leaf[k, :, s]`` (the slot axis is the cache's own batch
+    axis, axis 1 in every family). Shapes and dtypes only;
+    ``serve.slots.alloc_slots`` allocates them."""
+    base = model.make_cache(slots, max_len, device="meta")
+    return trees.tree_map(lambda x: Spec((clusters,) + tuple(x.shape), x.dtype), base)

@@ -45,6 +45,13 @@ SLICE8 = ("repro_torch.engine.async_agg", "repro_torch.sim", "repro_torch.sim.ev
           "repro_torch.checkpoint.ckpt", "repro_torch.data.dirichlet",
           "repro_torch.data.synthetic")
 
+# cluster-routed serving and the dense transformer family
+SLICE9 = ("repro_torch.models.attention", "repro_torch.models.transformer",
+          "repro_torch.models.layers", "repro_torch.serve", "repro_torch.serve.engine",
+          "repro_torch.serve.router", "repro_torch.serve.scheduler",
+          "repro_torch.serve.slots", "repro_torch.serve.baseline",
+          "repro_torch.launch", "repro_torch.launch.serve")
+
 
 def test_importing_every_module_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -58,6 +65,7 @@ def test_importing_every_module_loads_no_jax():
     assert set(SLICE6) <= set(names), sorted(set(SLICE6) - set(names))
     assert set(SLICE7) <= set(names), sorted(set(SLICE7) - set(names))
     assert set(SLICE8) <= set(names), sorted(set(SLICE8) - set(names))
+    assert set(SLICE9) <= set(names), sorted(set(SLICE9) - set(names))
     assert bad == "", f"port imports pulled in {bad}"
 
 

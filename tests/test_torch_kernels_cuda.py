@@ -23,8 +23,11 @@ cosines over (-1, 1) and each τ sits between two neighbouring float64
 cosines, at least 1e-5 from every pair (checked before the comparison):
 the ~1e-6 difference between the kernel's and the plain version's cosines
 cannot flip a pair, while an error in the kernel's arithmetic larger than
-the gap to τ does.
+the gap to τ does. The serving engine's captured decode burst must equal
+the same steps run eagerly, bitwise (the same kernels on the same inputs).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -556,3 +559,89 @@ def test_run_rounds_on_card_matches_eager(dev, name):
     if name == "stocfl":
         assert eager.clusters.assignment() == scanned.clusters.assignment()
         assert torch.equal(eager.clusters.state.parent, scanned.clusters.state.parent)
+
+
+@functools.lru_cache(maxsize=None)
+def _serving(arch="qwen2_1_5b"):
+    """A smoke model in fp32 served on the card from the serve CLI's state
+    (2 clusters), with 6 requests of its request stream."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.registry import build
+    cfg = get_config(arch, smoke=True).with_(dtype="float32")
+    model = build(cfg)
+    state = launch_serve.build_server_state(cfg, model, 2, 0.3, 0, device="cuda")
+    return cfg, model, state, launch_serve.make_requests(cfg, 6, 8, 6, 2)
+
+
+def _engine(slots=2):
+    from repro_torch import serve
+    cfg, model, state, reqs = _serving()
+    return serve.ServeEngine(model, state, serve.ServeConfig(slots=slots, max_len=14,
+                                                             max_gen=6)), reqs
+
+
+def _slot_buffers(sl):
+    from repro_torch.utils import trees
+    return trees.leaves(sl.caches) + list(sl[1:])
+
+
+def test_captured_decode_burst_equals_eager_steps(dev):
+    """The serving engine's burst on the card (one eager warm-up step, the
+    capture, then replays of the captured step) against the same steps
+    run eagerly from a copy of the lanes: tokens, positions, counters and
+    the output buffer equal; the KV caches bitwise equal (the same kernels
+    on the same inputs)."""
+    from repro_torch.serve import slots
+    from repro_torch.utils import trees
+    eng, reqs = _engine()
+    eng.submit_many(reqs[:4])
+    eng._admit_all()
+    copy = slots.DecodeSlots(*[trees.tree_map(torch.clone, x) for x in eng.sl])
+    eng._decode_burst(4)
+    for _ in range(4):
+        eng._step(eng._stacked, copy)
+    torch.cuda.synchronize()
+    assert eng.captures == 1 and eng._graph().graph is not None
+    for a, b in zip(_slot_buffers(eng.sl), _slot_buffers(copy)):
+        assert torch.equal(a, b)
+    assert set(eng.sl.emitted.flatten().tolist()) <= {0, 5} and int(eng.sl.emitted.max()) == 5
+
+
+def test_decode_burst_makes_no_host_sync(dev):
+    """Once captured, a burst is replays only: under sync-debug mode
+    "error" it runs without raising; a host read there raises."""
+    eng, reqs = _engine()
+    eng.submit_many(reqs[:4])
+    eng._admit_all()
+    eng._decode_burst(1)                       # warm-up and capture
+    was = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode_burst(3)
+        with pytest.raises(RuntimeError):
+            eng.sl.token.cpu()
+    finally:
+        torch.cuda.set_sync_debug_mode(was)
+    assert eng.stats()["decode_steps"] == 4
+
+
+def test_reset_reuses_the_captured_graph(dev):
+    """``reset`` keeps the graph (the lanes are zeroed in place): a second
+    wave of the same requests captures nothing and serves the same tokens;
+    a wave with fewer requests than lanes, the same."""
+    from repro_torch import serve
+    eng, reqs = _engine()
+    eng.submit_many(reqs)
+    first = eng.run()
+    graph = eng._graph().graph
+    eng.reset()
+    again = [serve.Request(rid=100 + r.rid, client_id=r.client_id, prompt=r.prompt,
+                           gen=r.gen) for r in reqs]
+    eng.submit_many(again[:3])
+    res = eng.run()
+    eng.submit_many(again[3:])
+    res.update(eng.run())
+    assert eng.captures == 1 and eng._graph().graph is graph
+    for r in reqs:
+        assert list(res[100 + r.rid].tokens) == list(first[r.rid].tokens)
