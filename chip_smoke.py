@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Thirteen phases, each printing its lines; any failure exits non-zero and
+Fourteen phases, each printing its lines; any failure exits non-zero and
 prints no result.
 
 1. Build: compile the CUDA kernels of ``kernels/csrc`` with nvcc.
@@ -166,6 +166,27 @@ prints no result.
    configs of qwen2 and falcon-mamba on the card against the same values
    on the CPU: routes equal, tokens under the near-tie rule with the CPU's
    sequential stream the reference.
+14. The MoE, MLA and hybrid families and the training driver; every cut
+   is one card's memory and is printed. (a) ``zamba2-1.2b`` at full width
+   cut 38 -> 6 layers (one group and one application of the shared block)
+   trained through ``launch.train.run_llm`` with path 3's traffic as the
+   driver's own flags (``TRAIN14``: bf16 compute, fp32 parameters, the
+   engine's fp32 policy, ``--fused-step``): round walls, the peak, the
+   device's busy share on round 2 (profiled); K1 and K2 launches equal to
+   the counts reckoned from rounds, local steps and merge passes, K1
+   bitwise against its plain version on the path's first local step's
+   operands, K2 on every matrix the path gave it; rows finite, Ψ bitwise
+   repeatable. (b) zamba2 at (a)'s cut and (c) ``phi3.5-moe-42b-a6.6b``
+   cut 32 -> 2 layers served as in 13a (fp32, TF32 off, waves of 8 and
+   16, 13's gates; the MoE prefill groups' requests routed in groups of
+   their own, multi-request groups formed, their capacity drops printed).
+   (d) ``deepseek-v2-236b`` cut 60 -> 2 layers (a dense layer and an MoE
+   layer) at the model level: prefill of 4 x 32 tokens, 16 decode steps
+   with one position per row (the absorbed MLA decode) held against
+   ``forward_train`` over each row's prefix at ``moe_group_size=1``
+   within 1e-3 of the largest |logit|. (e) The three families' smoke
+   configs on the card against the CPU, as 13c. The phase's K1 and K2
+   launches are added to the kernels line.
 
 The line before the last is one JSON object describing every kernel of the
 paths; the last line is ``{"ok": true, "device": {...}}``.
@@ -3060,16 +3081,20 @@ def state_on(cpu_state, model, dev):
     return st.replace(models=ClusterBank.from_dict(models))
 
 
-def phase_serve_smoke(dev):
-    """13c: the smoke configs of qwen2 (d_model 192, vocab 512) and
-    falcon-mamba (``use_pallas=True``) in fp32, one state on the CPU and
-    the same values on the card: the card's engine against the CPU's
-    sequential loop, routes equal, tokens under the near-tie rule (ε =
-    ``NEAR_TIE_EPS["cuda"]``, the CPU stream the reference)."""
+SMOKE13 = (("qwen2-1.5b", {}), ("falcon-mamba-7b", {"use_pallas": True}))
+
+
+def phase_serve_smoke(dev, archs=SMOKE13):
+    """13c (and 14e): the smoke configs of qwen2 (d_model 192, vocab 512)
+    and falcon-mamba (``use_pallas=True``) in fp32 (14e: zamba2, phi3.5-moe
+    and deepseek-v2), one state on the CPU and the same values on the
+    card: the card's engine against the CPU's sequential loop, routes
+    equal, tokens under the near-tie rule (ε = ``NEAR_TIE_EPS["cuda"]``,
+    the CPU stream the reference)."""
     from repro_torch import serve
     from repro_torch.launch import serve as launch_serve
 
-    for arch, kw in (("qwen2-1.5b", {}), ("falcon-mamba-7b", {"use_pallas": True})):
+    for arch, kw in archs:
         cfg, model = serve_setting(arch, smoke=True, **kw)
         cpu = launch_serve.build_server_state(cfg, model, SERVE_CLUSTERS, SERVE_TAU, 0, device="cpu")
         card = state_on(cpu, model, dev)
@@ -3094,6 +3119,404 @@ def phase_serve_smoke(dev):
               f"max |cuda - cpu| {sims:.2e}), tokens equal under the near-tie rule (eps "
               f"{eps:g}): {len(stops)} near-tie stops {stops} (at most {SERVE_MAX_STOPS}), "
               f"{100 * share:.1f}% of the tokens compared")
+
+
+# ----------------------------------------------------------------- phase 14
+# (a) path 3's traffic through the training driver's own flags
+TRAIN14 = ["--arch", "zamba2-1.2b", "--clients", "4", "--domains", "2", "--batch", "2",
+           "--seq-len", "256", "--rounds", "3", "--local-steps", "5", "--sample-rate", "0.5",
+           "--tau", "0.12", "--lr", "0.05", "--fused-step", "--device", "cuda"]
+ZAMBA_LAYERS = 6          # 38 -> 6: one full group of 6 and one shared-block application
+PHI_LAYERS = 2            # 32 -> 2
+DEEPSEEK_LAYERS = 2       # 60 -> 2, moe_layer_start 1 kept (a dense layer, an MoE layer)
+DEEPSEEK_ROWS, DEEPSEEK_STEPS = 4, 16
+DEEPSEEK_RTOL = 1e-3      # decode logits against forward_train, of the largest |logit|
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` is ``value`` within the block."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def recording_first_prox_update():
+    """Within the block, the first ``ops.prox_update_flat`` call (the first
+    local step of the first cohort) also keeps a host copy of the (θ, ω,
+    g_θ, g_ω, η, λ) it received (2 × 0.36 G fp32 each on 14a: on the card
+    they would crowd the round's peak) and the seconds the copy took;
+    yields the list that receives them.
+    The call itself goes through unchanged, so its launch is counted once."""
+    from repro_torch.kernels import ops
+    real, records = ops.prox_update_flat, []
+
+    def record(theta, omega, g_theta, g_omega, eta, lam, backend="auto"):
+        if not records:
+            t0 = time.perf_counter()
+            ops_ = tuple(x.detach().to("cpu", copy=True) for x in (theta, omega, g_theta, g_omega))
+            records.append({"ops": ops_ + (float(eta), float(lam)),
+                            "copy_s": time.perf_counter() - t0})
+        return real(theta, omega, g_theta, g_omega, eta, lam, backend=backend)
+
+    with patched(ops, "prox_update_flat", record):
+        yield records
+
+
+@contextlib.contextmanager
+def recording_rounds(profile_round=None):
+    """Within the block every ``engine.run_round`` is timed (ending in a
+    synchronise) and recorded: cohort, wall, record, and the state after
+    it; round ``profile_round`` runs under ``torch.profiler``. Yields
+    (records, the profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import engine
+    real, records = engine.run_round, []
+    # device activity only: recording every host op of a round of ~10^5
+    # small launches would slow it and take minutes to parse
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def run_round(state, client_ids=None):
+        _, cohort = engine.sample_clients(state)
+        traced = len(records) == profile_round
+        with (prof if traced else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, rec = real(state, client_ids)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        records.append(dict(cohort=[int(c) for c in cohort], wall=wall, traced=traced,
+                            n_clusters=rec["n_clusters"], merges=list(rec["merges"]),
+                            state=state))
+        return state, rec
+
+    with patched(engine, "run_round", run_round):
+        yield records, prof
+
+
+def check_prox_on_path(record, tag):
+    """K1 on the operands the path's first fused step gave it, against
+    ``ref.prox_update_ref_``: bitwise in fp32, in place. Returns 0.0 (the
+    largest error)."""
+    import torch
+    from repro_torch.kernels import prox_update, ref
+
+    th, om, gt, go, eta, lam = record
+    n = th.numel()
+    dev = torch.device("cuda")
+    gt, go = gt.to(dev), go.to(dev)
+    kt, ko = th.to(dev), om.to(dev)
+    ptrs = (kt.data_ptr(), ko.data_ptr())
+    before = prox_update.launches
+    prox_update.prox_update_flat(kt, ko, gt, go, eta, lam)
+    prox_update.launches = before             # a check, not a launch of the path
+    pt, po = ref.prox_update_ref_(th.to(dev), om.to(dev), gt, go, eta, lam)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(kt, pt) and torch.equal(ko, po))
+    print(f"[{tag}] prox_update ({th.dtype}) on the path's first local step's operands "
+          f"(n={n}, eta {eta}, lam {lam}): bitwise equal to ref.prox_update_ref_={exact}, "
+          f"in place={(kt.data_ptr(), ko.data_ptr()) == ptrs}")
+    assert exact and (kt.data_ptr(), ko.data_ptr()) == ptrs
+    return 0.0
+
+
+def phase_train_zamba2(dev):
+    """14a: zamba2-1.2b at full width cut to 6 layers through
+    ``launch.train.run_llm``, the training driver, at path 3's traffic
+    given as the driver's flags (bf16 compute, fp32 parameters, the
+    engine's fp32 policy, ``--fused-step``): round walls, the peak, the
+    device's busy share on round 2; K1 and K2 launches equal the counts
+    reckoned from rounds, local steps and merge passes and are held
+    against their plain versions on the inputs the path gave them; the
+    model rows finite; Ψ bitwise repeatable. Returns (the launches, K2's
+    largest error)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cosine_sim, prox_update
+    from repro_torch.launch import train
+    from repro_torch.utils import trees
+
+    t_phase = time.perf_counter()
+    args = train.build_parser().parse_args(TRAIN14)
+    cut = lambda arch, smoke=False: get_config(arch, smoke=smoke).with_(n_layers=ZAMBA_LAYERS)
+    cfg = cut(args.arch)
+    print(f"[train14] {cfg.name} at full width ({cfg.source}): d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, ssm_state "
+          f"{cfg.ssm_state}, ssm_head_dim {cfg.ssm_head_dim}, d_inner {cfg.d_inner}, window "
+          f"{cfg.sliding_window}; depth cut {get_config(args.arch).n_layers} -> "
+          f"{cfg.n_layers} (one group of {cfg.attn_every} and one shared-block application: "
+          f"one card's memory); compute {cfg.dtype}, params {cfg.param_dtype}; "
+          f"python -m repro_torch.launch.train {' '.join(TRAIN14)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _zero_counts()
+    cosine_sim.padded_copies = 0
+    with patched(train, "get_config", cut), recording_first_prox_update() as k1_in, \
+            recording_cosine_inputs() as k2_in, recording_rounds(profile_round=2) as (recs, prof):
+        out = train.run_llm(args)
+    launches = _launched()
+    peak = torch.cuda.max_memory_allocated() - base
+    state = recs[-1]["state"]
+    n_params = sum(p.numel() for p in trees.leaves(state.ctx.init_params))
+    copy_s = k1_in[0]["copy_s"]
+    for t, r in enumerate(recs):
+        note = (f" (under the profiler)" if r["traced"] else
+                f" ({(r['wall'] - copy_s) * 1e3:.1f} ms without the {copy_s:.1f} s host copy "
+                f"of K1's first operands)" if t == 0 else "")
+        print(f"[train14] round {t}: wall {r['wall'] * 1e3:.1f} ms{note}, cohort "
+              f"{r['cohort']}, n_clusters {r['n_clusters']}, merges {r['merges']}")
+    kernels = {k: ms for k, ms in _device_kernels(prof).items() if not k.startswith("stocfl.")}
+    busy = sum(kernels.values())
+    wall = recs[2]["wall"] * 1e3
+    assert busy > 0, "the profiler recorded no device time"
+    print(f"[train14] {n_params} parameters ({n_params * 4 / 1e9:.2f} GB fp32); driver JSON "
+          f"{out}; peak device memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated, "
+          f"from {base / 1e9:.2f} GB); round 2 under the profiler: device busy {busy:.1f} ms "
+          f"of {wall:.1f} ms ({100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%)")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[train14] device {ms:9.2f} ms  {name[:90]}")
+    del prof, kernels
+    E, R = args.local_steps, args.rounds
+    expect = {"prox_update.launches": R * E,
+              "cosine_sim.launches": R + sum(r["n_clusters"] >= 2 for r in recs)}
+    print(f"[train14] launches {launches}; reckoned K1 {R} rounds x {E} local steps, K2 one a "
+          f"merge pass and one an objective with >= 2 clusters: {expect}")
+    assert launches == expect, (launches, expect)
+    assert cosine_sim.padded_copies == 0, "14a copied a K2 input"
+    assert state.ctx.init_params["embed"].dtype == torch.float32 and len(k1_in) == 1
+    assert k1_in[0]["ops"][0].dtype == torch.float32, "K1 did not take its f32 entry"
+    for leaf in trees.leaves(state.omega) + trees.leaves(state.models.stacked):
+        assert bool(torch.isfinite(leaf).all()), "non-finite model values"
+    psi = state.ctx.extractor
+    a, b = psi(state.ctx.clients[0]), psi(state.ctx.clients[0])
+    same = bool(torch.equal(a, b))
+    print(f"[train14] model rows finite; Psi of client 0 computed twice ({tuple(a.shape)}, "
+          f"norm {float(a.norm()):.6f}): bitwise equal={same}")
+    assert same and a.shape == (8192,)
+    del state, psi, a, b, recs
+    torch.cuda.empty_cache()
+    err = check_cosine_on_records(k2_in, args.tau, "train14", 1e-5)
+    check_prox_on_path(k1_in[0]["ops"], "train14")
+    del k1_in, k2_in
+    torch.cuda.empty_cache()
+    print(f"[train14] phase 14a took {time.perf_counter() - t_phase:.1f} s")
+    return {"prox_update": launches["prox_update.launches"],
+            "cosine_sim": launches["cosine_sim.launches"]}, err
+
+
+@contextlib.contextmanager
+def recording_moe_prefills(prompt_len):
+    """Within the block every MoE layer call on ``prompt_len`` positions
+    (a prefill; the decode runs under vmap on 1) records (batch rows,
+    routing group size, assignments dropped); yields the list."""
+    from repro_torch.models import moe
+    real, calls = moe.moe_ffn, []
+
+    def record(params, x, cfg, group_size=0):
+        if x.shape[1] == prompt_len:
+            g = moe.group_tokens(x.shape[0] * prompt_len, group_size or cfg.moe_group_size)
+            calls.append((x.shape[0], g, moe.dropped(params, x, cfg, group_size)))
+        return real(params, x, cfg, group_size)
+
+    with patched(moe, "moe_ffn", record):
+        yield calls
+
+
+def phase_serve_family(dev, tag, arch, n_layers, first_n, warm_n, peaks):
+    """14b / 14c: a family at full width cut to ``n_layers`` served as in
+    13a (the serve CLI's state with 2 clusters, 4 slots a cluster, prompt
+    32, gen 16, fp32, TF32 off): a first wave (the capture), ``reset``, a
+    warm wave of new clients with every burst under sync-debug mode
+    "error" and the same graph; 13's gates on both waves. MoE: each
+    prefill group's requests routed in groups of their own (the calls'
+    group sizes asserted), multi-request prefill groups formed
+    (asserted), the assignments capacity dropped there printed."""
+    import numpy as np
+    import torch
+    from repro_torch import serve
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.utils import trees
+
+    t_phase = time.perf_counter()
+    cfg, model = serve_setting(arch, n_layers=n_layers)
+    full = serve_setting(arch)[0]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    st = launch_serve.build_server_state(cfg, model, SERVE_CLUSTERS, SERVE_TAU, 0, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trees.leaves(st.ctx.init_params))
+    max_len = SERVE_PROMPT + SERVE_GEN
+    eng = serve.ServeEngine(model, st, serve.ServeConfig(slots=SERVE_SLOTS, max_len=max_len,
+                                                         max_gen=SERVE_GEN))
+    print(f"[{tag}] {cfg.name} at full width ({cfg.source}), depth cut {full.n_layers} -> "
+          f"{cfg.n_layers} (one card's memory: 3 models, the omega_0 anchor and 2 cluster "
+          f"models): {n_params} parameters ({n_params * 4 / 1e9:.2f} GB fp32 a model), fp32 "
+          f"compute, TF32 off; build_server_state {setup_s:.2f} s; {SERVE_SLOTS} slots a "
+          f"cluster, prompt {SERVE_PROMPT}, gen {SERVE_GEN}")
+    first = launch_serve.make_requests(cfg, first_n, SERVE_PROMPT, SERVE_GEN, SERVE_CLUSTERS)
+    moe_ctx = recording_moe_prefills(SERVE_PROMPT) if cfg.n_experts else \
+        contextlib.nullcontext([])
+    with moe_ctx as calls:
+        res1, routes1, route1_s, first_s = serve_wave(eng, first)
+    assert eng.captures == 1, eng.captures
+    graph = eng._graph().graph
+    stats1 = eng.stats()
+    if cfg.n_experts:
+        multi = [c for c in calls if c[0] >= 2]
+        print(f"[{tag}] first wave: {stats1['prefill_groups']} prefill groups for "
+              f"{stats1['admitted']} requests; MoE prefill calls (rows, routing group, "
+              f"assignments dropped at capacity factor {cfg.capacity_factor}): {calls}")
+        assert multi, "no multi-request prefill group formed"
+        assert all(g == SERVE_PROMPT for _, g, _ in calls), calls
+    eng.reset()
+    warm = launch_serve.make_requests(cfg, warm_n, SERVE_PROMPT, SERVE_GEN, SERVE_CLUSTERS,
+                                      seed_base=first_n)
+    with sync_free_bursts(eng):
+        res2, routes2, route2_s, wall = serve_wave(eng, warm)
+    assert eng.captures == 1 and eng._graph().graph is graph, "the warm wave captured a graph"
+    n_tok = sum(len(r.tokens) for r in res2.values())
+    print(f"[{tag}] first wave ({first_n} requests): first_compile_s {first_s:.3f} (routing "
+          f"{route1_s:.3f} s, the capture {eng._graph().capture_s:.3f} s); warm wave "
+          f"({warm_n} new clients, bursts under sync-debug mode 'error', no new graph): "
+          f"wall_s {wall:.4f}, tokens {n_tok}, tok_per_s {n_tok / wall:.2f}; Psi routing "
+          f"{route2_s * 1e3:.1f} ms ({route2_s * 1e3 / warm_n:.1f} ms a client), serving "
+          f"after routing {(wall - route2_s) * 1e3:.1f} ms ({n_tok / (wall - route2_s):.2f} "
+          f"tok/s); stats {eng.stats()}")
+    params0 = eng._params_list[0]
+    batch = {"tokens": torch.as_tensor(np.stack([r.prompt for r in first[:SERVE_SLOTS]]),
+                                       device=dev)}
+    prefill_ms = time_ms(lambda: eng._prefill(params0, batch))
+    eager_ms = time_ms(lambda: eng._step(eng._stacked, eng.sl))
+    replay_ms = time_ms(eng._graph().graph.replay)
+    step_bytes = sum(p.numel() * p.element_size() for p in trees.leaves(eng._stacked))
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[{tag}] decode step over {SERVE_CLUSTERS} clusters x {SERVE_SLOTS} slots: eager "
+          f"{eager_ms:.3f} ms, graph replay {replay_ms:.3f} ms (CUDA events, {TIMED_CALLS} "
+          f"calls); its bytes floor {step_bytes / peaks[0] * 1e3:.3f} ms ({step_bytes / 1e9:.2f}"
+          f" GB of stacked cluster weights at {peaks[0] / 1e12:.2f} TB/s); prefill of a group "
+          f"of {SERVE_SLOTS} x {SERVE_PROMPT} tokens {prefill_ms:.3f} ms; peak device memory "
+          f"{peak / 1e9:.2f} GB (from {base / 1e9:.2f} GB)")
+    for wave, reqs, routes, res in (("first", first, routes1, res1), ("warm", warm, routes2, res2)):
+        hold_wave(f"{tag} {wave}", eng, st, reqs, routes, res)
+    del eng, st
+    torch.cuda.empty_cache()
+    print(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_deepseek_model(dev):
+    """14d: deepseek-v2-236b at full width cut to 2 layers (a dense layer
+    0, an MoE layer), fp32, TF32 off, at the model level: ``prefill`` of
+    4 prompts x 32 tokens, then 16 greedy ``decode_step``s with one
+    position per row (the absorbed MLA decode, each row its own MoE
+    group). Gates: prefill's last logits equal ``forward_train``'s last
+    position (the same routing groups); each step's logits equal
+    ``forward_train`` over each row's prefix under
+    ``cfg.with_(moe_group_size=1)`` (each token its own group, as the
+    per-row decode routes it) within 1e-3 of the largest |logit|; the
+    tokens follow the near-tie rule against those forward passes."""
+    import numpy as np
+    import torch
+    from repro_torch import serve
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.models.registry import build
+    from repro_torch.utils import trees
+
+    t_phase = time.perf_counter()
+    full = get_config("deepseek-v2-236b")
+    cfg = full.with_(dtype="float32", n_layers=DEEPSEEK_LAYERS)
+    model, single = build(cfg), build(cfg.with_(moe_group_size=1))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(p.numel() for p in trees.leaves(params))
+    print(f"[mla14] {cfg.name} at full width ({cfg.source}): d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}, MLA r {cfg.kv_lora_rank} rope {cfg.qk_rope_dim} nope "
+          f"{cfg.qk_nope_dim} v {cfg.v_head_dim}, dense d_ff {cfg.d_ff}, {cfg.n_experts} "
+          f"routed top-{cfg.moe_top_k} + {cfg.n_shared_experts} shared, expert d_ff "
+          f"{cfg.moe_d_ff}, vocab {cfg.vocab_size}; depth cut {full.n_layers} -> "
+          f"{cfg.n_layers} (moe_layer_start {cfg.moe_layer_start} kept; one card's memory: "
+          f"one model); {n_params} parameters ({n_params * 4 / 1e9:.2f} GB fp32)")
+    tokens = torch.as_tensor(synthetic_lm_batch(cfg, SERVE_PROMPT, DEEPSEEK_ROWS, seed=7,
+                                                domain=0)["tokens"], device=dev)
+    total = SERVE_PROMPT + DEEPSEEK_STEPS
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        full_logits, _ = model.forward_train(params, {"tokens": tokens})
+        scale = float(full_logits[:, -1].abs().max())
+        pre_err = float((logits - full_logits[:, -1]).abs().max())
+        print(f"[mla14] prefill of {DEEPSEEK_ROWS} x {SERVE_PROMPT} tokens {prefill_s * 1e3:.1f} "
+              f"ms (first call); last logits against forward_train's: max |diff| "
+              f"{pre_err:.3e} of max |logit| {scale:.3f}")
+        assert pre_err <= DEEPSEEK_RTOL * scale
+        from repro_torch.models.registry import grow_cache
+        cache = grow_cache(model, cache, DEEPSEEK_ROWS, total)
+        pos = torch.full((DEEPSEEK_ROWS,), SERVE_PROMPT, dtype=torch.int32, device=dev)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        seq, walls, worst = [tokens, tok[:, None]], [], 0.0
+        ref_tokens, got_tokens, gaps = [], [], []
+        for t in range(DEEPSEEK_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.decode(params, tok, cache, pos)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            prefix = torch.cat(seq, 1)
+            want = single.forward_train(params, {"tokens": prefix})[0][:, -1]
+            err = float((logits - want).abs().max()) / float(want.abs().max())
+            worst = max(worst, err)
+            assert err <= DEEPSEEK_RTOL, (t, err)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            got_tokens.append(tok.cpu().numpy())
+            ref_tokens.append(torch.argmax(want, -1).cpu().numpy())
+            gaps.append(serve.top2_gap(want).cpu().numpy())
+            seq.append(tok[:, None])
+            pos = pos + 1
+    stops = []
+    for b in range(DEEPSEEK_ROWS):
+        stop = serve.near_tie_compare([r[b] for r in ref_tokens], [g[b] for g in got_tokens],
+                                      [g[b] for g in gaps], serve.NEAR_TIE_EPS["cuda"])
+        if stop is not None:
+            stops.append((b, stop))
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[mla14] {DEEPSEEK_STEPS} decode steps (per-row positions, absorbed MLA): "
+          f"{np.mean(walls[1:]) * 1e3:.2f} ms a step after the first ({walls[0] * 1e3:.1f} "
+          f"ms); logits against forward_train over each row's prefix at moe_group_size=1: "
+          f"largest |diff| / max |logit| {worst:.3e} (gate {DEEPSEEK_RTOL:g}); tokens equal "
+          f"under the near-tie rule (eps {serve.NEAR_TIE_EPS['cuda']:g}): {len(stops)} stops "
+          f"{stops}; peak device memory {peak / 1e9:.2f} GB")
+    assert len(stops) <= SERVE_MAX_STOPS, stops
+    del params, cache
+    torch.cuda.empty_cache()
+    print(f"[mla14] phase 14d took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_14(dev, peaks):
+    """Phase 14: the MoE, MLA and hybrid families and the training
+    driver. Returns (K1 and K2 launches of 14a, K2's largest error)."""
+    t0 = time.perf_counter()
+    launches, err = phase_train_zamba2(dev)
+    phase_serve_family(dev, "serve14z", "zamba2-1.2b", ZAMBA_LAYERS, 8, 16, peaks)
+    phase_serve_family(dev, "serve14m", "phi3.5-moe-42b-a6.6b", PHI_LAYERS, 8, 16, peaks)
+    phase_deepseek_model(dev)
+    phase_serve_smoke(dev, (("zamba2-1.2b", {}), ("phi3.5-moe-42b-a6.6b", {}),
+                            ("deepseek-v2-236b", {})))
+    print(f"[phase14] took {time.perf_counter() - t0:.1f} s")
+    return launches, err
 
 
 def main() -> int:
@@ -3167,6 +3590,10 @@ def main() -> int:
         entry["launches"] += serve_launches[f"ssm_scan.{k}_launches"]
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
     phase_serve_smoke(dev)
+    launches14, k2_err14 = phase_14(dev, card_peaks(name))
+    for k, n in launches14.items():
+        kernels[k]["launches"] += n
+    kernels["cosine_sim"]["max_abs_err"] = max(kernels["cosine_sim"]["max_abs_err"], k2_err14)
     print(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

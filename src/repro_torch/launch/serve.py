@@ -33,6 +33,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.extractor import llm_leaf_filter
 from repro_torch.data import synthetic_lm_batch
 from repro_torch.engine.bank import ClusterBank
+from repro_torch.launch import device_of
 from repro_torch.models.registry import build
 
 
@@ -60,12 +61,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     return ap
-
-
-def device_of(name: str) -> torch.device:
-    """``--device``: ``cuda`` raises when no GPU is present (never a quiet
-    fall back to the CPU)."""
-    return engine.resolve_device(None if name == "cuda" else name)
 
 
 def _generator(device, seed: int, k: int = -1) -> torch.Generator:

@@ -1,21 +1,26 @@
-"""Grouped-query attention (optionally with a sliding window), the port of
-the GQA part of the JAX package's ``models/attention.py``.
+"""Attention: grouped-query attention (optionally with a sliding window)
+and DeepSeek-V2's multi-head latent attention (MLA), the port of the JAX
+package's ``models/attention.py``.
 
-Three entry points:
-  gqa_train   — full-sequence causal attention (teacher forcing)
-  gqa_prefill — full sequence, returns the KV cache for decoding
-  gqa_decode  — one new token per row against an existing cache
+Three entry points per variant:
+  *_train   — full-sequence causal attention (teacher forcing)
+  *_prefill — full sequence, returns the cache for decoding
+  *_decode  — one new token per row against an existing cache
 
-Cache: {"k", "v": (B, S_max, H_kv, hd)}, keys stored already roped; with a
-sliding window S_max is the window and writes wrap around it.
+Caches:
+  GQA: {"k", "v": (B, S_max, H_kv, hd)}, keys stored already roped
+  MLA: {"c_kv": (B, S_max, r), "k_rope": (B, S_max, rope_dim)}, the
+       compressed latent and the shared roped key
+With a sliding window S_max is the window and writes wrap around it.
 
 Long sequences use query-chunked attention (``_CHUNK`` query rows at a
 time) so the S×S logits never materialise above that many rows. The
 reference's flash-decode path is a ``shard_map`` over a sequence-sharded
 cache; on one device it is the plain decode. Attention, RoPE and the MLP
 sit outside any TPU kernel in the reference, so they are plain PyTorch
-here too. MLA, cross-attention and bidirectional (encoder) attention are
-not ported yet (ROADMAP.md queue 1 item 2).
+here too. Cross-attention and bidirectional (encoder) attention, which
+only the encoder-decoder family uses, are not ported yet (ROADMAP.md
+queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -117,6 +122,31 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, device=device).expand(B, S)
 
 
+def row_positions(pos, B: int, device) -> torch.Tensor:
+    """A decode's position as one int32 per row (B,): a tensor (one
+    position, or one per row) is broadcast; a host int is filled on the
+    device, with no host-to-device copy."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device).expand(B)
+    return torch.full((B,), int(pos), dtype=torch.int32, device=device)
+
+
+def _ring(pos, S_max: int, cfg):
+    """Where each row's new entry goes and how much of the cache it reads:
+    (entry indices (S_max,), the one-hot write mask (B, S_max), valid_len
+    (B,)). With a sliding window the slot is ``pos`` modulo the cache;
+    without, a position past the cache lands on its last entry, where the
+    reference's ``dynamic_update_slice`` clamps it."""
+    if cfg.sliding_window:
+        slot = pos % S_max
+        valid_len = torch.clamp(pos + 1, max=S_max)
+    else:
+        slot = torch.clamp(pos, max=S_max - 1)
+        valid_len = pos + 1
+    idx = torch.arange(S_max, device=pos.device)
+    return idx, idx[None, :] == slot[:, None], valid_len
+
+
 def gqa_train(params, x, cfg, positions=None):
     B, S, _ = x.shape
     if positions is None:
@@ -153,19 +183,10 @@ def gqa_decode(params, x, cache, pos, cfg):
     B = x.shape[0]
     dt = x.dtype
     S_max = cache["k"].shape[1]
-    if isinstance(pos, torch.Tensor):
-        pos = pos.to(x.device).expand(B)
-    else:   # a host int: filled on the device, no host-to-device copy
-        pos = torch.full((B,), int(pos), dtype=torch.int32, device=x.device)
+    pos = row_positions(pos, B, x.device)
     q, k_new, v_new = _qkv(params, x, cfg, pos[:, None])
-    if cfg.sliding_window:
-        slot = pos % S_max
-        valid_len = torch.clamp(pos + 1, max=S_max)
-    else:
-        slot = torch.clamp(pos, max=S_max - 1)
-        valid_len = pos + 1
-    idx = torch.arange(S_max, device=x.device)
-    write = (idx[None, :] == slot[:, None])[:, :, None, None]          # (B,S_max,1,1)
+    idx, write, valid_len = _ring(pos, S_max, cfg)
+    write = write[:, :, None, None]                                    # (B,S_max,1,1)
     k = torch.where(write, k_new.to(cache["k"].dtype), cache["k"])
     v = torch.where(write, v_new.to(cache["v"].dtype), cache["v"])
 
@@ -179,8 +200,100 @@ def gqa_decode(params, x, cache, pos, cfg):
     return out @ params["wo"].to(dt), {"k": k, "v": v}
 
 
-def mla_init(*_args, **_kw):
-    raise NotImplementedError(f"MLA (multi-head latent attention) is {_LATER}")
+# =========================================================== MLA (DeepSeek)
+def mla_init(generator: torch.Generator, cfg, dtype=torch.float32, device="cpu"):
+    """Multi-head latent attention: a rank-r compressed KV plus a decoupled
+    RoPE key shared by the heads (q-lora is omitted, as in the
+    reference)."""
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    qk_n, qk_r, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq": dense_init(generator, cfg.d_model, H * (qk_n + qk_r), dtype, device=device),
+        "wkv_a": dense_init(generator, cfg.d_model, r + qk_r, dtype, device=device),
+        "wkv_b": dense_init(generator, r, H * (qk_n + dv), dtype, device=device),
+        "wo": dense_init(generator, H * dv, cfg.d_model, dtype, device=device),
+    }
+
+
+def _mla_qkv_full(params, x, cfg, positions):
+    """The expanded (train and prefill) path: per-head K and V
+    materialised from the latent. Returns (q, k, v, c_kv, k_rope)."""
+    B, S, _ = x.shape
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    qk_n, dv = cfg.qk_nope_dim, cfg.v_head_dim
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt)).reshape(B, S, H, -1)
+    q_nope, q_rope = q[..., :qk_n], apply_rope(q[..., qk_n:], positions, cfg.rope_theta)
+    kv_a = x @ params["wkv_a"].to(dt)                                  # (B,S,r+qk_r)
+    c_kv = kv_a[..., :r]
+    k_rope = apply_rope(kv_a[..., r:][:, :, None, :], positions, cfg.rope_theta)
+    kv = (c_kv @ params["wkv_b"].to(dt)).reshape(B, S, H, qk_n + dv)
+    k_nope, v = kv[..., :qk_n], kv[..., qk_n:]
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(B, S, H, k_rope.shape[-1])], dim=-1)
+    return q_full, k_full, v, c_kv, k_rope[:, :, 0, :]
+
+
+def mla_train(params, x, cfg, positions=None):
+    B, S, _ = x.shape
+    if positions is None:
+        positions = _positions(B, S, x.device)
+    q, k, v, _, _ = _mla_qkv_full(params, x, cfg, positions)
+    out = causal_attention(q, k, v, cfg).reshape(B, S, -1)
+    return out @ params["wo"].to(x.dtype)
+
+
+def mla_prefill(params, x, cfg, positions=None):
+    """Returns (out, cache); the cache keeps the latent and the roped key
+    (the last ``sliding_window`` positions with a window)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = _positions(B, S, x.device)
+    q, k, v, c_kv, k_rope = _mla_qkv_full(params, x, cfg, positions)
+    out = causal_attention(q, k, v, cfg).reshape(B, S, -1) @ params["wo"].to(x.dtype)
+    if cfg.sliding_window and S > cfg.sliding_window:
+        c_kv = c_kv[:, -cfg.sliding_window:]
+        k_rope = k_rope[:, -cfg.sliding_window:]
+    return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_decode(params, x, cache, pos, cfg):
+    """Weight-absorbed MLA decode: attention runs in the r-dim latent.
+    Scores = (q_nope·W_uk)·c_kv + q_rope·k_rope, divided by
+    sqrt(qk_nope + qk_rope); output = (probs·c_kv)·W_uv. x: (B,1,d);
+    cache c_kv (B,S_max,r), k_rope (B,S_max,qk_r); ``pos`` a scalar or one
+    per row, written and masked per row as in ``gqa_decode``."""
+    B = x.shape[0]
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    qk_n, qk_r, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt = x.dtype
+    S_max = cache["c_kv"].shape[1]
+    pos = row_positions(pos, B, x.device)
+    positions = pos[:, None]
+
+    q = (x @ params["wq"].to(dt)).reshape(B, 1, H, qk_n + qk_r)
+    q_rope = apply_rope(q[..., qk_n:], positions, cfg.rope_theta)[:, 0]     # (B,H,qk_r)
+    q_nope = q[:, 0, :, :qk_n]                                              # (B,H,qk_n)
+    kv_a = (x @ params["wkv_a"].to(dt))[:, 0]                               # (B,r+qk_r)
+    c_new = kv_a[..., :r]
+    kr_new = apply_rope(kv_a[..., r:][:, None, None, :], positions, cfg.rope_theta)[:, 0, 0]
+
+    idx, write, valid_len = _ring(pos, S_max, cfg)
+    write = write[:, :, None]                                               # (B,S_max,1)
+    c_kv = torch.where(write, c_new[:, None].to(cache["c_kv"].dtype), cache["c_kv"])
+    k_rope = torch.where(write, kr_new[:, None].to(cache["k_rope"].dtype), cache["k_rope"])
+
+    wkv_b = params["wkv_b"].to(dt).reshape(r, H, qk_n + dv)
+    w_uk, w_uv = wkv_b[..., :qk_n], wkv_b[..., qk_n:]                       # (r,H,qk_n), (r,H,dv)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope, w_uk)                      # absorbed query
+    scores = torch.einsum("bhr,bsr->bhs", q_lat, c_kv.to(dt))
+    scores = scores + torch.einsum("bhp,bsp->bhs", q_rope, k_rope.to(dt))
+    scores = scores.to(torch.float32) / float(np.sqrt(np.float32(qk_n + qk_r)))
+    mask = (idx[None, :] < valid_len[:, None])[:, None, :]                  # (B,1,S_max)
+    probs = torch.softmax(torch.where(mask, scores, _NEG), dim=-1).to(dt)
+    ctx_lat = torch.einsum("bhs,bsr->bhr", probs, c_kv.to(dt))              # latent context
+    out = torch.einsum("bhr,rhv->bhv", ctx_lat, w_uv).reshape(B, 1, H * dv)
+    return out @ params["wo"].to(dt), {"c_kv": c_kv, "k_rope": k_rope}
 
 
 def cross_attn_init(*_args, **_kw):

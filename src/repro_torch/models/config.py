@@ -4,7 +4,7 @@ same model in both packages.
 
 One frozen dataclass covers all six assigned arch families; family-specific
 fields default to 0/None and are validated by the registry. The port
-builds only the ``ssm`` family so far (``models/registry.py``).
+builds the token families so far (``models/registry.py``).
 """
 from __future__ import annotations
 

@@ -2,12 +2,14 @@
 families the port has.
 
 ``build(cfg)`` gives ``loss_fn`` / ``forward_train`` / ``prefill`` /
-``decode`` / ``make_cache`` for ``arch_type == "dense"`` (the GQA
-transformer: qwen2, llama3, internlm2, granite) and ``"ssm"``
-(falcon-mamba). The other families raise ``NotImplementedError`` naming
-the ROADMAP.md item that ports them. ``grow_cache``, ``decode_specs`` and
-``serve_cache_specs`` are the reference's cache helpers; their shapes come
-from ``make_cache`` on the ``meta`` device, which allocates nothing.
+``decode`` / ``make_cache`` for the token families: ``arch_type ==
+"dense"`` and ``"moe"`` (the transformer: qwen2, llama3, internlm2,
+granite; phi3.5-moe and deepseek-v2 with MLA), ``"ssm"`` (falcon-mamba)
+and ``"hybrid"`` (zamba2). The encoder-decoder and VLM families raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
+``grow_cache``, ``decode_specs`` and ``serve_cache_specs`` are the
+reference's cache helpers; their shapes come from ``make_cache`` on the
+``meta`` device, which allocates nothing.
 """
 from __future__ import annotations
 
@@ -15,17 +17,15 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.models import ssm_lm, transformer
+from repro_torch.models import hybrid, ssm_lm, transformer
 from repro_torch.models.config import InputShape, ModelConfig
 from repro_torch.utils import trees
 
 _NOT_PORTED = {
-    "moe": "queue 1 item 2 (transformer, moe)",
-    "hybrid": "queue 1 item 2 (hybrid: zamba2, Mamba2)",
     "audio": "queue 1 item 2 (encdec)",
     "vlm": "queue 1 item 2 (vlm)",
 }
-_MODULES = {"dense": transformer, "ssm": ssm_lm}
+_MODULES = {"dense": transformer, "moe": transformer, "ssm": ssm_lm, "hybrid": hybrid}
 
 
 class Spec(NamedTuple):
@@ -63,11 +63,6 @@ def build(cfg: ModelConfig) -> Model:
             f"ROADMAP.md {_NOT_PORTED[cfg.arch_type]}")
     if cfg.arch_type not in _MODULES:
         raise ValueError(f"unknown arch_type {cfg.arch_type}")
-    if cfg.arch_type == "ssm" and cfg.ssm_version != 1:
-        raise NotImplementedError("Mamba2 is not ported yet: ROADMAP.md queue 1 "
-                                  "item 2 (hybrid: zamba2, Mamba2)")
-    if cfg.arch_type == "dense":
-        transformer._check(cfg)
     mod = _MODULES[cfg.arch_type]
 
     def forward_train(params, batch):

@@ -1,12 +1,16 @@
-"""State-space block Mamba1 (falcon-mamba), the port of the JAX package's
-``models/ssm.py`` (Mamba2, zamba2's core, is not ported yet).
+"""State-space blocks: Mamba1 (falcon-mamba) and Mamba2 (zamba2's core),
+the port of the JAX package's ``models/ssm.py``.
 
-Train and prefill run the selective scan over the whole sequence: with
-``cfg.use_pallas`` and no state needed (training) through ``ops.ssm_scan``
-(kernel K5 on CUDA, forward and backward), otherwise through the plain
-chunked scan, which also returns the final state. Decode is the one-step
-recurrence against a cached state
-  {"h": (B, d_inner, d_state) fp32, "conv": (B, conv_width-1, d_inner)}.
+Mamba1's train and prefill run the selective scan over the whole
+sequence: with ``cfg.use_pallas`` and no state needed (training) through
+``ops.ssm_scan`` (kernel K5 on CUDA, forward and backward), otherwise
+through the plain chunked scan, which also returns the final state.
+Mamba2 always takes the plain chunked scan, as the reference's
+``_mamba2_core`` does (``use_pallas`` has no effect on it). Decode is the
+one-step recurrence against a cached state
+  Mamba1: {"h": (B, d_inner, d_state) fp32, "conv": (B, conv_width-1, d_inner)}
+  Mamba2: {"h": (B, n_heads, head_dim, d_state) fp32,
+           "conv": (B, conv_width-1, d_inner + 2·d_state)}
 
 Parameters keep the JAX layouts (``x @ w``, ``conv_w`` as (channels,
 width)), so the reference's parameters cross over unchanged.
@@ -64,11 +68,14 @@ def _chunked_scan(dA, dBx, h0, chunk):
     S = dA.shape[1]
     n = max(S // chunk, 1)
     chunk = S // n if S else 1
+    # each input unbound once (its backward is one stack), not indexed S
+    # times (each index's backward fills a zero tensor of the whole input)
+    dA_t, dBx_t = torch.unbind(dA, 1), torch.unbind(dBx, 1)
     h, outs = h0, []
     for t0 in range(0, S, chunk):
         a_cum, b_cum, hs = None, None, []
         for t in range(t0, min(t0 + chunk, S)):
-            a, b = dA[:, t], dBx[:, t]
+            a, b = dA_t[t], dBx_t[t]
             a_cum, b_cum = (a, b) if a_cum is None else (a_cum * a, a * b_cum + b)
             hs.append(a_cum * h + b_cum)
         outs.extend(hs)
@@ -138,5 +145,85 @@ def mamba1_prefill(params, x, cfg):
 def mamba1_decode(params, x, cache, cfg):
     """x: (B,1,d). O(1) recurrence against cached (h, conv tail)."""
     out, h, tail = _mamba1_core(params, x, cfg, h0=cache["h"],
+                                conv_tail=cache["conv"].to(x.dtype))
+    return out, {"h": h, "conv": tail}
+
+
+# ----------------------------------------------------------------- mamba2
+def mamba2_init(generator: torch.Generator, cfg, dtype=torch.float32, device="cpu"):
+    """Random Mamba2 parameters, drawn on the generator's device. in_proj
+    emits [x (di), B (ds), C (ds) | z (di) | dt (nh)]; the decay is one
+    scalar per head."""
+    d, di, ds = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    nh = di // cfg.ssm_head_dim
+    W = cfg.ssm_conv
+    gdev = generator.device
+    conv_w = torch.randn((di + 2 * ds, W), generator=generator, device=gdev) / math.sqrt(W)
+
+    def full(n, value):
+        return torch.full((n,), value, dtype=dtype, device=device)
+
+    return {
+        "in_proj": dense_init(generator, d, 2 * di + 2 * ds + nh, dtype, device=device),
+        "conv_w": conv_w.to(device=device, dtype=dtype),
+        "conv_b": full(di + 2 * ds, 0.0),
+        "dt_bias": full(nh, 0.0),
+        "a_log": full(nh, 0.0),
+        "d_skip": full(nh, 1.0),
+        "norm_scale": full(di, 1.0),
+        "out_proj": dense_init(generator, di, d, dtype, device=device),
+    }
+
+
+def _mamba2_core(params, x, cfg, h0=None, conv_tail=None):
+    B, S, _ = x.shape
+    di, ds = cfg.d_inner, cfg.ssm_state
+    hd = cfg.ssm_head_dim
+    nh = di // hd
+    dt_ = x.dtype
+    f32 = torch.float32
+    proj = x @ params["in_proj"].to(dt_)
+    xBC, z, dt_raw = torch.split(proj, [di + 2 * ds, di, nh], dim=-1)
+    xBC, new_tail = _causal_conv(xBC, params["conv_w"].to(dt_), params["conv_b"].to(dt_),
+                                 conv_tail)
+    xBC = F.silu(xBC)
+    x_in, Bc, Cc = torch.split(xBC, [di, ds, ds], dim=-1)
+
+    pre = dt_raw.to(f32) + params["dt_bias"].to(f32)
+    delta = torch.logaddexp(pre, torch.zeros_like(pre))  # softplus, as jax.nn's (B,S,nh)
+    A = -torch.exp(params["a_log"].to(f32))               # (nh,)
+    # one decay per head, left at (B,S,nh,1,1): the reference broadcasts it
+    # to the state's full shape first; the products are the same
+    dA = torch.exp(delta * A)[..., None, None]
+    xh = x_in.reshape(B, S, nh, hd).to(f32)
+    dBx = (delta[..., None] * xh)[..., None] * Bc.to(f32)[:, :, None, None, :]  # (B,S,nh,hd,ds)
+
+    if h0 is None:
+        h0 = torch.zeros((B, nh, hd, ds), dtype=f32, device=x.device)
+    h_all, h_last = _chunked_scan(dA, dBx, h0, cfg.ssm_chunk)
+    y = torch.einsum("bsnhd,bsd->bsnh", h_all, Cc.to(f32))
+    y = y + params["d_skip"].to(f32)[:, None] * xh
+    y = y.reshape(B, S, di)
+    # gated RMSNorm (mamba2), in fp32
+    y = y * F.silu(z.to(f32))
+    var = torch.mean(torch.square(y), dim=-1, keepdim=True)
+    y = y * torch.rsqrt(var + 1e-6) * params["norm_scale"].to(f32)
+    return y.to(dt_) @ params["out_proj"].to(dt_), h_last, new_tail
+
+
+def mamba2_train(params, x, cfg):
+    out, _, _ = _mamba2_core(params, x, cfg)
+    return out
+
+
+def mamba2_prefill(params, x, cfg):
+    out, h, tail = _mamba2_core(params, x, cfg)
+    return out, {"h": h, "conv": tail}
+
+
+def mamba2_decode(params, x, cache, cfg):
+    """x: (B,1,d). O(1) recurrence against cached (h, conv tail); the
+    tail is cast to x's dtype."""
+    out, h, tail = _mamba2_core(params, x, cfg, h0=cache["h"],
                                 conv_tail=cache["conv"].to(x.dtype))
     return out, {"h": h, "conv": tail}

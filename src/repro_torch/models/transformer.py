@@ -1,66 +1,83 @@
-"""Decoder-only dense transformer LM (GQA, SwiGLU, RMSNorm, RoPE: qwen2,
-llama3, internlm2, granite), the port of the dense part of the JAX
-package's ``models/transformer.py``.
+"""Decoder-only transformer LM: the dense GQA stack (qwen2, llama3,
+internlm2, granite) and the MoE stack with GQA (phi3.5-moe) or MLA
+attention (deepseek-v2), the port of the JAX package's
+``models/transformer.py``.
 
-Per-layer parameters are stacked on a leading L axis under ``layers``, the
-layout of the reference's ``_stack_init``, so ``convert.to_torch`` carries
-the reference's parameters across unchanged; the reference's layer
-``scan`` is a Python loop over that axis. Caches carry the same leading L
-axis. ``cfg.remat`` is not honoured (it changes only what the reference
-keeps for its backward, not a value), and the reference's ``shard`` /
-``unshard_fsdp`` placements are no-ops on one device. The MoE stack
-(``n_experts > 0``) and MLA (``kv_lora_rank > 0``) are not ported yet.
+Per-layer parameters are stacked on a leading L axis, the layout of the
+reference's ``_stack_init``, so ``convert.to_torch`` carries the
+reference's parameters across unchanged: ``layers`` holds the dense
+layers (all of them, or the first ``moe_layer_start`` of an MoE model)
+and ``moe_layers`` the MoE layers. The reference's layer ``scan`` is a
+Python loop over that axis, and caches carry the same leading axis under
+the same two names. ``cfg.remat`` is not honoured (it changes only what
+the reference keeps for its backward, not a value), and the reference's
+``shard`` / ``unshard_fsdp`` placements are no-ops on one device.
+
+MoE routing groups: training and prefill group the batch's B·S tokens by
+``cfg.moe_group_size`` (``moe.moe_ffn``), as the reference does. A decode
+with one position per row routes each row as its own group of 1, which is
+what the reference's serving decode (a ``vmap`` of a batch-1 decode over
+its slots) does; a decode with one scalar position groups all B rows, as
+the reference's ``decode_step`` does.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dense_init, embed_init, rmsnorm, rmsnorm_init,
                                        swiglu, swiglu_init)
 from repro_torch.models.ssm_lm import dtype_of
 from repro_torch.utils import trees
 
-
-def _check(cfg) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: the MoE stack is "
-                                  "not ported yet: ROADMAP.md queue 1 item 2")
-    if cfg.kv_lora_rank > 0:
-        raise NotImplementedError(f"{cfg.name}: MLA attention is "
-                                  "not ported yet: ROADMAP.md queue 1 item 2")
+STACKS = (("layers", False), ("moe_layers", True))
 
 
-def _layer_init(generator, cfg, dtype, device):
+def _is_mla(cfg) -> bool:
+    return cfg.kv_lora_rank > 0
+
+
+def _depths(cfg):
+    """(dense layers, MoE layers) of a config."""
+    n_dense = cfg.moe_layer_start if cfg.n_experts else cfg.n_layers
+    return n_dense, cfg.n_layers - n_dense
+
+
+def _layer_init(generator, cfg, moe: bool, dtype, device):
+    attn_init = attn.mla_init if _is_mla(cfg) else attn.gqa_init
+    mlp = (moe_mod.moe_init(generator, cfg, dtype, device) if moe
+           else swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype, device))
     return {
         "attn_norm": rmsnorm_init(cfg.d_model, dtype, device),
-        "attn": attn.gqa_init(generator, cfg, dtype, device),
+        "attn": attn_init(generator, cfg, dtype, device),
         "mlp_norm": rmsnorm_init(cfg.d_model, dtype, device),
-        "mlp": swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype, device),
+        "mlp": mlp,
     }
 
 
 def init(generator: torch.Generator, cfg, device="cpu"):
     """Random parameters in ``cfg.param_dtype``, drawn on the generator's
     device, then moved to ``device``."""
-    _check(cfg)
     dtype = dtype_of(cfg.param_dtype)
-    layers = [_layer_init(generator, cfg, dtype, device) for _ in range(cfg.n_layers)]
-    return {
+    params = {
         "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype, device),
         "final_norm": rmsnorm_init(cfg.d_model, dtype, device),
         "lm_head": dense_init(generator, cfg.d_model, cfg.vocab_size, dtype,
                               scale=0.02, device=device),
-        "layers": trees.tree_map(lambda *xs: torch.stack(xs), *layers),
     }
+    for (name, moe), n in zip(STACKS, _depths(cfg)):
+        if n:
+            layers = [_layer_init(generator, cfg, moe, dtype, device) for _ in range(n)]
+            params[name] = trees.tree_map(lambda *xs: torch.stack(xs), *layers)
+    return params
 
 
-def _n_layers(params) -> int:
-    return int(trees.leaves(params["layers"])[0].shape[0])
-
-
-def _layer(params, i: int):
-    return trees.tree_map(lambda x: x[i], params["layers"])
+def _stacks(params):
+    """(name, is_moe, depth) of each layer stack ``params`` holds, in
+    the order they run."""
+    return [(name, moe, int(trees.leaves(params[name])[0].shape[0]))
+            for name, moe in STACKS if name in params]
 
 
 def _embed(params, tokens, cfg):
@@ -72,57 +89,86 @@ def _logits(params, h, cfg):
     return h @ params["lm_head"].to(dtype_of(cfg.dtype))
 
 
+def _mlp(p, x, cfg, moe: bool, group_size: int = 0):
+    """(out, aux) of a layer's MLP: SwiGLU, or the MoE FFN."""
+    if moe:
+        return moe_mod.moe_ffn(p["mlp"], x, cfg, group_size)
+    return swiglu(p["mlp"], x), None
+
+
 def forward_train(params, tokens, cfg):
-    """tokens (B, S) -> (logits (B, S, V) in ``cfg.dtype``, aux 0.0)."""
+    """tokens (B, S) -> (logits (B, S, V) in ``cfg.dtype``, the MoE aux
+    loss summed over the MoE layers (0.0 without))."""
     h = _embed(params, tokens, cfg)
     dt = h.dtype
-    for i in range(_n_layers(params)):
-        p = _layer(params, i)
-        h = h + attn.gqa_train(p["attn"], rmsnorm(p["attn_norm"], h), cfg)
-        h = (h + swiglu(p["mlp"], rmsnorm(p["mlp_norm"], h))).to(dt)
-    logits = _logits(params, h, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    train = attn.mla_train if _is_mla(cfg) else attn.gqa_train
+    for name, moe, n in _stacks(params):
+        for i in range(n):
+            p = trees.tree_map(lambda x: x[i], params[name])
+            h = h + train(p["attn"], rmsnorm(p["attn_norm"], h), cfg)
+            out, a = _mlp(p, rmsnorm(p["mlp_norm"], h), cfg, moe)
+            h = (h + out).to(dt)
+            if a is not None:
+                aux = aux + a
+    return _logits(params, h, cfg), aux
 
 
 def prefill(params, tokens, cfg):
-    """tokens (B, S) -> (last position's logits (B, V), caches
-    ``{"layers": {"k", "v": (L, B, S', H_kv, hd)}}``)."""
+    """tokens (B, S) -> (last position's logits (B, V), caches: for each
+    stack, GQA's ``{"k", "v": (L, B, S', H_kv, hd)}`` or MLA's
+    ``{"c_kv": (L, B, S', r), "k_rope": (L, B, S', rope_dim)}``)."""
     h = _embed(params, tokens, cfg)
-    caches = []
-    for i in range(_n_layers(params)):
-        p = _layer(params, i)
-        out, cache = attn.gqa_prefill(p["attn"], rmsnorm(p["attn_norm"], h), cfg)
-        h = h + out
-        h = h + swiglu(p["mlp"], rmsnorm(p["mlp_norm"], h))
-        caches.append(cache)
+    pre = attn.mla_prefill if _is_mla(cfg) else attn.gqa_prefill
+    caches = {}
+    for name, moe, n in _stacks(params):
+        stack = []
+        for i in range(n):
+            p = trees.tree_map(lambda x: x[i], params[name])
+            out, cache = pre(p["attn"], rmsnorm(p["attn_norm"], h), cfg)
+            h = h + out
+            h = h + _mlp(p, rmsnorm(p["mlp_norm"], h), cfg, moe)[0]
+            stack.append(cache)
+        caches[name] = trees.tree_map(lambda *xs: torch.stack(xs), *stack)
     logits = _logits(params, h[:, -1:], cfg)[:, 0]
-    return logits, {"layers": trees.tree_map(lambda *xs: torch.stack(xs), *caches)}
+    return logits, caches
 
 
 def decode_step(params, token, caches, pos, cfg):
     """token: (B,) integers; pos: tokens already cached, a scalar or one
     per row (B,). Returns (logits (B, V), new caches); the caches passed
-    in are not modified."""
+    in are not modified. With one position per row each row's MoE
+    routing is a group of its own."""
     h = _embed(params, token, cfg)[:, None, :]                       # (B,1,d)
-    new = []
-    for i in range(_n_layers(params)):
-        p = _layer(params, i)
-        cache = trees.tree_map(lambda x: x[i], caches["layers"])
-        out, c = attn.gqa_decode(p["attn"], rmsnorm(p["attn_norm"], h), cache, pos, cfg)
-        h = h + out
-        h = h + swiglu(p["mlp"], rmsnorm(p["mlp_norm"], h))
-        new.append(c)
+    dec = attn.mla_decode if _is_mla(cfg) else attn.gqa_decode
+    per_row = isinstance(pos, torch.Tensor) and pos.dim() > 0
+    new = {}
+    for name, moe, n in _stacks(params):
+        stack = []
+        for i in range(n):
+            p = trees.tree_map(lambda x: x[i], params[name])
+            cache = trees.tree_map(lambda x: x[i], caches[name])
+            out, c = dec(p["attn"], rmsnorm(p["attn_norm"], h), cache, pos, cfg)
+            h = h + out
+            h = h + _mlp(p, rmsnorm(p["mlp_norm"], h), cfg, moe, 1 if per_row else 0)[0]
+            stack.append(c)
+        new[name] = trees.tree_map(lambda *xs: torch.stack(xs), *stack)
     logits = _logits(params, h, cfg)[:, 0]
-    return logits, {"layers": trees.tree_map(lambda *xs: torch.stack(xs), *new)}
+    return logits, new
 
 
 def make_cache(cfg, batch: int, seq_len: int, dtype=None, device="cpu"):
-    """An empty decode cache (zeros; on the ``meta`` device, shapes only):
-    ``{"layers": {"k", "v": (L, batch, S, H_kv, hd)}}`` with S the
-    sliding window when it is shorter than ``seq_len``."""
-    _check(cfg)
+    """An empty decode cache (zeros; on the ``meta`` device, shapes only),
+    one entry per layer stack, with S the sliding window when it is
+    shorter than ``seq_len``: GQA ``{"k", "v": (L, batch, S, H_kv, hd)}``,
+    MLA ``{"c_kv": (L, batch, S, r), "k_rope": (L, batch, S, rope_dim)}``."""
     dt = dtype or dtype_of(cfg.dtype)
     S = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
-    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"layers": {"k": torch.zeros(shape, dtype=dt, device=device),
-                       "v": torch.zeros(shape, dtype=dt, device=device)}}
+    if _is_mla(cfg):
+        shapes = {"c_kv": (batch, S, cfg.kv_lora_rank), "k_rope": (batch, S, cfg.qk_rope_dim)}
+    else:
+        kv = (batch, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+        shapes = {"k": kv, "v": kv}
+    return {name: {k: torch.zeros((n,) + s, dtype=dt, device=device)
+                   for k, s in shapes.items()}
+            for (name, _), n in zip(STACKS, _depths(cfg)) if n}

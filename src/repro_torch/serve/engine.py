@@ -13,7 +13,11 @@ mirror knows when — greedy decode with a fixed ``gen`` budget finishes
 deterministically, so no device polling), harvest the finished lanes
 (ONE device→host copy per request), re-admit, repeat. A prefill group
 runs exactly its own rows: the reference pads groups to pow2 sizes to
-bound its jit compile set, and the port's eager prefill has none.
+bound its jit compile set, and the port's eager prefill has none. An MoE
+model routes each request of a prefill group in groups of its own
+(``slots.request_grouped``) and each decode lane as a group of one, so
+capacity drops never depend on which requests share a step and the
+tokens equal ``SequentialLoop``'s.
 
 Heterogeneous cluster models are served from ONE decode step: the
 per-cluster personalized params are stacked on a leading axis and the

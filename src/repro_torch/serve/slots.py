@@ -11,7 +11,8 @@ donation, so their addresses never change and a captured CUDA graph
 stays valid across requests:
 
 - ``make_prefill``   — grouped prefill: one forward over a cluster's
-  admission batch, returning first tokens + the prefill cache.
+  admission batch, returning first tokens + the prefill cache (an MoE
+  model routes each request of the batch in groups of its own).
 - ``make_insert``    — admit: copy request ``j`` of a prefill group into
   lane ``(k, s)`` (attention caches overwrite their ``[0, prompt_len)``
   prefix, SSM/conv states their full extent) and arm the slot's counters.
@@ -41,11 +42,12 @@ import torch
 
 from repro_torch.engine.api import _sync_errors, capture_graph
 from repro_torch.kernels import _build
-from repro_torch.models.registry import embed_prefix_, serve_cache_specs
+from repro_torch.models import moe
+from repro_torch.models.registry import build, embed_prefix_, serve_cache_specs
 from repro_torch.utils import trees
 
 __all__ = ["DecodeSlots", "DecodeGraph", "alloc_slots", "clear_slots", "make_decode_step",
-           "make_insert", "make_prefill", "harvest"]
+           "make_insert", "make_prefill", "harvest", "request_grouped"]
 
 
 class DecodeSlots(NamedTuple):
@@ -100,13 +102,31 @@ def clear_slots(sl: DecodeSlots) -> None:
         x.zero_()
 
 
+def request_grouped(model, prompt_len: int):
+    """The model a prefill group of prompts of ``prompt_len`` tokens runs:
+    ``model`` itself, or for an MoE model the same model with its routing
+    groups cut to the largest divisor of ``prompt_len`` not above
+    ``moe_group_size``, the groups one request prefilled alone has. Then
+    no routing group spans two requests, so co-admitted requests never
+    take each other's expert capacity, and a request's tokens do not
+    depend on which requests share its prefill (the reference's bucketed
+    group prefill lets them, and its pad copies, share groups)."""
+    cfg = model.cfg
+    if not cfg.n_experts:
+        return model
+    g = moe.group_tokens(prompt_len, cfg.moe_group_size)
+    return model if g == cfg.moe_group_size else build(cfg.with_(moe_group_size=g))
+
+
 def make_prefill(model):
     """Grouped prefill: ``(params, batch) -> (first tokens (B,) int32,
-    prefill cache)``. The greedy first token is taken on the device, so
-    the admission path never syncs."""
+    prefill cache)``, each request of the group routed through MoE
+    layers on its own (``request_grouped``). The greedy first token is
+    taken on the device, so the admission path never syncs."""
     def serve_prefill(params, batch):
+        grouped = request_grouped(model, batch["tokens"].shape[1])
         with torch.no_grad():
-            logits, cache = model.prefill(params, batch)
+            logits, cache = grouped.prefill(params, batch)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return serve_prefill

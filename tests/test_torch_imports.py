@@ -51,6 +51,9 @@ SLICE9 = ("repro_torch.models.attention", "repro_torch.models.transformer",
           "repro_torch.serve.router", "repro_torch.serve.scheduler",
           "repro_torch.serve.slots", "repro_torch.serve.baseline",
           "repro_torch.launch", "repro_torch.launch.serve")
+# the MoE, MLA and hybrid families and the training driver
+SLICE10 = ("repro_torch.models.moe", "repro_torch.models.hybrid",
+           "repro_torch.launch.train")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -66,6 +69,7 @@ def test_importing_every_module_loads_no_jax():
     assert set(SLICE7) <= set(names), sorted(set(SLICE7) - set(names))
     assert set(SLICE8) <= set(names), sorted(set(SLICE8) - set(names))
     assert set(SLICE9) <= set(names), sorted(set(SLICE9) - set(names))
+    assert set(SLICE10) <= set(names), sorted(set(SLICE10) - set(names))
     assert bad == "", f"port imports pulled in {bad}"
 
 

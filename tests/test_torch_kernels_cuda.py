@@ -574,9 +574,9 @@ def _serving(arch="qwen2_1_5b"):
     return cfg, model, state, launch_serve.make_requests(cfg, 6, 8, 6, 2)
 
 
-def _engine(slots=2):
+def _engine(slots=2, arch="qwen2_1_5b"):
     from repro_torch import serve
-    cfg, model, state, reqs = _serving()
+    cfg, model, state, reqs = _serving(arch)
     return serve.ServeEngine(model, state, serve.ServeConfig(slots=slots, max_len=14,
                                                              max_gen=6)), reqs
 
@@ -645,3 +645,37 @@ def test_reset_reuses_the_captured_graph(dev):
     assert eng.captures == 1 and eng._graph().graph is graph
     for r in reqs:
         assert list(res[100 + r.rid].tokens) == list(first[r.rid].tokens)
+
+
+@pytest.mark.parametrize("arch", ["phi35_moe_42b", "zamba2_1_2b"])
+def test_captured_decode_burst_equals_eager_steps_moe_and_hybrid(dev, arch):
+    """The captured burst over phi3.5-moe's smoke model (MoE routing per
+    row under the cluster vmap) and zamba2's (Mamba2 states and the shared
+    block's ring cache) against the same steps run eagerly from a copy of
+    the lanes: every buffer bitwise equal; then 3 more replays under
+    sync-debug mode "error" make no host sync."""
+    from repro_torch.serve import slots
+    from repro_torch.utils import trees
+    eng, reqs = _engine(arch=arch)
+    eng.submit_many(reqs[:4])
+    eng._admit_all()
+    copy = slots.DecodeSlots(*[trees.tree_map(torch.clone, x) for x in eng.sl])
+    eng._decode_burst(2)
+    for _ in range(2):
+        eng._step(eng._stacked, copy)
+    torch.cuda.synchronize()
+    assert eng.captures == 1 and eng._graph().graph is not None
+    for a, b in zip(_slot_buffers(eng.sl), _slot_buffers(copy)):
+        assert torch.equal(a, b)
+    was = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode_burst(3)
+    finally:
+        torch.cuda.set_sync_debug_mode(was)
+    for _ in range(3):
+        eng._step(eng._stacked, copy)
+    torch.cuda.synchronize()
+    for a, b in zip(_slot_buffers(eng.sl), _slot_buffers(copy)):
+        assert torch.equal(a, b)
+    assert eng.stats()["decode_steps"] == 5

@@ -1,16 +1,29 @@
-"""StoCFL's federated LLM round on falcon-mamba, the port against the JAX
-package, on the CPU: the token data, the filtered and sketched Ψ, and
-three rounds of both engines as a whole.
+"""StoCFL's federated LLM round, the port against the JAX package, on the
+CPU: the token data, the filtered and sketched Ψ, and three rounds of
+both engines as a whole, on falcon-mamba, zamba2 and phi3.5-moe.
 
-The smoke config (2 layers, d_model 128, vocab 512) runs in fp32 with
-``use_pallas=True``, so the port's rounds go through the ``SSMScan`` op
-(its plain versions on the CPU) and the reference's through its
-differentiable ``ssm_scan_ref``. The JL sketch's draws come from
+The smoke configs (falcon-mamba: 2 layers, d_model 128, vocab 512;
+zamba2: 4 Mamba2 layers and the shared block twice; phi3.5-moe: 2 MoE
+layers of 4 experts top-2) run in fp32 with ``use_pallas=True``, so the
+port's falcon-mamba rounds go through the ``SSMScan`` op (its plain
+versions on the CPU) and the reference's through its differentiable
+``ssm_scan_ref`` (Mamba2 and the MoE stack reach no kernel). The JL sketch's draws come from
 ``jax.random`` in the reference; the port's ``extractor.jl_draws`` is
 replaced here by the same ``jax.random`` calls as ``_jl_sketch`` makes.
 Integer bookkeeping (cohorts, partitions, merge lists, ``n_clusters``)
 must be equal; Ψ within atol 1e-5, ω and the bank rows within atol 1e-5
 (the slice-1 precedent: sums in another order, a few fp32 SGD steps).
+zamba2's rounds amplify fp32 rounding: at lr 0.05 its training sits at
+the edge of stability. The reference's own rounds from ω₀ moved by one
+fp32 ulp (measured once on the CPU with these settings) end round 0 with
+ω 2.45e-3 away, the bank rows 3.5e-5 and 4.9e-3 away and ω's loss
+1.16e-3 away, and round 2 with ω and a bank row 4e-2 away; the port's
+Mamba2 gradients agree with the reference's to about 1e-5 of each leaf's
+scale. So zamba2's round 0 is held within twice the largest of that
+spread (``ZAMBA2_ROUND0``: 1e-2 on ω and the rows, 2.5e-3 on ω's loss;
+twice, because the port's rounding, about 1e-5 of a gradient's scale
+each step, moves the rounds more than one ulp of ω₀ does), and its later
+rounds on their integer bookkeeping, the objective and finite values.
 """
 import dataclasses
 
@@ -35,9 +48,13 @@ from repro_torch.core import clustering as tclustering  # noqa: E402
 from repro_torch.core import extractor as textractor  # noqa: E402
 from repro_torch.data import tokens as ttokens  # noqa: E402
 from repro_torch.models import registry as tregistry  # noqa: E402
+from repro_torch.utils import trees  # noqa: E402
 
 ATOL = 1e-5
 SEQ, PER_CLIENT, CLIENTS, DOMAINS, ROUNDS = 32, 2, 4, 2, 3
+ARCHS = ["falcon-mamba-7b", "zamba2-1.2b", "phi3.5-moe-42b-a6.6b"]
+# zamba2's round 0: twice the reference's own one-ulp spread (ω / rows, loss)
+ZAMBA2_ROUND0 = {"params": 1e-2, "loss": 2.5e-3}
 
 
 def _jax_draws(n, dim, seed):
@@ -49,15 +66,26 @@ def _jax_draws(n, dim, seed):
             torch.as_tensor(signs).to(torch.int8))
 
 
-def _cfgs(**kw):
+def _cfgs(arch="falcon-mamba-7b", **kw):
     kw = {"dtype": "float32", "use_pallas": True, **kw}
-    return (jconfigs.get_config("falcon-mamba-7b", smoke=True, **kw),
-            tconfigs.get_config("falcon-mamba-7b", smoke=True, **kw))
+    return (jconfigs.get_config(arch, smoke=True, **kw),
+            tconfigs.get_config(arch, smoke=True, **kw))
 
 
 def _clients(cfg):
     return [jtokens.synthetic_lm_batch(cfg, SEQ, PER_CLIENT, seed=i, domain=i % DOMAINS)
             for i in range(CLIENTS)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke models: many small ops (the Mamba scans' steps), whose
+    intra-op pool's barriers stall on an oversubscribed CPU under a
+    parallel test run; one thread for this module."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(was)
 
 
 @pytest.fixture(scope="module")
@@ -147,12 +175,14 @@ def _recording_merges(cls, log):
     return merge_round
 
 
-@pytest.fixture(scope="module")
-def rounds(jparams):
+@pytest.fixture(scope="module", params=ARCHS)
+def rounds(request, jparams):
     """Three rounds of both engines from the same start, with the merge
     list of every reference merge pass recorded."""
-    jcfg, tcfg = _cfgs()
+    jcfg, tcfg = _cfgs(request.param)
     jm, tm = jregistry.build(jcfg), tregistry.build(tcfg)
+    if request.param != "falcon-mamba-7b":
+        jparams = jax.jit(jm.init)(jax.random.PRNGKey(0))
     clients = _clients(jcfg)
     kw = dict(tau=0.12, lam=0.05, lr=0.05, local_steps=5, sample_rate=0.5, seed=0,
               project_dim=64, fused_step=True)
@@ -167,18 +197,21 @@ def rounds(jparams):
         ts = tengine.init("stocfl", tm.loss_fn, convert.to_torch(jparams), clients,
                           tengine.EngineConfig(**kw), device="cpu",
                           leaf_filter=textractor.llm_leaf_filter)
+        jloss_fn = jax.jit(jm.loss_fn)
+        tok0 = {"tokens": jnp.asarray(clients[0]["tokens"])}
         out = []
         for _ in range(ROUNDS):
             _, jids = jengine.sample_clients(js)
             _, tids = tengine.sample_clients(ts)
             js, jrec = jengine.run_round(js)
             ts, trec = tengine.run_round(ts)
-            jloss = float(jm.loss_fn(js.omega, {"tokens": jnp.asarray(clients[0]["tokens"])}))
+            jloss = float(jloss_fn(js.omega, tok0))
             with torch.no_grad():
                 tloss = float(tm.loss_fn(ts.omega, {"tokens": torch.as_tensor(
                     clients[0]["tokens"])}))
             out.append((jids, tids, jrec, trec, js, ts, jloss, tloss))
-    return out, jmerges
+    spread = ZAMBA2_ROUND0 if request.param == "zamba2-1.2b" else None
+    return out, jmerges, spread
 
 
 def _max_diff(jtree, ttree):
@@ -189,26 +222,31 @@ def _max_diff(jtree, ttree):
 
 
 def test_stocfl_llm_rounds_match_reference(rounds):
-    out, jmerges = rounds
+    out, jmerges, spread = rounds
     assert len(jmerges) == ROUNDS
     for t, (jids, tids, jrec, trec, js, ts, jloss, tloss) in enumerate(out):
+        tol = {"loss": 0.0, "params": 0.0} if spread is None else spread
+        if t and spread is not None:        # chaotic past round 0: no float bound
+            tol = {"loss": float("inf"), "params": float("inf")}
+            assert all(bool(torch.isfinite(x).all()) for x in
+                       trees.leaves(ts.omega) + trees.leaves(ts.models.stacked))
         assert np.array_equal(np.asarray(jids), np.asarray(tids))
         assert len(tids) == 2
         assert jrec["n_clusters"] == trec["n_clusters"]
         assert js.clusters.assignment() == ts.clusters.assignment()
         assert [tuple(m) for m in trec["merges"]] == jmerges[t]
         assert abs(jrec["objective"] - trec["objective"]) <= ATOL
-        assert abs(jloss - tloss) <= ATOL
-        assert _max_diff(js.omega, ts.omega) <= ATOL
+        assert abs(jloss - tloss) <= max(ATOL, tol["loss"])
+        assert _max_diff(js.omega, ts.omega) <= max(ATOL, tol["params"])
         assert tuple(js.models.roots) == tuple(ts.models.roots)
         for r in js.models.roots:
-            assert _max_diff(js.models[r], ts.models[r]) <= ATOL
+            assert _max_diff(js.models[r], ts.models[r]) <= max(ATOL, tol["params"])
     assert isinstance(out[-1][5].clusters, tclustering.ClusterState)
 
 
 def test_stocfl_llm_psi_bank_matches_reference(rounds):
     """The clustering state's Ψ rows (sketched to 64, vocab leaves only)."""
-    out, _ = rounds
+    out, _, _ = rounds
     js, ts = out[-1][4], out[-1][5]
     assert sorted(js.clusters.reps) == sorted(ts.clusters.reps)
     for c in js.clusters.reps:

@@ -1,7 +1,8 @@
 """The port's serving engine (``repro_torch.serve``) and its CLI, on the
 CPU: the JAX package's battery (``tests/test_serve.py``) case for case for
-qwen2-1.5b and falcon-mamba-7b, and the port's engine against the JAX
-package's on the same requests.
+its three families, qwen2-1.5b, falcon-mamba-7b and zamba2-1.2b, and the
+port's engine against the JAX package's on the same requests, for those
+three and for phi3.5-moe and deepseek-v2.
 
 The contract — a request served through the fixed-slot continuous-batching
 engine gets the tokens the sequential loop gives it (same route, same
@@ -17,8 +18,10 @@ request stops there. Smoke configs in fp32; falcon-mamba with
 reference's parameters
 and the JL sketch's draws cross over from the JAX package (``_setup``),
 so both engines route on the same Ψ; similarities agree within 1e-5.
-zamba2 (the battery's third family) waits for Mamba2 and the hybrid stack
-(ROADMAP.md queue 1 item 2).
+The MoE families also hold the contract where routing capacity drops
+assignments (phi3.5-moe at capacity factor 0.5): the port prefills each
+request of a group in MoE routing groups of its own
+(``slots.request_grouped``), so its tokens equal the sequential loop's.
 """
 import contextlib
 import functools
@@ -50,8 +53,11 @@ from repro_torch.models import registry as tregistry  # noqa: E402
 from repro_torch.utils import trees  # noqa: E402
 
 P, G, HIST_S, HIST_B = 8, 5, 128, 4
-FAMILIES = ["qwen2_1_5b", "falcon_mamba_7b"]
-OPTIONS = {"qwen2_1_5b": {}, "falcon_mamba_7b": {"use_pallas": True}}
+FAMILIES = ["qwen2_1_5b", "falcon_mamba_7b", "zamba2_1_2b"]
+MOE = ["phi35_moe_42b", "deepseek_v2_236b"]
+OPTIONS = {"qwen2_1_5b": {}, "falcon_mamba_7b": {"use_pallas": True}, "zamba2_1_2b": {},
+           "phi35_moe_42b": {}, "deepseek_v2_236b": {},
+           "phi35_moe_42b_cf05": {"capacity_factor": 0.5}}
 EPS = serve.NEAR_TIE_EPS["cpu"]
 SIM_ATOL = 1e-5
 
@@ -72,6 +78,7 @@ class _Family:
 
     def __init__(self, arch, clusters=2):
         kw = {"dtype": "float32", **OPTIONS[arch]}
+        arch = arch.removesuffix("_cf05")
         self.jcfg = jconfigs.get_config(arch, smoke=True).with_(**kw)
         self.cfg = tconfigs.get_config(arch, smoke=True).with_(**kw)
         self.jmodel, self.model = jbuild(self.jcfg), tregistry.build(self.cfg)
@@ -355,6 +362,16 @@ def test_sliding_window_guard(qwen):
     serve.ServeEngine(model, qwen.state, serve.ServeConfig(slots=1, max_len=16, max_gen=G))
 
 
+def test_sliding_window_guard_zamba2():
+    """The reference battery's case: zamba2's own 64-token window."""
+    fam = _setup("zamba2_1_2b")
+    with pytest.raises(ValueError, match="sliding"):
+        serve.ServeEngine(fam.model, fam.state, serve.ServeConfig(
+            slots=1, max_len=fam.cfg.sliding_window + 1, max_gen=G))
+    serve.ServeEngine(fam.model, fam.state, serve.ServeConfig(
+        slots=1, max_len=fam.cfg.sliding_window, max_gen=G))
+
+
 def test_non_token_arch_rejected(qwen):
     """whisper's encoder-decoder (not built by the port's registry yet)."""
     model = types.SimpleNamespace(cfg=tconfigs.get_config("whisper_medium", smoke=True))
@@ -416,7 +433,7 @@ def _drive(eng, reqs, evict_rid):
     return out
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + MOE)
 def test_engine_matches_jax_engine(arch):
     """The port's ``ServeEngine`` and the JAX package's on the same state
     and requests (staggered gens with a ``gen = 1``, two lanes for six
@@ -453,6 +470,42 @@ def test_engine_matches_jax_engine(arch):
         np.testing.assert_allclose(
             _jax_gaps(fam, fam.jstate.cluster_model(want[1].cluster), reqs[1].prompt,
                       np.asarray(want[1].tokens)), seq.gaps, rtol=0, atol=SIM_ATOL)
+
+
+# ===================================================== MoE capacity drops
+def test_moe_prefill_groups_keep_requests_apart_under_capacity_drops():
+    """phi3.5-moe at capacity factor 0.5, where every routing group drops
+    assignments: six requests of one prompt length on 2 x 2 lanes, so
+    the scheduler admits them in multi-request prefill groups. Each
+    prefill MoE call routes one request a group (asserted from the
+    calls' group sizes), drops happen in a multi-request group
+    (asserted), and the continuous tokens equal the sequential loop's,
+    which prefills each request alone."""
+    from repro_torch.models import moe
+    fam = _setup("phi35_moe_42b_cf05")
+    calls, real = [], moe.moe_ffn
+
+    def recording(params, x, cfg, group_size=0):
+        if x.shape[1] == P:             # a prefill (the decode runs under vmap)
+            g = group_size or cfg.moe_group_size
+            calls.append((tuple(x.shape), moe.group_tokens(x.shape[0] * x.shape[1], g),
+                          moe.dropped(params, x, cfg, group_size)))
+        return real(params, x, cfg, group_size)
+
+    reqs = [fam.req(i) for i in range(6)]
+    eng = fam.engine(slots=2)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(moe, "moe_ffn", recording)
+        eng.submit_many(reqs)
+        res = eng.run()
+    assert any(shape[0] >= 2 and drops > 0 for shape, _, drops in calls), calls
+    assert all(g == P for _, g, _ in calls), calls
+    loop, ties = fam.loop(), []
+    for r in reqs:
+        sr = loop.serve(r)
+        assert res[r.rid].cluster == sr.cluster
+        _agree(sr, res[r.rid], ties)
+    assert ties == [], ties
 
 
 # ===================================================== the serve CLI

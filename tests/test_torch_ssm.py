@@ -61,8 +61,7 @@ def test_configs_equal_the_reference(smoke):
                 == dataclasses.asdict(jconfigs.get_config(arch, smoke=smoke)))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "phi3.5-moe-42b-a6.6b", "zamba2-1.2b",
-                                  "whisper-medium", "internvl2-26b"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-26b"])
 def test_registry_rejects_families_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tregistry.build(tconfigs.get_config(arch, smoke=True))

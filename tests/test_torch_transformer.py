@@ -1,13 +1,18 @@
-"""The port's dense transformer family (RoPE, SwiGLU, GQA attention, the
-layer stack, the registry's cache helpers) against the JAX package, on the
-CPU.
+"""The port's transformer families (RoPE, SwiGLU, GQA and MLA attention,
+the dense and MoE layer stacks, the registry's cache helpers) against the
+JAX package, on the CPU.
 
-qwen2-1.5b's smoke config (with ``qkv_bias``), llama3-8b's (without it)
-and qwen2's with a sliding window of 16 run in fp32: the reference's
+Dense: qwen2-1.5b's smoke config (with ``qkv_bias``), llama3-8b's
+(without it) and qwen2's with a sliding window of 16. MoE: phi3.5-moe's
+smoke config (GQA, 4 experts top-2, every layer MoE) and deepseek-v2's
+(MLA, a dense layer 0 then an MoE layer with a shared expert), at
+capacity factor 0.5, where routing drops assignments, and deepseek's at
+its own factor and with an 8-entry sliding window (MLA's ring). All in fp32: the reference's
 parameters cross over through ``repro_torch.convert``; tokens are made
-with numpy. Tolerance 1e-5 absolute on logits, the loss, its gradient on
-the vocab leaves and the caches: the same fp32 arithmetic summed in
-another order (PyTorch's and XLA's CPU matmuls, exp, sin and cos).
+with numpy. Tolerance 1e-5 absolute on logits, the aux loss, the loss,
+its gradient on the vocab leaves and the caches: the same fp32 arithmetic
+summed in another order (PyTorch's and XLA's CPU matmuls, exp, sin and
+cos).
 """
 import numpy as np
 import pytest
@@ -26,8 +31,8 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import registry as tregistry  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.config import InputShape  # noqa: E402
 from repro_torch.utils import trees  # noqa: E402
 
@@ -41,8 +46,13 @@ def _close(got, want, atol=ATOL, rtol=0.0):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol, atol=atol)
 
 
+MOE_CASES = {"phi35_cf05": ("phi3.5-moe-42b-a6.6b", {"capacity_factor": 0.5}),
+             "deepseek": ("deepseek-v2-236b", {}),
+             "deepseek_window": ("deepseek-v2-236b", {"sliding_window": 8})}
+
+
 def _cfgs(name):
-    arch, kw = CASES[name]
+    arch, kw = {**CASES, **MOE_CASES}[name]
     kw = {"dtype": "float32", **kw}
     return (jconfigs.get_config(arch, smoke=True, **kw),
             tconfigs.get_config(arch, smoke=True, **kw))
@@ -218,17 +228,152 @@ def test_cache_specs_match_make_cache_and_reference():
             [tuple(w.shape) for w in jax.tree.leaves(jd["cache"])]
 
 
-@pytest.mark.parametrize("field", ["n_experts", "kv_lora_rank"])
-def test_moe_and_mla_are_refused(field):
-    _, tcfg = _cfgs("qwen2")
-    cfg = tcfg.with_(**{field: 4})
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        tregistry.build(cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        transformer.init(torch.Generator(), cfg)
-
-
-@pytest.mark.parametrize("fn", [tattn.mla_init, tattn.cross_attn_init, tattn.bidir_attention])
+@pytest.mark.parametrize("fn", [tattn.cross_attn_init, tattn.bidir_attention])
 def test_unported_attention_kinds_name_their_roadmap_item(fn):
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         fn(None, None)
+
+
+# ===================================================== the MoE stack and MLA
+@pytest.fixture(scope="module", params=sorted(MOE_CASES))
+def moe_case(request):
+    """phi3.5 at capacity factor 0.5 (its forward and prefill drop
+    assignments), deepseek (plain and with the window); deepseek at 0.5
+    runs in the per-row decode test, phi3.5 at its own factor in
+    ``tests/test_torch_serve.py``."""
+    jcfg, tcfg = _cfgs(request.param)
+    jmodel, tmodel = _jitted(jregistry.build(jcfg)), tregistry.build(tcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(2).integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
+    return request.param, jcfg, tcfg, jmodel, tmodel, jparams, convert.to_torch(jparams), tokens
+
+
+def test_moe_configs_build_and_init_the_reference_layout(moe_case):
+    name, jcfg, tcfg, _, tmodel, jparams, _, _ = moe_case
+    got = tmodel.init(torch.Generator().manual_seed(0))
+    assert tcfg.arch_type == jcfg.arch_type == "moe"
+    assert sorted(got) == sorted(jparams)
+    assert ("layers" in got) == name.startswith("deepseek")     # deepseek's dense layer 0
+    want = [(tuple(x.shape), str(x.dtype)) for x in jax.tree.leaves(jparams)]
+    assert [(tuple(x.shape), str(x.dtype).split(".")[-1]) for x in trees.leaves(got)] == want
+
+
+def test_moe_forward_aux_loss_and_vocab_gradient_match_reference(moe_case):
+    _, _, _, jmodel, tmodel, jparams, tparams, tokens = moe_case
+    batch = {"tokens": jnp.asarray(tokens)}
+    want, waux = jmodel.forward_train(jparams, batch)
+    got, aux = tmodel.forward_train(tparams, {"tokens": torch.as_tensor(tokens)})
+    _close(got, want)
+    _close(aux, waux)
+    assert float(aux) > 0.0
+    jl, jg = jax.jit(jax.value_and_grad(jmodel.loss_fn))(jparams, batch)
+    leaves = {k: tparams[k].clone().requires_grad_(True) for k in ("embed", "lm_head")}
+    loss = tmodel.loss_fn({**tparams, **leaves}, {"tokens": torch.as_tensor(tokens)})
+    _close(loss.detach(), jl)
+    grads = torch.autograd.grad(loss, [leaves["embed"], leaves["lm_head"]])
+    _close(grads[0], jg["embed"])
+    _close(grads[1], jg["lm_head"])
+
+
+def test_moe_prefill_and_scalar_decode_match_reference(moe_case):
+    """Prefill logits and caches (MLA's latent and roped key; the last 8
+    positions under the window), then STEPS decode steps at one scalar
+    position, which route all B rows as one group, as the reference's
+    ``decode_step`` does."""
+    _, jcfg, _, jmodel, tmodel, jparams, tparams, tokens = moe_case
+    jlog, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens)})
+    tlog, tcache = tmodel.prefill(tparams, {"tokens": torch.as_tensor(tokens)})
+    _close(tlog, jlog)
+    assert sorted(tcache) == sorted(jcache)
+    for a, b in zip(trees.leaves(tcache), jax.tree.leaves(jcache)):
+        assert tuple(a.shape) == tuple(b.shape)
+        _close(a, b)
+    total = S + STEPS
+    jcache = jregistry.grow_cache(jmodel, jcache, B, total)
+    tcache = tregistry.grow_cache(tmodel, tcache, B, total)
+    tok = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32)
+    for t in range(STEPS):
+        jlog, jcache = jmodel.decode(jparams, jnp.asarray(tok), jcache, jnp.int32(S + t))
+        tlog, tcache = tmodel.decode(tparams, torch.as_tensor(tok), tcache, S + t)
+        _close(tlog, jlog)
+        tok = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32)
+    for a, b in zip(trees.leaves(tcache), jax.tree.leaves(jcache)):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("name,arch", [("phi35_cf05", "phi3.5-moe-42b-a6.6b"),
+                                       ("deepseek_cf05", "deepseek-v2-236b")])
+def test_per_row_decode_equals_vmapped_reference_batch1_decode(name, arch):
+    """A decode with one position per row against the reference's serving
+    form, ``jax.vmap`` of a batch-1 decode over the rows (each row its own
+    MoE group), at capacity factor 0.5: grouping the rows together would
+    drop assignments there (asserted) and give other logits. Three rows
+    at positions 12, 7 and 10 over a 16-entry cache, three steps."""
+    kw = {"dtype": "float32", "capacity_factor": 0.5}
+    jcfg = jconfigs.get_config(arch, smoke=True, **kw)
+    tcfg = tconfigs.get_config(arch, smoke=True, **kw)
+    jmodel, tmodel = jregistry.build(jcfg), tregistry.build(tcfg)
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
+    tparams = convert.to_torch(jparams)
+    rows = 3
+    tokens = np.random.default_rng(5).integers(0, jcfg.vocab_size, (rows, S)).astype(np.int32)
+    _, jcache = jax.jit(jmodel.prefill)(jparams, {"tokens": jnp.asarray(tokens)})
+    jcache = jregistry.grow_cache(jmodel, jcache, rows, 16)
+    tcache = convert.to_torch(jax.tree.map(np.asarray, jcache))
+
+    def one(tok, cache, pos):
+        cache = jax.tree.map(lambda x: x[:, None], cache)
+        logits, new = jmodel.decode(jparams, tok[None], cache, pos)
+        return logits[0], jax.tree.map(lambda x: x[:, 0], new)
+
+    jstep = jax.jit(jax.vmap(one, in_axes=(0, 1, 0), out_axes=(0, 1)))
+    pos = np.array([12, 7, 10], np.int32)
+    tok = tokens[:, -1].copy()
+    h = torch.randn((1, rows, tcfg.d_model), generator=torch.Generator().manual_seed(0))
+    lay = trees.tree_map(lambda x: x[0], tparams["moe_layers"])["mlp"]
+    assert moe.dropped(lay, h, tcfg) > 0 and moe.dropped(lay, h, tcfg, 1) == 0
+    for _ in range(3):
+        jlog, jcache = jstep(jnp.asarray(tok), jcache, jnp.asarray(pos))
+        tlog, tcache = tmodel.decode(tparams, torch.as_tensor(tok), tcache,
+                                     torch.as_tensor(pos))
+        _close(tlog, jlog)
+        tok, pos = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32), pos + 1
+    for a, b in zip(trees.leaves(tcache), jax.tree.leaves(jcache)):
+        _close(a, b)
+
+
+def test_mla_decode_per_row_position_equals_scalar_calls():
+    """MLA's absorbed decode with a position per row equals each row
+    decoded alone at its scalar position, with and without the window
+    (positions past the 8-entry ring wrap)."""
+    for name in ("deepseek", "deepseek_window"):
+        _, tcfg = _cfgs(name)
+        g = torch.Generator().manual_seed(3)
+        p = tattn.mla_init(g, tcfg)
+        S_max = 8 if tcfg.sliding_window else 24
+        cache = {"c_kv": torch.randn((4, S_max, tcfg.kv_lora_rank), generator=g),
+                 "k_rope": torch.randn((4, S_max, tcfg.qk_rope_dim), generator=g)}
+        x = torch.randn((4, 1, tcfg.d_model), generator=g)
+        pos = torch.tensor([0, 5, 7, 19 if tcfg.sliding_window else 23], dtype=torch.int32)
+        out, new = tattn.mla_decode(p, x, cache, pos, tcfg)
+        for b in range(4):
+            row = {k: v[b:b + 1] for k, v in cache.items()}
+            o, c = tattn.mla_decode(p, x[b:b + 1], row, int(pos[b]), tcfg)
+            _close(out[b:b + 1], o, rtol=1e-5)
+            for k in c:
+                _close(new[k][b:b + 1], c[k], rtol=1e-5)
+                assert int((new[k][b] != cache[k][b]).any(-1).sum()) == 1
+
+
+def test_moe_cache_specs_match_make_cache_and_reference():
+    for name in ("phi35_cf05", "deepseek", "deepseek_window"):
+        jcfg, tcfg = _cfgs(name)
+        jm, tm = jregistry.build(jcfg), tregistry.build(tcfg)
+        specs = tregistry.serve_cache_specs(tm, 3, 4, 40)
+        want = jregistry.serve_cache_specs(jm, 3, 4, 40)
+        assert [s.shape for s in trees.leaves(specs)] == \
+            [tuple(w.shape) for w in jax.tree.leaves(want)]
+        d = tregistry.decode_specs(tm, InputShape("d", 40, 4, "decode"))
+        jd = jregistry.decode_specs(jm, JInputShape("d", 40, 4, "decode"))
+        assert [s.shape for s in trees.leaves(d["cache"])] == \
+            [tuple(w.shape) for w in jax.tree.leaves(jd["cache"])]
