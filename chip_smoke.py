@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fourteen phases, each printing its lines; any failure exits non-zero and
+Fifteen phases, each printing its lines; any failure exits non-zero and
 prints no result.
 
 1. Build: compile the CUDA kernels of ``kernels/csrc`` with nvcc.
@@ -64,8 +64,9 @@ prints no result.
    bf16 compute, fp32 params) cut to 2 layers, ``use_pallas=True``: 3
    rounds over 4 clients in 2 domains (2 sequences of 256 tokens each),
    Ψ on the vocab matrices sketched to 8192, each round followed by ω's
-   loss on client 0. Launches of K5 (both ways), K1 and K2 asserted; peak
-   device memory printed; Ψ bitwise repeatable. K5 is held against its
+   loss on client 0. Launches of K5 (both ways; with the config's remat
+   every scan under a gradient runs its forward twice), K1 and K2
+   asserted; peak device memory printed; Ψ bitwise repeatable. K5 is held against its
    plain versions on the first cohort step's operands, K2 on every matrix
    the path gave it, K1 bitwise on buffers of the path's (2, 743,305,216)
    size; then the rounds again with rounds 1.. under ``torch.profiler``
@@ -157,9 +158,10 @@ prints no result.
    serving, the decode step eager and as a graph replay and a prefill
    group (CUDA events), the peak memory. (b) path 3's falcon-mamba (full
    width, 2 layers, ``use_pallas=True``), 2 waves of 4 requests: K5's
-   launches while routing (forward and backward once a layer per Ψ; none
-   while serving) and K5 against its plain versions on the first input
-   the router's Ψ gave it; its launches are added to the kernels line.
+   launches while routing (backward once a layer per Ψ, forward twice:
+   the remat recompute; none while serving) and K5 against its plain
+   versions on the first input the router's Ψ gave it; its launches are
+   added to the kernels line.
    Gates of (a) and (b): every route is ``engine.infer``'s, and every
    request's tokens equal ``SequentialLoop``'s under the near-tie rule
    (``serve.near_tie_compare``, ε 1e-3 on the card). (c) The smoke
@@ -187,6 +189,28 @@ prints no result.
    within 1e-3 of the largest |logit|. (e) The three families' smoke
    configs on the card against the CPU, as 13c. The phase's K1 and K2
    launches are added to the kernels line.
+15. The encoder-decoder and VLM families, with remat on (every full
+   config's default: each layer of a pass under a gradient is
+   checkpointed); every cut is one card's memory and is printed. (a)
+   ``whisper-medium`` uncut (24 + 24 layers, d_model 1024, 1500 frames,
+   811,358,208 parameters) trained through ``launch.train.run_llm`` with
+   path 3's traffic as the driver's flags (``TRAIN15``: bf16 compute, the
+   engine's bf16 policy, ``--fused-step``): round walls, the peak, the
+   busy share on round 2; K1's bf16 entry and K2 launched as reckoned, K1
+   bitwise and K2 within 1e-5 of their plain versions on the path's
+   inputs; rows finite, Ψ bitwise repeatable. (b) whisper at the model
+   level: one loss and gradient on one client's batch with remat on and
+   off (the peak lower with it, the gradients within 1e-3 of the largest
+   |g|); then in fp32 (TF32 off) prefill of 4 x 32 tokens over 1500
+   frames and 16 decode steps with a position per row, each step's logits
+   within 1e-3 of ``forward_train``'s, relative to the largest |logit|.
+   (c) ``internvl2-26b`` at full width cut 48 -> 2 layers: a loss and
+   gradient on 2 x (1024 patches + 256 tokens) in bf16 with remat, then
+   (b)'s decode gate over 4 x (1024 + 32). (d) Both smoke configs
+   through ``run_llm`` on the card and on the CPU from the same
+   parameters: cohorts, n_clusters and ARI equal, ω's update after round
+   0 within 5e-2. The phase's K1 and K2 launches are added to the kernels
+   line.
 
 The line before the last is one JSON object describing every kernel of the
 paths; the last line is ``{"ok": true, "device": {...}}``.
@@ -194,6 +218,7 @@ paths; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -1502,16 +1527,7 @@ def phase_llm_path(dev):
     print(f"[path3] peak device memory {peak / 1e9:.2f} GB "
           f"(torch.cuda.max_memory_allocated, from {base / 1e9:.2f} GB before the path)")
     print(f"[path3] launches on path 3: {launches}")
-    # per local step the cohort loss runs twice (θ and ω), each layer's scan
-    # once under vmap, forward and backward; Ψ runs forward and backward
-    # once per newly seen client; ω's loss after each round runs forward
-    # only. K1 once a local step; K2 in each merge pass (from 2 observed
-    # clients on) and in the objective when there are 2 clusters or more
-    L, E, R = cfg.n_layers, ecfg.local_steps, LLM_ROUNDS
-    new = len({c for r in recs for c in r["cohort"]})
-    expect = {"prox_update": R * E, "cosine_sim": R + sum(r["n_clusters"] >= 2 for r in recs),
-              "ssm_scan_fwd": R * E * 2 * L + new * L + R * L,
-              "ssm_scan_bwd": R * E * 2 * L + new * L}
+    expect = llm_launches(cfg, ecfg, recs)
     assert launches == expect, (launches, expect)
     for leaf in trees.leaves(state.omega) + trees.leaves(state.models.stacked):
         assert bool(torch.isfinite(leaf).all()), "non-finite model values"
@@ -1534,6 +1550,24 @@ def phase_llm_path(dev):
     trace_llm(dev, model, params, clients, ecfg)
     return launches, [dict(cohort=r["cohort"], n_clusters=r["n_clusters"], loss0=r["loss0"])
                       for r in recs]
+
+
+def llm_launches(cfg, ecfg, recs):
+    """Path 3's launches reckoned from its rounds ``recs``. Per local step
+    the cohort loss runs twice (θ and ω), each layer's scan once under
+    vmap, forward and backward; Ψ runs forward and backward once per newly
+    seen client; with ``cfg.remat`` each of those backwards first runs its
+    layer's forward again (the checkpoint's recompute), so the scans taken
+    under a gradient launch their forward twice. ω's loss after each round
+    runs forward only, under ``no_grad``, where nothing is checkpointed.
+    K1 once a local step; K2 in each merge pass (from 2 observed clients
+    on) and in the objective when there are 2 clusters or more."""
+    L, E, R = cfg.n_layers, ecfg.local_steps, len(recs)
+    new = len({c for r in recs for c in r["cohort"]})
+    grad_passes = R * E * 2 + new
+    return {"prox_update": R * E, "cosine_sim": R + sum(r["n_clusters"] >= 2 for r in recs),
+            "ssm_scan_fwd": grad_passes * L * (2 if cfg.remat else 1) + R * L,
+            "ssm_scan_bwd": grad_passes * L}
 
 
 def phase_llm_parity(expect):
@@ -2187,11 +2221,8 @@ def phase_llm_bf16(dev, fp32_recs):
               f"omega_loss on client 0 {r['loss0']:.4f} (fp32 params: {f['loss0']:.4f})")
     print(f"[bf16] peak device memory {peak:.2f} GB (torch.cuda.max_memory_allocated, from "
           f"{base / 1e9:.2f} GB before the path; gate {LLM_BF16_PEAK_GB} GB); launches {launches}")
-    L, E, R = model.cfg.n_layers, ecfg.local_steps, LLM_ROUNDS
-    new = len({c for r in recs for c in r["cohort"]})
-    expect = {"prox_update": R * E, "cosine_sim": R + sum(r["n_clusters"] >= 2 for r in recs),
-              "ssm_scan_fwd": R * E * 2 * L + new * L + R * L,
-              "ssm_scan_bwd": R * E * 2 * L + new * L}
+    R = LLM_ROUNDS
+    expect = llm_launches(model.cfg, ecfg, recs)
     assert launches == expect, (launches, expect)
     assert peak <= LLM_BF16_PEAK_GB, f"path 3 in bf16 peaked at {peak:.2f} GB"
     bf16 = torch.bfloat16
@@ -3026,11 +3057,15 @@ def phase_serve_mamba(dev):
         torch.cuda.synchronize()
         route_s = time.perf_counter() - t0
     routing = _launched()
+    # Ψ takes a gradient: K5 once a layer each way, and with cfg.remat its
+    # forward once more in the checkpoint's recompute
     want = SERVE_MAMBA * cfg.n_layers
-    print(f"[serve3] {cfg.name} at full width, {cfg.n_layers} layers, use_pallas, fp32: "
-          f"routing {SERVE_MAMBA} new clients took {route_s * 1e3:.1f} ms; launches while "
-          f"routing {routing} (K5 once a layer each way per Psi: {want})")
-    assert routing.get("ssm_scan.fwd_launches", 0) == want, routing
+    want_fwd = want * (2 if cfg.remat else 1)
+    print(f"[serve3] {cfg.name} at full width, {cfg.n_layers} layers, use_pallas, fp32, "
+          f"remat {cfg.remat}: routing {SERVE_MAMBA} new clients took {route_s * 1e3:.1f} ms; "
+          f"launches while routing {routing} (K5 per Psi: forward {want_fwd // SERVE_MAMBA}, "
+          f"backward {want // SERVE_MAMBA})")
+    assert routing.get("ssm_scan.fwd_launches", 0) == want_fwd, routing
     assert routing.get("ssm_scan.bwd_launches", 0) == want, routing
     t0 = time.perf_counter()
     res1 = eng.run()
@@ -3168,11 +3203,13 @@ def recording_first_prox_update():
 
 
 @contextlib.contextmanager
-def recording_rounds(profile_round=None):
+def recording_rounds(profile_round=None, snapshots=False):
     """Within the block every ``engine.run_round`` is timed (ending in a
     synchronise) and recorded: cohort, wall, record, and the state after
-    it; round ``profile_round`` runs under ``torch.profiler``. Yields
-    (records, the profiler)."""
+    it; round ``profile_round`` runs under ``torch.profiler``. With
+    ``snapshots`` each record also keeps ω after the round flattened on
+    the host (``omega``) and the first the initial parameters (``init``).
+    Yields (records, the profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import engine
@@ -3192,7 +3229,8 @@ def recording_rounds(profile_round=None):
             wall = time.perf_counter() - t0
         records.append(dict(cohort=[int(c) for c in cohort], wall=wall, traced=traced,
                             n_clusters=rec["n_clusters"], merges=list(rec["merges"]),
-                            state=state))
+                            state=state, omega=_flat_cpu(state.omega) if snapshots else None,
+                            init=state.ctx.init_params))
         return state, rec
 
     with patched(engine, "run_round", run_round):
@@ -3519,6 +3557,328 @@ def phase_14(dev, peaks):
     return launches, err
 
 
+# ----------------------------------------------------------------- phase 15
+# (a) path 3's traffic through the training driver's own flags, whisper uncut
+TRAIN15 = ["--arch", "whisper-medium", "--clients", "4", "--domains", "2", "--batch", "2",
+           "--seq-len", "256", "--rounds", "3", "--local-steps", "5", "--sample-rate", "0.5",
+           "--tau", "0.12", "--lr", "0.05", "--fused-step", "--dtype", "bfloat16",
+           "--device", "cuda"]
+WHISPER_PARAMS = 811_358_208      # whisper-medium's full config
+INTERNVL_LAYERS = 2               # 48 -> 2
+INTERNVL_PARAMS = 1_955_211_264   # internvl2-26b's widths at 2 layers
+ENCDEC_ROWS, ENCDEC_PROMPT, ENCDEC_STEPS = 4, 32, 16
+DECODE_RTOL = 1e-3                # decode logits against forward_train, of the largest |logit|
+REMAT_GRAD_RTOL = 1e-3            # 15b: gradients with remat on against off, of the largest |g|
+# (d) the smoke configs through the driver, on the card and on the CPU
+SMOKE15 = ["--smoke", "--clients", "4", "--domains", "2", "--batch", "2", "--seq-len", "64",
+           "--rounds", "3", "--local-steps", "5", "--sample-rate", "0.5", "--tau", "0.12",
+           "--lr", "0.05", "--fused-step"]
+
+
+def reckoned_rounds(recs, local_steps, k1="prox_update.launches"):
+    """K1 once a local step; K2 once a merge pass and once an objective
+    with 2 clusters or more."""
+    return {k1: len(recs) * local_steps,
+            "cosine_sim.launches": len(recs) + sum(r["n_clusters"] >= 2 for r in recs)}
+
+
+def phase_train_whisper(dev):
+    """15a: whisper-medium uncut (24 + 24 layers, 1500 frames) through
+    ``launch.train.run_llm`` with path 3's traffic as the driver's flags
+    (``TRAIN15``: the config's bf16 compute and fp32 parameters, the
+    engine's bf16 policy, ``--fused-step``), remat on: round walls, the
+    peak, the device's busy share on round 2; K1's bf16 entry and K2
+    launched as reckoned, held against their plain versions on the inputs
+    the path gave them (K1 bitwise); the model rows finite; Ψ bitwise
+    repeatable. Returns (the launches, K2's largest error)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cosine_sim
+    from repro_torch.launch import train
+    from repro_torch.utils import trees
+
+    t_phase = time.perf_counter()
+    args = train.build_parser().parse_args(TRAIN15)
+    cfg = get_config(args.arch)
+    print(f"[train15] {cfg.name} uncut ({cfg.source}): {cfg.n_enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.enc_seq} frames, "
+          f"remat {cfg.remat}; compute {cfg.dtype}, params {cfg.param_dtype}, engine dtype "
+          f"{args.dtype}; no cut (the bf16 policy's model state fits one card); "
+          f"python -m repro_torch.launch.train {' '.join(TRAIN15)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _zero_counts()
+    cosine_sim.padded_copies = 0
+    with recording_first_prox_update() as k1_in, recording_cosine_inputs() as k2_in, \
+            recording_rounds(profile_round=2) as (recs, prof):
+        out = train.run_llm(args)
+    launches = _launched()
+    peak = torch.cuda.max_memory_allocated() - base
+    state = recs[-1]["state"]
+    n_params = sum(p.numel() for p in trees.leaves(state.ctx.init_params))
+    copy_s = k1_in[0]["copy_s"]
+    for t, r in enumerate(recs):
+        note = (" (under the profiler)" if r["traced"] else
+                f" ({(r['wall'] - copy_s) * 1e3:.1f} ms without the {copy_s:.1f} s host copy "
+                f"of K1's first operands)" if t == 0 else "")
+        print(f"[train15] round {t}: wall {r['wall'] * 1e3:.1f} ms{note}, cohort "
+              f"{r['cohort']}, n_clusters {r['n_clusters']}, merges {r['merges']}")
+    kernels = _device_kernels(prof)
+    busy = sum(kernels.values())
+    wall = recs[2]["wall"] * 1e3
+    assert busy > 0, "the profiler recorded no device time"
+    print(f"[train15] {n_params} parameters; driver JSON {out}; peak device memory "
+          f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated, from {base / 1e9:.2f} GB); "
+          f"round 2 under the profiler: device busy {busy:.1f} ms of {wall:.1f} ms "
+          f"({100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%)")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[train15] device {ms:9.2f} ms  {name[:90]}")
+    del prof, kernels
+    assert n_params == WHISPER_PARAMS, n_params
+    expect = reckoned_rounds(recs, args.local_steps)
+    print(f"[train15] launches {launches}; reckoned: K1 {args.rounds} rounds x "
+          f"{args.local_steps} local steps, K2 one a merge pass and one an objective with >= 2 "
+          f"clusters: {expect}")
+    assert launches == expect, (launches, expect)
+    assert cosine_sim.padded_copies == 0, "15a copied a K2 input"
+    assert len(k1_in) == 1 and k1_in[0]["ops"][0].dtype == torch.bfloat16, \
+        "K1 did not take its bf16 entry"
+    for leaf in trees.leaves(state.omega) + trees.leaves(state.models.stacked):
+        assert bool(torch.isfinite(leaf).all()), "non-finite model values"
+    psi = state.ctx.extractor
+    a, b = psi(state.ctx.clients[0]), psi(state.ctx.clients[0])
+    same = bool(torch.equal(a, b))
+    print(f"[train15] model rows finite; Psi of client 0 computed twice ({tuple(a.shape)}, "
+          f"norm {float(a.norm()):.6f}): bitwise equal={same}")
+    assert same and a.shape == (8192,)
+    del state, psi, a, b, recs
+    torch.cuda.empty_cache()
+    err = check_cosine_on_records(k2_in, args.tau, "train15", 1e-5)
+    check_prox_on_path(k1_in[0]["ops"], "train15")
+    del k1_in, k2_in
+    torch.cuda.empty_cache()
+    print(f"[train15] phase 15a took {time.perf_counter() - t_phase:.1f} s")
+    return {"prox_update_bf16": launches["prox_update.launches"],
+            "cosine_sim": launches["cosine_sim.launches"]}, err
+
+
+def loss_and_grad_peak(model, params, batch):
+    """One loss and gradient: (loss, gradients, peak bytes above the start,
+    wall s)."""
+    import torch
+    from repro_torch.utils import trees
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    p = trees.tree_map(lambda x: x.detach().requires_grad_(True), params)
+    loss = model.loss_fn(p, batch)
+    grads = torch.autograd.grad(loss, trees.leaves(p))
+    torch.cuda.synchronize()
+    return float(loss), grads, torch.cuda.max_memory_allocated() - base, time.perf_counter() - t0
+
+
+def check_decode(tag, model, params, extra, tokens, offset=0):
+    """``prefill`` of ``tokens`` (with the batch's non-token inputs
+    ``extra``), then ENCDEC_STEPS greedy ``decode_step``s with one position
+    per row, each step's logits held against ``forward_train``'s at the
+    same position within DECODE_RTOL of its largest |logit|. ``offset``:
+    the positions before the tokens (a VLM's patches). Returns the worst
+    relative error and the decode ms a step."""
+    import numpy as np
+    import torch
+    from repro_torch.models.registry import grow_cache
+
+    rows, prompt = tokens.shape
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {**extra, "tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        want = model.forward_train(params, {**extra, "tokens": tokens})[0][:, -1]
+        worst = float((logits - want).abs().max()) / float(want.abs().max())
+        assert worst <= DECODE_RTOL, ("prefill", worst)
+        cache = grow_cache(model, cache, rows, offset + prompt + ENCDEC_STEPS)
+        pos = torch.full((rows,), offset + prompt, dtype=torch.int32, device=tokens.device)
+        tok = torch.argmax(logits, -1).to(tokens.dtype)
+        seq, walls = [tokens, tok[:, None]], []
+        for t in range(ENCDEC_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.decode(params, tok, cache, pos)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            want = model.forward_train(params, {**extra, "tokens": torch.cat(seq, 1)})[0][:, -1]
+            err = float((logits - want).abs().max()) / float(want.abs().max())
+            assert err <= DECODE_RTOL, (t, err)
+            worst = max(worst, err)
+            tok = torch.argmax(logits, -1).to(tokens.dtype)
+            seq.append(tok[:, None])
+            pos = pos + 1
+    step_ms = float(np.mean(walls[1:])) * 1e3
+    print(f"[{tag}] fp32 compute, TF32 off: prefill of {rows} x {prompt} tokens "
+          f"{prefill_s * 1e3:.1f} ms (first call), {ENCDEC_STEPS} decode steps with a position "
+          f"per row, {step_ms:.2f} ms a step after the first ({walls[0] * 1e3:.1f} ms); logits "
+          f"against forward_train at the same position: largest |diff| / max |logit| "
+          f"{worst:.3e} (gate {DECODE_RTOL:g})")
+    del cache
+    return worst, step_ms
+
+
+def phase_whisper_model(dev):
+    """15b: whisper-medium's full config at the model level: one loss and
+    gradient on one client's batch of 15a (2 x 1500 frames, 2 x 256
+    tokens) in the config's bf16 compute with remat on and then off (the
+    peak with remat below the peak without; the gradients within
+    REMAT_GRAD_RTOL of the largest |g|); then in fp32 compute ``prefill``
+    of 4 x 32 tokens over 1500 frames and 16 decode steps against
+    ``forward_train``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.models.registry import build
+
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-medium")
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    data = synthetic_lm_batch(cfg, 256, 2, seed=0, domain=0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    runs = {}
+    for remat in (True, False):
+        runs[remat] = loss_and_grad_peak(build(cfg.with_(remat=remat)), params, batch)
+    (l_on, g_on, p_on, w_on), (l_off, g_off, p_off, w_off) = runs[True], runs[False]
+    err = max(float((a - b).abs().max()) for a, b in zip(g_on, g_off))
+    scale = max(float(b.abs().max()) for b in g_off)
+    print(f"[whisper15] {cfg.name} full config, {cfg.dtype} compute, one loss and gradient on "
+          f"2 x {cfg.enc_seq} frames + 2 x 256 tokens: remat on peak {p_on / 1e9:.2f} GB, "
+          f"{w_on * 1e3:.1f} ms, loss {l_on:.6f}; remat off peak {p_off / 1e9:.2f} GB, "
+          f"{w_off * 1e3:.1f} ms, loss {l_off:.6f}; gradients largest |on - off| {err:.3e} of "
+          f"max |g| {scale:.3e} (gate {REMAT_GRAD_RTOL:g})")
+    assert p_on < p_off, (p_on, p_off)
+    assert err <= REMAT_GRAD_RTOL * scale
+    del runs, g_on, g_off, batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = build(cfg.with_(dtype="float32"))
+    data = synthetic_lm_batch(cfg, ENCDEC_PROMPT, ENCDEC_ROWS, seed=7, domain=0)
+    frames = torch.as_tensor(data["frames"], device=dev)
+    check_decode("whisper15", model, params, {"frames": frames},
+                 torch.as_tensor(data["tokens"], device=dev))
+    print(f"[whisper15] decode check peak {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f}"
+          f" GB; phase 15b took {time.perf_counter() - t_phase:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_internvl_model(dev):
+    """15c: internvl2-26b at full width cut to 2 layers at the model level:
+    one loss and gradient on 2 x (1024 patches + 256 text tokens) in the
+    config's bf16 compute with remat; then in fp32 compute ``prefill`` of
+    4 x (1024 + 32) and 16 decode steps against ``forward_train``. No
+    training round: the vocabulary leaves alone are 1.137 G parameters,
+    about 54 GB at path 3's 48 B a parameter in the bf16 policy, and each
+    layer adds about 19 GB."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.models.registry import build
+    from repro_torch.utils import trees
+
+    t_phase = time.perf_counter()
+    full = get_config("internvl2-26b")
+    cfg = full.with_(n_layers=INTERNVL_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(p.numel() for p in trees.leaves(params))
+    print(f"[vlm15] {cfg.name} at full width ({cfg.source}): d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.n_patches} patches; depth cut {full.n_layers} -> {cfg.n_layers} (one card's "
+          f"memory; no training round: the vocab leaves alone would take ~54 GB in the bf16 "
+          f"policy); {n_params} parameters ({n_params * 4 / 1e9:.2f} GB fp32)")
+    assert n_params == INTERNVL_PARAMS, n_params
+    data = synthetic_lm_batch(cfg, cfg.n_patches + 256, 2, seed=0, domain=0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    loss, grads, peak, wall = loss_and_grad_peak(build(cfg), params, batch)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    print(f"[vlm15] {cfg.dtype} compute, remat {cfg.remat}: one loss and gradient on 2 x "
+          f"({cfg.n_patches} patches + {batch['tokens'].shape[1]} text tokens): loss "
+          f"{loss:.6f}, {wall * 1e3:.1f} ms, gradients finite={finite}; peak "
+          f"{peak / 1e9:.2f} GB above the parameters")
+    assert finite and loss == loss
+    del grads, batch
+    torch.cuda.empty_cache()
+    model = build(cfg.with_(dtype="float32"))
+    data = synthetic_lm_batch(cfg, cfg.n_patches + ENCDEC_PROMPT, ENCDEC_ROWS, seed=7, domain=0)
+    check_decode("vlm15", model, params, {"patches": torch.as_tensor(data["patches"], device=dev)},
+                 torch.as_tensor(data["tokens"], device=dev), offset=cfg.n_patches)
+    print(f"[vlm15] peak device memory {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} "
+          f"GB; phase 15c took {time.perf_counter() - t_phase:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_train_smoke15(dev):
+    """15d: the two families' smoke configs (the full configs' bf16
+    compute) through ``run_llm`` with ``SMOKE15``, on the card and on the
+    CPU from the same parameters (drawn on the CPU): cohorts, n_clusters
+    and ARI equal, ω's update after round 0 within LLM_UPDATE_RTOL; K1
+    and K2 launched on the card as reckoned. Returns the card's
+    launches."""
+    import torch
+    from repro_torch.launch import train
+
+    total = {}
+    cpu_generator = lambda _dev, seed: torch.Generator().manual_seed(seed)
+    for arch in ("whisper-medium", "internvl2-26b"):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            args = train.build_parser().parse_args(SMOKE15 + ["--arch", arch, "--device", device])
+            _zero_counts()
+            with patched(train, "_generator", cpu_generator), \
+                    recording_rounds(snapshots=True) as (recs, _):
+                out = train.run_llm(args)
+            runs[device] = (out, recs, _launched())
+        (out, recs, launches), (cout, crecs, _) = runs["cuda"], runs["cpu"]
+        omega0 = _flat_cpu(recs[0]["init"])
+        rel = update_rels([{"omega": r["omega"]} for r in recs[:1]],
+                          [{"omega": r["omega"]} for r in crecs[:1]], omega0)[0]
+        expect = reckoned_rounds(recs, args.local_steps)
+        print(f"[smoke15] {arch} smoke through run_llm, card against CPU: cohorts "
+              f"{[r['cohort'] for r in recs]}, n_clusters {[r['n_clusters'] for r in recs]}, "
+              f"ari {out['ari']:.4f} / {cout['ari']:.4f}; omega update after round 0 "
+              f"|du_cuda - du_cpu| / |du_cpu| {rel:.3e} (tol {LLM_UPDATE_RTOL:g}, bf16 compute); "
+              f"launches on the card {launches} (reckoned {expect})")
+        for key in ("cohort", "n_clusters"):
+            assert [r[key] for r in recs] == [r[key] for r in crecs], (arch, key)
+        assert out["ari"] == cout["ari"] and out["n_clusters"] == cout["n_clusters"]
+        assert rel <= LLM_UPDATE_RTOL
+        assert launches == expect, (launches, expect)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def phase_15(dev):
+    """Phase 15: the encoder-decoder and VLM families. Returns (launches
+    by kernels-line name, K2's largest error)."""
+    t0 = time.perf_counter()
+    launches, err = phase_train_whisper(dev)
+    phase_whisper_model(dev)
+    phase_internvl_model(dev)
+    smoke = phase_train_smoke15(dev)
+    launches["prox_update"] = smoke["prox_update.launches"]
+    launches["cosine_sim"] += smoke["cosine_sim.launches"]
+    print(f"[phase15] took {time.perf_counter() - t0:.1f} s")
+    return launches, err
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3526,6 +3886,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (raises outside a checkout of the repo)
+    from repro_torch.core import extractor
+    # the sketch's draws are a pure function of (length, dim, seed): path 3's
+    # reruns and the served and trained models' Ψ would otherwise draw up to
+    # 532 M host random numbers again each time (~7.5 s for path 3's vocab
+    # leaves), so round 0's wall holds them only in a length's first run
+    extractor.jl_draws = functools.lru_cache(maxsize=None)(extractor.jl_draws)
     if sys.argv[1:2] == [PARITY_FLAG]:
         return llm_parity_main(json.loads(sys.argv[2]))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3594,6 +3960,10 @@ def main() -> int:
     for k, n in launches14.items():
         kernels[k]["launches"] += n
     kernels["cosine_sim"]["max_abs_err"] = max(kernels["cosine_sim"]["max_abs_err"], k2_err14)
+    launches15, k2_err15 = phase_15(dev)
+    for k, n in launches15.items():
+        kernels[k]["launches"] += n
+    kernels["cosine_sim"]["max_abs_err"] = max(kernels["cosine_sim"]["max_abs_err"], k2_err15)
     print(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -7,6 +7,12 @@ entering every ``CHUNK`` steps, ``scan_bwd`` recomputes each chunk's states
 from those and runs the reverse recurrence. ``SSMScan`` binds them as a
 ``torch.autograd.Function`` whose ``vmap`` rule folds a vmapped axis into
 B, so the engine's ``torch.func.vmap`` over a cohort reaches one launch.
+Its backward calls ``scan_bwd`` through ``_ScanBwd``, a function with a
+``vmap`` rule of its own: under a layer checkpoint (``models.layers.remat``)
+the backward runs inside ``torch.func.vjp``, and inside a cohort's vmap
+too, where its operands arrive wrapped by those transforms, without the
+storage a kernel's pointer needs; ``_ScanBwd`` hands the kernel the
+unwrapped tensors, the batch folded into B.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version in ``ref`` (``ssm_scan_states_ref``,
@@ -131,20 +137,47 @@ class SSMScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_y, _g_hs):
         dA, dBx, C, hs = ctx.saved_tensors
-        return scan_bwd(dA, dBx, C, hs, g_y)
+        return _ScanBwd.apply(dA, dBx, C, hs, g_y)
 
     @staticmethod
     def vmap(info, in_dims, dA, dBx, C):
         """Fold the vmapped axis into B: one launch for the whole batch."""
         v = info.batch_size
-
-        def fold(x, dim):
-            x = x.movedim(dim, 0) if dim is not None else x.expand(v, *x.shape)
-            return x.reshape(v * x.shape[1], *x.shape[2:])
-
-        y, hs = SSMScan.apply(*(fold(x, d) for x, d in zip((dA, dBx, C), in_dims)))
+        y, hs = SSMScan.apply(*(_fold(x, d, v) for x, d in zip((dA, dBx, C), in_dims)))
         return ((y.reshape(v, -1, *y.shape[1:]), hs.reshape(v, -1, *hs.shape[1:])),
                 (0, 0))
+
+
+def _fold(x, dim, v):
+    """``x`` with its vmapped axis ``dim`` (None: broadcast to ``v``)
+    moved to the front and merged into the next one."""
+    x = x.movedim(dim, 0) if dim is not None else x.expand(v, *x.shape)
+    return x.reshape(v * x.shape[1], *x.shape[2:])
+
+
+class _ScanBwd(torch.autograd.Function):
+    """``scan_bwd`` as a function the ``torch.func`` transforms call with
+    unwrapped operands: under ``vjp`` its forward receives them unwrapped,
+    and under ``vmap`` its rule folds the vmapped axis into B, one launch
+    for the batch. It has no derivative of its own."""
+
+    @staticmethod
+    def forward(dA, dBx, C, hs, g_y):
+        return scan_bwd(dA, dBx, C, hs, g_y)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *_grads):
+        raise RuntimeError("ssm_scan has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, *operands):
+        v = info.batch_size
+        grads = _ScanBwd.apply(*(_fold(x, d, v) for x, d in zip(operands, in_dims)))
+        return tuple(g.reshape(v, -1, *g.shape[1:]) for g in grads), (0, 0, 0)
 
 
 def ssm_scan(dA, dBx, C) -> torch.Tensor:

@@ -18,9 +18,10 @@ time) so the S×S logits never materialise above that many rows. The
 reference's flash-decode path is a ``shard_map`` over a sequence-sharded
 cache; on one device it is the plain decode. Attention, RoPE and the MLP
 sit outside any TPU kernel in the reference, so they are plain PyTorch
-here too. Cross-attention and bidirectional (encoder) attention, which
-only the encoder-decoder family uses, are not ported yet (ROADMAP.md
-queue 1 item 2).
+here too. The encoder-decoder family adds bidirectional (encoder)
+self-attention over GQA weights and cross-attention over the encoder's
+precomputed keys and values; both are unmasked and unchunked, as the
+reference's are.
 """
 from __future__ import annotations
 
@@ -31,7 +32,6 @@ from repro_torch.models.layers import apply_rope, dense_init
 
 _CHUNK = 1024          # query-chunk rows for long-sequence attention
 _NEG = -1e30
-_LATER = "not ported yet: ROADMAP.md queue 1 item 2"
 
 
 def gqa_init(generator: torch.Generator, cfg, dtype=torch.float32, device="cpu"):
@@ -296,9 +296,50 @@ def mla_decode(params, x, cache, pos, cfg):
     return out @ params["wo"].to(dt), {"c_kv": c_kv, "k_rope": k_rope}
 
 
-def cross_attn_init(*_args, **_kw):
-    raise NotImplementedError(f"cross-attention (encoder-decoder) is {_LATER}")
+# =========================================================== cross-attn
+def cross_attn_init(generator: torch.Generator, cfg, dtype=torch.float32, device="cpu"):
+    hd = cfg.resolved_head_dim
+    return {
+        "wq": dense_init(generator, cfg.d_model, cfg.n_heads * hd, dtype, device=device),
+        "w_cross_k": dense_init(generator, cfg.d_model, cfg.n_kv_heads * hd, dtype, device=device),
+        "w_cross_v": dense_init(generator, cfg.d_model, cfg.n_kv_heads * hd, dtype, device=device),
+        "wo": dense_init(generator, cfg.n_heads * hd, cfg.d_model, dtype, device=device),
+    }
 
 
-def bidir_attention(*_args, **_kw):
-    raise NotImplementedError(f"bidirectional (encoder) attention is {_LATER}")
+def cross_kv(params, enc_out, cfg):
+    """The encoder output's keys and values for one decoder layer:
+    ``{"k", "v": (B, Se, H_kv, hd)}`` in ``enc_out``'s dtype."""
+    B, Se, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    dt = enc_out.dtype
+    k = (enc_out @ params["w_cross_k"].to(dt)).reshape(B, Se, cfg.n_kv_heads, hd)
+    v = (enc_out @ params["w_cross_v"].to(dt)).reshape(B, Se, cfg.n_kv_heads, hd)
+    return {"k": k, "v": v}
+
+
+def _attend_all(q, k, v):
+    """Unmasked attention of q (B,Sq,H,hd) over every key of k, v
+    (B,Sk,H_kv,hd): logits scaled by 1/sqrt(hd) and the softmax in fp32.
+    Returns (B, Sq, H·hd) in q's dtype."""
+    B, Sq, H, hd = q.shape
+    k, v = _repeat_kv(k.to(q.dtype), H), _repeat_kv(v.to(q.dtype), H)
+    logits = torch.einsum("bqhd,bshd->bhqs", q, k).to(torch.float32) * _scale(hd)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", probs, v).reshape(B, Sq, H * hd)
+
+
+def cross_attend(params, x, kv, cfg):
+    """x (B, Sq, d) queries over precomputed encoder keys and values (no
+    RoPE, no mask)."""
+    B, Sq, _ = x.shape
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt)).reshape(B, Sq, cfg.n_heads, cfg.resolved_head_dim)
+    return _attend_all(q, kv["k"], kv["v"]) @ params["wo"].to(dt)
+
+
+def bidir_attention(params, x, cfg):
+    """Encoder self-attention over GQA weights: RoPE on q and k, no mask."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(params, x, cfg, _positions(B, S, x.device))
+    return _attend_all(q, k, v) @ params["wo"].to(x.dtype)

@@ -9,7 +9,10 @@ full group (``n_layers`` not a multiple of ``attn_every``) run at the end
 without an application. Its KV caches are one per application, stacked on
 a leading axis A; with a sliding window they are rings of
 ``min(seq_len, sliding_window)`` entries. The Mamba2 caches carry the
-core's leading layer axis. ``cfg.remat`` is not honoured (memory only).
+core's leading layer axis. With ``cfg.remat`` each core layer of a
+training or prefill pass that takes a gradient is checkpointed
+(``layers.remat``), as the reference checkpoints its Mamba2 groups' scan
+bodies; the shared block is not, as in the reference.
 """
 from __future__ import annotations
 
@@ -17,8 +20,8 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
-from repro_torch.models.layers import (dense_init, embed_init, rmsnorm, rmsnorm_init,
-                                       swiglu, swiglu_init)
+from repro_torch.models.layers import (dense_init, embed_init, remat, rmsnorm,
+                                       rmsnorm_init, swiglu, swiglu_init)
 from repro_torch.models.ssm_lm import dtype_of
 from repro_torch.utils import trees
 
@@ -60,16 +63,24 @@ def _mamba_group(cfg, mode, h, params, layers, caches=None):
     """Run core layers ``layers`` in ``mode`` (train | prefill | decode).
     Returns (h, their caches in layer order; None in train)."""
     out_caches = []
+
+    def train(h, p):
+        return h + ssm.mamba2_train(p, h, cfg)
+
+    def prefill(h, p):
+        out, cache = ssm.mamba2_prefill(p, h, cfg)
+        return h + out, cache
+
     for i in layers:
         p = trees.tree_map(lambda x: x[i], params["mamba_layers"])
         if mode == "train":
-            h = h + ssm.mamba2_train(p, h, cfg)
+            h = remat(cfg, train, h, p)
             continue
         if mode == "prefill":
-            out, cache = ssm.mamba2_prefill(p, h, cfg)
+            h, cache = remat(cfg, prefill, h, p)
         else:
             out, cache = ssm.mamba2_decode(p, h, trees.tree_map(lambda x: x[i], caches), cfg)
-        h = h + out
+            h = h + out
         out_caches.append(cache)
     return h, (out_caches if mode != "train" else None)
 

@@ -1,12 +1,15 @@
-"""Shared building blocks of the port's models: parameter inits, RMSNorm,
-rotary embeddings and the SwiGLU MLP (``layernorm`` and ``gelu_mlp``, which
-only the encoder-decoder and VLM families use, are not ported yet)."""
+"""Shared building blocks of the port's models: parameter inits, RMSNorm
+and LayerNorm, rotary embeddings, the SwiGLU and GELU MLPs, the
+next-token loss, and ``remat``, the layer checkpoint that stands for the
+reference's ``jax.checkpoint``."""
 from __future__ import annotations
 
 import math
 from typing import Optional
 
 import torch
+
+from repro_torch.utils import trees
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
@@ -38,6 +41,23 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.to(torch.float32)
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * params["scale"].to(x.dtype)
+
+
+def layernorm_init(d: int, dtype=torch.float32, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Layer normalisation with the population variance (``jnp.var``'s) in
+    fp32, cast back to ``x``'s dtype, then scaled and shifted in that
+    dtype."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * params["scale"].to(dt) + params["bias"].to(dt)
 
 
 # ----------------------------------------------------------------- rope
@@ -78,3 +98,89 @@ def swiglu(params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     g = x @ params["w_gate"].to(dt)
     u = x @ params["w_up"].to(dt)
     return (torch.nn.functional.silu(g) * u) @ params["w_down"].to(dt)
+
+
+def gelu_mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
+                  dtype=torch.float32, device="cpu"):
+    return {
+        "w_up": dense_init(generator, d_model, d_ff, dtype, device=device),
+        "b_up": torch.zeros((d_ff,), dtype=dtype, device=device),
+        "w_down": dense_init(generator, d_ff, d_model, dtype, device=device),
+        "b_down": torch.zeros((d_model,), dtype=dtype, device=device),
+    }
+
+
+def gelu_mlp(params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """gelu(x·W_up + b_up)·W_down + b_down in ``compute_dtype`` (x's by
+    default), with the tanh approximation, ``jax.nn.gelu``'s default."""
+    dt = compute_dtype or x.dtype
+    h = torch.nn.functional.gelu(x @ params["w_up"].to(dt) + params["b_up"].to(dt),
+                                 approximate="tanh")
+    return h @ params["w_down"].to(dt) + params["b_down"].to(dt)
+
+
+def ce_loss(logits: torch.Tensor, tokens: torch.Tensor, aux) -> torch.Tensor:
+    """Mean next-token cross entropy in fp32 plus 0.01·aux. The gold logit
+    is gathered; the reference contracts with a one-hot, which picks the
+    same value exactly (one term times 1, the rest times 0)."""
+    logits = logits[:, :-1].to(torch.float32)
+    targets = tokens[:, 1:].to(torch.int64)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return torch.mean(logz - gold) + 0.01 * aux
+
+
+# ----------------------------------------------------------------- remat
+class _Remat(torch.autograd.Function):
+    """``body(*inputs)`` -> a tuple of tensors, keeping only the inputs for
+    the backward, which runs ``body`` again through ``torch.func.vjp``.
+    It has a generated vmap rule, so it runs inside the cohort update's
+    ``torch.func.vmap`` (``torch.utils.checkpoint`` does not: its
+    non-reentrant form lets a tensor escape the vmap, and its reentrant
+    form has no ``setup_context``)."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(body, *inputs):
+        return body(*inputs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.body = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _, pullback = torch.func.vjp(ctx.body, *ctx.saved_tensors)
+        return (None,) + tuple(pullback(grads))
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, checkpointed as the reference's ``jax.checkpoint``
+    checkpoints a layer: when ``cfg.remat`` is set and a gradient may be
+    taken, only the layer's inputs are kept and its backward recomputes it.
+    Otherwise (serving, evaluation, ``no_grad`` losses) ``fn`` runs as is.
+
+    ``args`` are tensors or dicts of them (a layer's hidden state and
+    parameters); every tensor a gradient should reach must be among them,
+    not captured by ``fn``. ``fn`` returns a tree of the same kinds, or a
+    tuple of such trees (an MoE layer's ``(h, aux)``)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    skeleton = lambda tree: trees.tree_map(lambda _: None, tree)      # structure only
+    ins = [skeleton(a) for a in args]
+    sizes = [len(trees.leaves(a)) for a in args]
+    out_tree = []
+
+    def body(*xs):
+        it = iter(xs)
+        out = fn(*(trees.from_leaves(a, [next(it) for _ in range(n)])
+                   for a, n in zip(ins, sizes)))
+        parts = out if isinstance(out, tuple) else (out,)
+        out_tree[:] = [(isinstance(out, tuple), [skeleton(p) for p in parts])]
+        return tuple(x for p in parts for x in trees.leaves(p))
+
+    outs = iter(_Remat.apply(body, *(x for a in args for x in trees.leaves(a))))
+    is_tuple, parts = out_tree[0]
+    got = tuple(trees.from_leaves(p, [next(outs) for _ in trees.leaves(p)]) for p in parts)
+    return got if is_tuple else got[0]

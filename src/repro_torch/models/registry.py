@@ -1,15 +1,16 @@
-"""Model registry: the JAX package's uniform ``Model`` API over the arch
-families the port has.
+"""Model registry: the JAX package's uniform ``Model`` API over all six
+arch families.
 
 ``build(cfg)`` gives ``loss_fn`` / ``forward_train`` / ``prefill`` /
-``decode`` / ``make_cache`` for the token families: ``arch_type ==
-"dense"`` and ``"moe"`` (the transformer: qwen2, llama3, internlm2,
-granite; phi3.5-moe and deepseek-v2 with MLA), ``"ssm"`` (falcon-mamba)
-and ``"hybrid"`` (zamba2). The encoder-decoder and VLM families raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
-``grow_cache``, ``decode_specs`` and ``serve_cache_specs`` are the
-reference's cache helpers; their shapes come from ``make_cache`` on the
-``meta`` device, which allocates nothing.
+``decode`` / ``make_cache`` / ``input_specs`` for ``arch_type == "dense"``
+and ``"moe"`` (the transformer: qwen2, llama3, internlm2, granite;
+phi3.5-moe and deepseek-v2 with MLA), ``"ssm"`` (falcon-mamba),
+``"hybrid"`` (zamba2), ``"audio"`` (the whisper encoder-decoder: batches
+``{"frames", "tokens"}``) and ``"vlm"`` (internvl2: ``{"patches",
+"tokens"}``), with the reference's batch plumbing. ``grow_cache``,
+``decode_specs`` and ``serve_cache_specs`` are the reference's cache
+helpers; their shapes come from ``make_cache`` on the ``meta`` device,
+which allocates nothing.
 """
 from __future__ import annotations
 
@@ -17,15 +18,15 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.models import hybrid, ssm_lm, transformer
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer, vlm
 from repro_torch.models.config import InputShape, ModelConfig
+from repro_torch.models.layers import ce_loss
+from repro_torch.models.ssm_lm import dtype_of
 from repro_torch.utils import trees
 
-_NOT_PORTED = {
-    "audio": "queue 1 item 2 (encdec)",
-    "vlm": "queue 1 item 2 (vlm)",
-}
-_MODULES = {"dense": transformer, "moe": transformer, "ssm": ssm_lm, "hybrid": hybrid}
+_MODULES = {"dense": transformer, "moe": transformer, "ssm": ssm_lm, "hybrid": hybrid,
+            "audio": encdec, "vlm": vlm}
+_TOKEN_ARCHS = ("dense", "moe", "ssm", "hybrid")
 
 
 class Spec(NamedTuple):
@@ -43,37 +44,45 @@ class Model(NamedTuple):
     prefill: Callable[[Any, Any], Any]               # (params, batch) -> (logits, cache)
     decode: Callable[[Any, Any, Any, Any], Any]      # (params, token, cache, pos)
     make_cache: Callable[..., Any]                   # (batch, seq_len, device) -> cache
-
-
-def _ce_loss(logits, tokens, aux):
-    """Mean next-token cross entropy in fp32 plus 0.01·aux. The gold logit
-    is gathered; the reference contracts with a one-hot, which picks the
-    same value exactly (one term times 1, the rest times 0)."""
-    logits = logits[:, :-1].to(torch.float32)
-    targets = tokens[:, 1:].to(torch.int64)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    return torch.mean(logz - gold) + 0.01 * aux
+    input_specs: Callable[[InputShape], dict]        # shape -> batch of Specs
 
 
 def build(cfg: ModelConfig) -> Model:
-    if cfg.arch_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} ({cfg.name}) is not ported yet: "
-            f"ROADMAP.md {_NOT_PORTED[cfg.arch_type]}")
     if cfg.arch_type not in _MODULES:
         raise ValueError(f"unknown arch_type {cfg.arch_type}")
     mod = _MODULES[cfg.arch_type]
+    dt = dtype_of(cfg.dtype)
 
-    def forward_train(params, batch):
-        return mod.forward_train(params, batch["tokens"], cfg)
+    if cfg.arch_type in _TOKEN_ARCHS:
+        def forward_train(params, batch):
+            return mod.forward_train(params, batch["tokens"], cfg)
 
-    def loss_fn(params, batch):
-        logits, aux = forward_train(params, batch)
-        return _ce_loss(logits, batch["tokens"], aux)
+        def prefill(params, batch):
+            return mod.prefill(params, batch["tokens"], cfg)
+    else:
+        def forward_train(params, batch):
+            return mod.forward_train(params, batch, cfg)
 
-    def prefill(params, batch):
-        return mod.prefill(params, batch["tokens"], cfg)
+        def prefill(params, batch):
+            return mod.prefill(params, batch, cfg)
+
+    if cfg.arch_type == "vlm":
+        def loss_fn(params, batch):
+            return mod.loss_fn(params, batch, cfg)
+    else:
+        def loss_fn(params, batch):
+            logits, aux = forward_train(params, batch)
+            return ce_loss(logits, batch["tokens"], aux)
+
+    def input_specs(shape: InputShape):
+        B, S = shape.global_batch, shape.seq_len
+        if cfg.arch_type == "audio":
+            return {"frames": Spec((B, cfg.enc_seq, cfg.d_model), dt),
+                    "tokens": Spec((B, S), torch.int32)}
+        if cfg.arch_type == "vlm":
+            return {"patches": Spec((B, cfg.n_patches, cfg.d_model), dt),
+                    "tokens": Spec((B, max(S - cfg.n_patches, 8)), torch.int32)}
+        return {"tokens": Spec((B, S), torch.int32)}
 
     def decode(params, token, cache, pos):
         return mod.decode_step(params, token, cache, pos, cfg)
@@ -89,6 +98,7 @@ def build(cfg: ModelConfig) -> Model:
         prefill=prefill,
         decode=decode,
         make_cache=make_cache,
+        input_specs=input_specs,
     )
 
 

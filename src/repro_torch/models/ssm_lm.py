@@ -3,15 +3,16 @@ package's ``models/ssm_lm.py``.
 
 Parameters are a nested dict whose ``layers`` leaves carry a leading layer
 axis, the layout of the reference's ``_stack_init``; the reference's layer
-``scan`` is a Python loop over that axis. ``cfg.remat`` is not honoured
-(it changes only what the reference keeps for its backward, not a value).
+``scan`` is a Python loop over that axis. With ``cfg.remat`` each layer
+of a training or prefill pass that takes a gradient is checkpointed
+(``layers.remat``), as the reference wraps it in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import ssm
-from repro_torch.models.layers import dense_init, embed_init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import dense_init, embed_init, remat, rmsnorm, rmsnorm_init
 from repro_torch.utils import trees
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -52,9 +53,12 @@ def forward_train(params, tokens, cfg):
     """tokens (B, S) -> (logits (B, S, V) in ``cfg.dtype``, aux 0.0)."""
     dt = dtype_of(cfg.dtype)
     h = params["embed"].to(dt)[tokens]
+
+    def body(h, p):
+        return h + ssm.mamba1_train(p["mixer"], rmsnorm(p["norm"], h), cfg)
+
     for i in range(_n_layers(params)):
-        p = _layer(params, i)
-        h = h + ssm.mamba1_train(p["mixer"], rmsnorm(p["norm"], h), cfg)
+        h = remat(cfg, body, h, _layer(params, i))
     h = rmsnorm(params["final_norm"], h)
     logits = h @ params["lm_head"].to(dt)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -66,10 +70,13 @@ def prefill(params, tokens, cfg):
     dt = dtype_of(cfg.dtype)
     h = params["embed"].to(dt)[tokens]
     caches = []
-    for i in range(_n_layers(params)):
-        p = _layer(params, i)
+
+    def body(h, p):
         out, cache = ssm.mamba1_prefill(p["mixer"], rmsnorm(p["norm"], h), cfg)
-        h = h + out
+        return h + out, cache
+
+    for i in range(_n_layers(params)):
+        h, cache = remat(cfg, body, h, _layer(params, i))
         caches.append(cache)
     h = rmsnorm(params["final_norm"], h[:, -1:])
     logits = (h @ params["lm_head"].to(dt))[:, 0]

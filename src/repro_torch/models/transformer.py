@@ -9,9 +9,10 @@ reference's parameters across unchanged: ``layers`` holds the dense
 layers (all of them, or the first ``moe_layer_start`` of an MoE model)
 and ``moe_layers`` the MoE layers. The reference's layer ``scan`` is a
 Python loop over that axis, and caches carry the same leading axis under
-the same two names. ``cfg.remat`` is not honoured (it changes only what
-the reference keeps for its backward, not a value), and the reference's
-``shard`` / ``unshard_fsdp`` placements are no-ops on one device.
+the same two names. With ``cfg.remat`` each layer of a training or prefill
+pass that takes a gradient is checkpointed (``layers.remat``), as the
+reference wraps it in ``jax.checkpoint``; the reference's ``shard`` /
+``unshard_fsdp`` placements are no-ops on one device.
 
 MoE routing groups: training and prefill group the batch's B·S tokens by
 ``cfg.moe_group_size`` (``moe.moe_ffn``), as the reference does. A decode
@@ -22,12 +23,14 @@ the reference's ``decode_step`` does.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (dense_init, embed_init, rmsnorm, rmsnorm_init,
-                                       swiglu, swiglu_init)
+from repro_torch.models.layers import (dense_init, embed_init, remat, rmsnorm,
+                                       rmsnorm_init, swiglu, swiglu_init)
 from repro_torch.models.ssm_lm import dtype_of
 from repro_torch.utils import trees
 
@@ -96,42 +99,74 @@ def _mlp(p, x, cfg, moe: bool, group_size: int = 0):
     return swiglu(p["mlp"], x), None
 
 
+def _layer(stack, i: int):
+    """Layer ``i``'s parameters: index ``i`` of every stacked leaf."""
+    return trees.tree_map(lambda x: x[i], stack)
+
+
+def _layer_train(cfg, moe: bool, h, p):
+    """One layer of a training pass: h, or (h, aux) for an MoE layer."""
+    dt = h.dtype
+    train = attn.mla_train if _is_mla(cfg) else attn.gqa_train
+    h = h + train(p["attn"], rmsnorm(p["attn_norm"], h), cfg)
+    out, a = _mlp(p, rmsnorm(p["mlp_norm"], h), cfg, moe)
+    h = (h + out).to(dt)
+    return (h, a) if moe else h
+
+
+def apply_stack_train(params, h, cfg):
+    """Run the layer stack(s) on hidden states h (B, S, d) in training
+    mode. Returns (h, the MoE aux loss summed over the MoE layers, 0.0
+    without)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for name, moe, n in _stacks(params):
+        body = functools.partial(_layer_train, cfg, moe)
+        for i in range(n):
+            out = remat(cfg, body, h, _layer(params[name], i))
+            if moe:
+                h, a = out
+                aux = aux + a
+            else:
+                h = out
+    return h, aux
+
+
+def _layer_prefill(cfg, moe: bool, h, p):
+    """One layer of a prefill pass: (h, its cache)."""
+    pre = attn.mla_prefill if _is_mla(cfg) else attn.gqa_prefill
+    out, cache = pre(p["attn"], rmsnorm(p["attn_norm"], h), cfg)
+    h = h + out
+    return h + _mlp(p, rmsnorm(p["mlp_norm"], h), cfg, moe)[0], cache
+
+
+def apply_stack_prefill(params, h, cfg):
+    """Run the layer stack(s) on hidden states h (B, S, d) in prefill
+    mode. Returns (h, caches: for each stack, GQA's ``{"k", "v": (L, B,
+    S', H_kv, hd)}`` or MLA's ``{"c_kv": (L, B, S', r), "k_rope": (L, B,
+    S', rope_dim)}``)."""
+    caches = {}
+    for name, moe, n in _stacks(params):
+        body = functools.partial(_layer_prefill, cfg, moe)
+        stack = []
+        for i in range(n):
+            h, cache = remat(cfg, body, h, _layer(params[name], i))
+            stack.append(cache)
+        caches[name] = trees.tree_map(lambda *xs: torch.stack(xs), *stack)
+    return h, caches
+
+
 def forward_train(params, tokens, cfg):
     """tokens (B, S) -> (logits (B, S, V) in ``cfg.dtype``, the MoE aux
     loss summed over the MoE layers (0.0 without))."""
-    h = _embed(params, tokens, cfg)
-    dt = h.dtype
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    train = attn.mla_train if _is_mla(cfg) else attn.gqa_train
-    for name, moe, n in _stacks(params):
-        for i in range(n):
-            p = trees.tree_map(lambda x: x[i], params[name])
-            h = h + train(p["attn"], rmsnorm(p["attn_norm"], h), cfg)
-            out, a = _mlp(p, rmsnorm(p["mlp_norm"], h), cfg, moe)
-            h = (h + out).to(dt)
-            if a is not None:
-                aux = aux + a
+    h, aux = apply_stack_train(params, _embed(params, tokens, cfg), cfg)
     return _logits(params, h, cfg), aux
 
 
 def prefill(params, tokens, cfg):
-    """tokens (B, S) -> (last position's logits (B, V), caches: for each
-    stack, GQA's ``{"k", "v": (L, B, S', H_kv, hd)}`` or MLA's
-    ``{"c_kv": (L, B, S', r), "k_rope": (L, B, S', rope_dim)}``)."""
-    h = _embed(params, tokens, cfg)
-    pre = attn.mla_prefill if _is_mla(cfg) else attn.gqa_prefill
-    caches = {}
-    for name, moe, n in _stacks(params):
-        stack = []
-        for i in range(n):
-            p = trees.tree_map(lambda x: x[i], params[name])
-            out, cache = pre(p["attn"], rmsnorm(p["attn_norm"], h), cfg)
-            h = h + out
-            h = h + _mlp(p, rmsnorm(p["mlp_norm"], h), cfg, moe)[0]
-            stack.append(cache)
-        caches[name] = trees.tree_map(lambda *xs: torch.stack(xs), *stack)
-    logits = _logits(params, h[:, -1:], cfg)[:, 0]
-    return logits, caches
+    """tokens (B, S) -> (last position's logits (B, V), the caches of
+    ``apply_stack_prefill``)."""
+    h, caches = apply_stack_prefill(params, _embed(params, tokens, cfg), cfg)
+    return _logits(params, h[:, -1:], cfg)[:, 0], caches
 
 
 def decode_step(params, token, caches, pos, cfg):
@@ -146,8 +181,8 @@ def decode_step(params, token, caches, pos, cfg):
     for name, moe, n in _stacks(params):
         stack = []
         for i in range(n):
-            p = trees.tree_map(lambda x: x[i], params[name])
-            cache = trees.tree_map(lambda x: x[i], caches[name])
+            p = _layer(params[name], i)
+            cache = _layer(caches[name], i)
             out, c = dec(p["attn"], rmsnorm(p["attn_norm"], h), cache, pos, cfg)
             h = h + out
             h = h + _mlp(p, rmsnorm(p["mlp_norm"], h), cfg, moe, 1 if per_row else 0)[0]

@@ -54,6 +54,8 @@ SLICE9 = ("repro_torch.models.attention", "repro_torch.models.transformer",
 # the MoE, MLA and hybrid families and the training driver
 SLICE10 = ("repro_torch.models.moe", "repro_torch.models.hybrid",
            "repro_torch.launch.train")
+# the encoder-decoder and VLM families
+SLICE11 = ("repro_torch.models.encdec", "repro_torch.models.vlm")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -70,6 +72,7 @@ def test_importing_every_module_loads_no_jax():
     assert set(SLICE8) <= set(names), sorted(set(SLICE8) - set(names))
     assert set(SLICE9) <= set(names), sorted(set(SLICE9) - set(names))
     assert set(SLICE10) <= set(names), sorted(set(SLICE10) - set(names))
+    assert set(SLICE11) <= set(names), sorted(set(SLICE11) - set(names))
     assert bad == "", f"port imports pulled in {bad}"
 
 

@@ -228,11 +228,6 @@ def test_cache_specs_match_make_cache_and_reference():
             [tuple(w.shape) for w in jax.tree.leaves(jd["cache"])]
 
 
-@pytest.mark.parametrize("fn", [tattn.cross_attn_init, tattn.bidir_attention])
-def test_unported_attention_kinds_name_their_roadmap_item(fn):
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        fn(None, None)
-
 
 # ===================================================== the MoE stack and MLA
 @pytest.fixture(scope="module", params=sorted(MOE_CASES))
