@@ -211,6 +211,22 @@ prints no result.
    parameters: cohorts, n_clusters and ARI equal, ω's update after round
    0 within 5e-2. The phase's K1 and K2 launches are added to the kernels
    line.
+16. The engine over a client-axis mesh (``engine.init(..., mesh=)``),
+   its ranks subprocesses of this script. (a) One NCCL rank: paths 1 and
+   2 for 3 eager rounds and path 2's captured ``run_rounds(5)``, each
+   without and with the mesh, bitwise equal (under
+   ``torch.use_deterministic_algorithms(True)``, so that the no-mesh
+   runs' atomics repeat; there the fixed-order segment add and
+   ``index_add_`` must give the same bits). (b) Two ``gloo`` ranks on the
+   one card, in the engine's own setting (the fixed-order add repeats bit
+   for bit): paths 1 and 2 for 3 eager rounds, both ranks
+   bitwise equal after every round, integers exact and floats within rtol
+   2e-5, atol 1e-6 of (a)'s no-mesh rounds, each K1 launch on the rank's
+   20 of the 40 cohort rows; ``run_rounds`` refused. (c) Beside (b),
+   ``torchrun --nproc_per_node 1 chip_smoke.py --train16``: ``launch.train.main``
+   with ``--mesh`` on the rotated setting (4 clusters, ARI 1) and on
+   falcon-mamba smoke with ``use_pallas``. Every rank's launches are
+   added to the kernels line.
 
 The line before the last is one JSON object describing every kernel of the
 paths; the last line is ``{"ok": true, "device": {...}}``.
@@ -3879,6 +3895,474 @@ def phase_15(dev):
     return launches, err
 
 
+# ----------------------------------------------------------------- phase 16
+MESH_FLAG = "--mesh-rank"       # runs mesh_rank_main, one rank of phase 16
+TRAIN16_FLAG = "--train16"      # runs train16_main, 16c's torchrun worker
+MESH_ROUNDS = 3                 # 16a / 16b: eager rounds of each path
+MESH_SPAN = 5                   # 16a: the captured run_rounds span
+MESH_RTOL, MESH_ATOL = 2e-5, 1e-6   # 16b against 16a: the reference's mesh tolerance
+MESH_TIMEOUT_S = 240            # one world of phase 16
+TRAIN16 = ["--rounds", "8", "--clients", "24", "--sample-rate", "0.5", "--algo", "stocfl"]
+TRAIN16_SSM = ["--arch", "falcon-mamba-7b", "--smoke", "--rounds", "3",
+               "--clients", "4", "--domains", "2", "--seq-len", "64", "--batch", "2",
+               "--sample-rate", "0.5"]
+
+
+def mesh_snapshot(state) -> dict:
+    """A state on the host: ω, bank and personal rows, the partition (and
+    Ψ reps), members, records, rng position."""
+    import numpy as np
+    from repro_torch import convert
+    out = {"round": state.round, "left": sorted(state.left), "members": state.members,
+           "history": [{k: v for k, v in r.items() if k != "merges"} for r in state.history],
+           "omega": convert.to_numpy(state.omega),
+           "models": {int(r): convert.to_numpy(state.models[r]) for r in state.models.roots},
+           "rng_key": None if state.rng_key is None else state.rng_key.cpu().numpy(),
+           "rng_state": json.dumps(state.rng_state, sort_keys=True, default=str)}
+    clusters = state.clusters
+    out["assignment"] = clusters.assignment()
+    if hasattr(clusters, "arrays"):
+        a = clusters.arrays()
+        out["parent"], out["live"] = a["parent"], a["live"]
+        out["reps"] = {int(c): np.asarray(a["rep"])[c] for c in clusters.seen}
+    else:
+        out["reps"] = {int(c): clusters.reps[c].cpu().numpy() for c in clusters.seen}
+    return out
+
+
+def mesh_match(ref, got, exact):
+    """``got`` against ``ref``: bitwise when ``exact``; otherwise integers
+    (keys, partition, Ψ reps, members, rounds, records' integers) exact
+    and floats within MESH_RTOL / MESH_ATOL. Returns the largest float
+    difference."""
+    import numpy as np
+    for key in ("round", "left", "members", "assignment", "rng_state"):
+        assert ref[key] == got[key], key
+    for key in ("parent", "live"):
+        if key in ref:
+            assert np.array_equal(ref[key], got[key]), key
+    if ref["rng_key"] is not None:
+        assert np.array_equal(ref["rng_key"], got["rng_key"]), "PRNG key"
+    assert set(ref["reps"]) == set(got["reps"])
+    for c in ref["reps"]:
+        assert np.array_equal(ref["reps"][c], got["reps"][c]), f"Psi rep of client {c}"
+    worst = 0.0
+    for hr, hg in zip(ref["history"], got["history"], strict=True):
+        assert set(hr) == set(hg)
+        for k, v in hr.items():
+            if isinstance(v, float) and not exact:
+                assert np.isclose(hg[k], v, rtol=MESH_RTOL, atol=MESH_ATOL), k
+                worst = max(worst, abs(hg[k] - v))
+            else:
+                assert v == hg[k], k
+    assert set(ref["models"]) == set(got["models"]), "bank roots"
+    pairs = [(ref["omega"], got["omega"])] + [(ref["models"][r], got["models"][r])
+                                              for r in ref["models"]]
+    for a, b in pairs:
+        for k in a:
+            if exact:
+                assert np.array_equal(a[k], b[k]), k
+            else:
+                np.testing.assert_allclose(b[k], a[k], rtol=MESH_RTOL, atol=MESH_ATOL,
+                                           err_msg=k)
+                worst = max(worst, float(np.abs(a[k] - b[k]).max()))
+    return worst
+
+
+@contextlib.contextmanager
+def recording_k1_sizes():
+    """Within the block, the element count of every
+    ``ops.prox_update_flat`` call's θ (the cohort rows × P, flattened) is
+    appended to the yielded list."""
+    from repro_torch.kernels import ops
+    real, rows = ops.prox_update_flat, []
+
+    def record(theta, omega, g_theta, g_omega, eta, lam, backend="auto"):
+        rows.append(int(theta.numel()))
+        return real(theta, omega, g_theta, g_omega, eta, lam, backend=backend)
+
+    with patched(ops, "prox_update_flat", record):
+        yield rows
+
+
+def _mesh_eager(mesh, cfg, rounds):
+    """``rounds`` eager rounds of the main setting under ``cfg`` on
+    ``mesh`` (None: no mesh): (snapshots, round walls in ms, launches)."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.kernels import _build
+    clients, _, params, loss, _cfg = main_setting()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    state = engine.init("stocfl", loss, params, clients, cfg, device=dev, arena=True,
+                        mesh=mesh)
+    _zero_counts()
+    snaps, walls = [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = engine.run_round(state)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        snaps.append(mesh_snapshot(state))
+    return snaps, walls, {k: v for k, v in _build.launch_counts().items() if v}
+
+
+def _mesh_span(mesh, cfg):
+    """16a's captured span: ``run_rounds(MESH_SPAN)`` twice from one
+    ``init`` (the first call captures, the second only replays): (final
+    snapshot, first and second call's ms, the captured round's launches,
+    the first call's launches)."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.engine.api import RoundProgram
+    from repro_torch.kernels import _build
+    clients, _, params, loss, _cfg = main_setting()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    start = engine.init("stocfl", loss, params, clients, cfg, device=dev, arena=True,
+                        mesh=mesh)
+    _zero_counts()
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = engine.run_rounds(start, MESH_SPAN)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if len(walls) == 1:
+            launched = {k: v for k, v in _build.launch_counts().items() if v}
+    program = next(v for v in start.ctx.cache.values() if isinstance(v, RoundProgram))
+    return mesh_snapshot(final), walls, dict(program.per_round), launched
+
+
+def ordered_add_check(dev, deterministic):
+    """The fixed-order segment add (``sharding.ordered_index_add_``)
+    against ``index_add_`` at the cohort aggregate's shape (40 rows of
+    153,610 into 4 segments): with deterministic algorithms on, the two
+    must be the same bits (16a holds mesh runs, which take the ordered
+    add, bitwise against no-mesh runs, which take ``index_add_``); with
+    them off, the ordered add must repeat bit for bit, while the atomics
+    may not. Returns the counts and each op's ms a call (10 calls after
+    one warm-up, host clock around a synchronise)."""
+    import torch
+    from repro_torch.sharding import specs
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((40, 153610), device=dev, generator=g)
+    idx = torch.randint(0, 4, (40,), device=dev, generator=g)
+    ordered = lambda: specs.ordered_index_add_(torch.zeros((4, 153610), device=dev), idx, x)
+    atomic = lambda: torch.zeros((4, 153610), device=dev).index_add_(0, idx, x)
+    first_o, first_a = ordered(), atomic()
+    out = {"ordered_repeats": sum(torch.equal(first_o, ordered()) for _ in range(10)),
+           "atomic_repeats": sum(torch.equal(first_a, atomic()) for _ in range(10)),
+           "same_bits": bool(torch.equal(first_o, first_a))}
+    for name, fn in (("ordered_ms", ordered), ("atomic_ms", atomic)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e2
+    assert out["ordered_repeats"] == 10, out
+    if deterministic:
+        assert out["same_bits"], out
+    return out
+
+
+def mesh_rank_main(spec) -> int:
+    """One rank of phase 16 (``chip_smoke.py --mesh-rank SPEC``): joins the
+    world of ``spec`` through a FileStore, builds ``make_client_mesh()``
+    and runs its part; writes its results to ``spec["out"]``.
+
+    16a (one rank, NCCL): paths 1 and 2 eagerly without and with the mesh,
+    then path 2's captured span without and with it, under deterministic
+    algorithms.
+    16b (two ranks on the one card, gloo, the engine's own setting):
+    paths 1 and 2 eagerly with the mesh, the size of each K1 launch's θ
+    recorded; then ``run_rounds``, which must refuse."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.sharding import specs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if spec["deterministic"]:
+        # without a mesh the card's index_add_ sums in no fixed order
+        # (atomics), so two runs of one round differ in the last bits;
+        # deterministic algorithms (and CUBLAS_WORKSPACE_CONFIG, set by
+        # the parent) make 16a's bitwise gate a statement about the mesh,
+        # not about the atomics. 16b runs without them: the engine itself
+        # keeps its ranks equal.
+        t_det = time.perf_counter()
+        torch.use_deterministic_algorithms(True)
+        det_switch_ms = (time.perf_counter() - t_det) * 1e3
+    rank, world = spec["rank"], spec["world"]
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(spec["backend"], store=dist.FileStore(spec["store"], world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    mesh = make_client_mesh()
+    assert specs.mesh_backend(mesh) == spec["backend"]
+    _, _, _, _, cfg = main_setting()
+    paths = {"path1": cfg, "path2": path2_config(cfg, rng_backend="device")}
+    out = {"backend": specs.mesh_backend(mesh), "device": str(specs.mesh_device(mesh)),
+           "order": ordered_add_check(specs.mesh_device(mesh), spec["deterministic"])}
+    if spec["deterministic"]:
+        out["det_switch_ms"] = det_switch_ms
+    if spec["part"] == "a":
+        for name, run, pcfg in (("path1", _mesh_eager, paths["path1"]),
+                                ("path2", _mesh_eager, paths["path2"]),
+                                ("span", _mesh_span, paths["path2"])):
+            args = (pcfg, MESH_ROUNDS) if run is _mesh_eager else (pcfg,)
+            out[name] = [{"nomesh": run(None, *args), "mesh": run(mesh, *args)}]
+    else:
+        for name, pcfg in paths.items():
+            with recording_k1_sizes() as sizes:
+                out[name] = _mesh_eager(mesh, pcfg, MESH_ROUNDS)
+            out[name + "_k1_sizes"] = sizes
+        from repro_torch import engine
+        clients, _, params, loss, _cfg = main_setting()
+        state = engine.init("stocfl", loss, params, clients, paths["path2"],
+                            device=specs.mesh_device(mesh), arena=True, mesh=mesh)
+        out["blocker"] = engine.scan_blockers(state)
+        try:
+            engine.run_rounds(state, 1)
+            out["refused"] = None
+        except ValueError as err:
+            out["refused"] = str(err)
+    with open(spec["out"], "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_mesh_world(part, world, backend, root):
+    """Start ``world`` ranks of ``mesh_rank_main`` and wait for them; a
+    rank that fails or outlasts MESH_TIMEOUT_S fails the phase. Returns
+    each rank's results."""
+    import pickle
+    sys.stdout.flush()
+    store = os.path.join(root, f"store_{part}")
+    procs, outs = [], []
+    for rank in range(world):
+        out = os.path.join(root, f"{part}_rank{rank}.pkl")
+        spec = dict(rank=rank, world=world, backend=backend, store=store, out=out, part=part,
+                    deterministic=part == "a")
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), MESH_FLAG,
+                                       json.dumps(spec)], env=env))
+        outs.append(out)
+    try:
+        for p in procs:
+            p.wait(timeout=MESH_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    codes = [p.returncode for p in procs]
+    assert codes == [0] * world, f"phase 16{part}: ranks exited with {codes}"
+    results = []
+    for out in outs:
+        with open(out, "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def _add(total, launches, names):
+    for counter, n in launches.items():
+        if counter in names:
+            total[names[counter]] = total.get(names[counter], 0) + n
+
+
+def train16_main(spec) -> int:
+    """16c's torchrun worker (``chip_smoke.py --train16 SPEC``): the
+    training driver's ``main`` with ``--mesh`` and ``spec["argv"]``, LLM
+    configs with ``use_pallas=True`` (the Mamba-1 scan through K5); then
+    this rank's kernel launches as JSON, to ``spec["counts"].rank<r>.json``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    pallas = lambda arch, smoke=False: get_config(arch, smoke=smoke).with_(use_pallas=True)
+    with patched(train, "get_config", pallas):
+        train.main(spec["argv"] + ["--mesh"])
+    with open(f"{spec['counts']}.rank{os.environ['RANK']}.json", "w") as f:
+        json.dump(_build.launch_counts(), f)
+    return 0
+
+
+def start_train16(argv, tag, root):
+    """Start ``torchrun --standalone --nproc_per_node 1 chip_smoke.py
+    --train16`` with ``argv``; ``finish_train16`` waits for it."""
+    counts = os.path.join(root, f"counts_{tag}")
+    spec = {"argv": argv, "counts": counts}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__), TRAIN16_FLAG,
+           json.dumps(spec)]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    sys.stdout.flush()
+    with open(counts + ".out", "w") as out, open(counts + ".err", "w") as err:
+        # a session of its own, so that a kill takes torchrun's worker too
+        proc = subprocess.Popen(cmd, env=env, stdout=out, stderr=err, start_new_session=True)
+    return proc, counts, tag, time.perf_counter()
+
+
+def stop_train16(run):
+    """Kill a ``start_train16`` run's process group if it still runs."""
+    import signal
+    if run[0].poll() is None:
+        os.killpg(run[0].pid, signal.SIGKILL)
+        run[0].wait()
+
+
+def finish_train16(run):
+    """(the JSON the driver printed, once, its rank's launches, wall s)."""
+    proc, counts, tag, t0 = run
+    try:
+        proc.wait(timeout=MESH_TIMEOUT_S)
+    finally:
+        stop_train16(run)
+    wall = time.perf_counter() - t0
+    with open(counts + ".out") as out, open(counts + ".err") as err:
+        stdout, stderr = out.read(), err.read()
+    assert proc.returncode == 0, f"[{tag}] torchrun failed:\n{stderr[-3000:]}"
+    assert stdout.count("{\n") == 1, f"[{tag}] expected one JSON:\n{stdout[-2000:]}"
+    out = json.loads(stdout[stdout.index("{\n"):])
+    with open(counts + ".rank0.json") as f:
+        launches = json.load(f)
+    return out, launches, wall
+
+
+def phase_mesh(smi):
+    """Phase 16: the engine over a client-axis mesh, its ranks subprocesses
+    of this script. Returns the launches of every rank's mesh runs by
+    kernels-line name."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    t_phase = time.perf_counter()
+    names = {"prox_update.launches": "prox_update", "cosine_sim.launches": "cosine_sim",
+             "cosine_sim.candidate_launches": "merge_candidates",
+             "resolve_roots.launches": "resolve_roots",
+             "resolve_roots.label_launches": "component_labels",
+             "ssm_scan.fwd_launches": "ssm_scan_fwd", "ssm_scan.bwd_launches": "ssm_scan_bwd"}
+    total = {}
+    root = tempfile.mkdtemp(prefix="mesh16_")
+    print(f"[mesh16] card: {smi}; main setting (400 clients, MLP 2048 hidden, cohort 40, "
+          f"fused_step), path 1 host backend + numpy rng, path 2 device backend + device "
+          f"rng, arena; {MESH_ROUNDS} eager rounds each; 16a's rank runs with "
+          f"torch.use_deterministic_algorithms(True), 16b's ranks without")
+
+    # --- 16a: one rank under NCCL, against no mesh in the same process
+    (a,) = run_mesh_world("a", 1, "nccl", root)
+    print(f"[mesh16a] one rank, backend {a['backend']}, device {a['device']}; the first "
+          f"torch.use_deterministic_algorithms(True) in the process took "
+          f"{a['det_switch_ms']:.1f} ms of host time; under it the fixed-order segment add "
+          f"(index_put_ with accumulate) and index_add_ give the same bits at (40, 153610) "
+          f"into 4 segments: {a['order']}")
+    fmt = lambda walls: ", ".join(f"{w:.1f}" for w in walls)
+    for name in ("path1", "path2"):
+        ref = a[name][0]["nomesh"][0]
+        for turn, runs in enumerate(a[name]):
+            for tag in ("nomesh", "mesh"):
+                for x, y in zip(ref, runs[tag][0], strict=True):
+                    mesh_match(x, y, exact=True)
+            launched = runs["mesh"][2]
+            assert launched["prox_update.launches"] == MESH_ROUNDS * 5, launched
+            if name == "path1":
+                assert launched["cosine_sim.launches"] == 2 * MESH_ROUNDS, launched
+            else:
+                assert launched["cosine_sim.candidate_launches"] == MESH_ROUNDS, launched
+                assert launched["resolve_roots.launches"] == 2 * MESH_ROUNDS, launched
+                assert launched["resolve_roots.label_launches"] == MESH_ROUNDS, launched
+            _add(total, launched, names)
+        (f,) = a[name]
+        print(f"[mesh16a] {name}: {MESH_ROUNDS} eager rounds without and with the mesh, "
+              f"bitwise equal; round walls ms: no mesh {fmt(f['nomesh'][1])}, mesh "
+              f"{fmt(f['mesh'][1])} ({smi}); launches a mesh run {launched}")
+    ref = a["span"][0]["nomesh"][0]
+    for runs in a["span"]:
+        for tag in ("nomesh", "mesh"):
+            mesh_match(ref, runs[tag][0], exact=True)
+        _, _, per_round, launched = runs["mesh"]
+        assert per_round == runs["nomesh"][2], (per_round, runs["nomesh"][2])
+        assert launched == {k: v * MESH_SPAN for k, v in per_round.items()}, launched
+        _add(total, launched, names)
+    (f,) = a["span"]
+    span = lambda run: f"{run[1][0]:.1f} / {run[1][1]:.1f} ({run[1][1] / MESH_SPAN:.2f} a round)"
+    print(f"[mesh16a] path 2 run_rounds({MESH_SPAN}) captured with the mesh (NCCL all-reduces "
+          f"in the graph) and without, bitwise equal; first call (capture) / replays-only "
+          f"call ms: no mesh {span(f['nomesh'])}, mesh {span(f['mesh'])} ({smi}); launches a "
+          f"mesh call {launched}")
+
+    # --- 16b: two ranks on the one card under gloo, while 16c's two
+    # torchrun runs (the training driver) start up and run beside them
+    runs = [start_train16(TRAIN16, "train16", root),
+            start_train16(TRAIN16_SSM, "train16_ssm", root)]
+    try:
+        ranks = run_mesh_world("b", 2, "gloo", root)
+    except BaseException:
+        for run in runs:
+            stop_train16(run)
+        raise
+    for name in ("path1", "path2"):
+        ref = a[name][0]["nomesh"][0]
+        worst = 0.0
+        for r, res in enumerate(ranks):
+            snaps, walls, launched = res[name]
+            for x, y in zip(ref, snaps, strict=True):
+                worst = max(worst, mesh_match(x, y, exact=False))
+            for x, y in zip(ranks[0][name][0], snaps, strict=True):
+                mesh_match(x, y, exact=True)
+            sizes = res[name + "_k1_sizes"]
+            assert sizes == [20 * 153610] * (MESH_ROUNDS * 5), sizes
+            assert launched["prox_update.launches"] == MESH_ROUNDS * 5, launched
+            _add(total, launched, names)
+            print(f"[mesh16b] {name} rank {r}: round walls "
+                  + ", ".join(f"{w:.1f}" for w in walls) + f" ms (16c beside; {smi}); launches "
+                  f"{launched}; every K1 launch on this rank's 20 rows of the cohort of 40")
+        print(f"[mesh16b] {name}: both ranks' states bitwise equal after every round, without "
+              f"deterministic algorithms; against "
+              f"16a's no-mesh rounds integers exact, floats max |diff| {worst:.3e} "
+              f"(rtol {MESH_RTOL:g}, atol {MESH_ATOL:g})")
+    for r, res in enumerate(ranks):
+        assert res["backend"] == "gloo" and res["refused"] and res["refused"] == res["blocker"]
+    print(f"[mesh16b] run_rounds on the gloo group refused: {ranks[0]['refused']!r}")
+    for r, res in enumerate(ranks):
+        print(f"[mesh16b] rank {r}, no deterministic mode: fixed-order segment add against "
+              f"index_add_ at (40, 153610) into 4 segments, 10 repeats each (ms a call, host "
+              f"clock; {smi}): {res['order']}")
+
+    # --- 16c: the training driver under torchrun, both runs at once
+    try:
+        results = [finish_train16(run) for run in runs]
+    finally:
+        for run in runs:
+            stop_train16(run)
+    out, launched, wall = results[0]
+    print(f"[mesh16c] torchrun --standalone --nproc_per_node 1 chip_smoke.py --train16: "
+          f"repro_torch.launch.train --mesh {' '.join(TRAIN16)}: {wall:.1f} s (beside the next run and 16b), n_clusters {out['n_clusters']}, ARI "
+          f"{out['ari']:.4f}, cluster_avg_acc {out['cluster_avg_acc']:.4f}; launches "
+          f"{ {k: v for k, v in launched.items() if v} }")
+    assert out["n_clusters"] == 4 and out["ari"] >= 0.99, out
+    assert launched["cosine_sim.launches"] > 0, launched
+    _add(total, launched, names)
+    out, launched, wall = results[1]
+    print(f"[mesh16c] ... --mesh {' '.join(TRAIN16_SSM)} (use_pallas): {wall:.1f} s, n_clusters "
+          f"{out['n_clusters']}, ARI {out['ari']:.4f}; launches "
+          f"{ {k: v for k, v in launched.items() if v} }")
+    assert launched["ssm_scan.fwd_launches"] > 0 and launched["ssm_scan.bwd_launches"] > 0
+    assert np.isfinite(out["ari"])
+    _add(total, launched, names)
+    print(f"[mesh16] launches of every rank's mesh runs: {total}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[mesh16] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3894,6 +4378,10 @@ def main() -> int:
     extractor.jl_draws = functools.lru_cache(maxsize=None)(extractor.jl_draws)
     if sys.argv[1:2] == [PARITY_FLAG]:
         return llm_parity_main(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == [MESH_FLAG]:
+        return mesh_rank_main(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == [TRAIN16_FLAG]:
+        return train16_main(json.loads(sys.argv[2]))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3964,6 +4452,8 @@ def main() -> int:
     for k, n in launches15.items():
         kernels[k]["launches"] += n
     kernels["cosine_sim"]["max_abs_err"] = max(kernels["cosine_sim"]["max_abs_err"], k2_err15)
+    for k, n in phase_mesh(smi).items():
+        kernels[k]["launches"] += n
     print(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -152,7 +152,12 @@ def save_server_state(dirpath: str, state, block: bool = True) -> Optional[Futur
     rows), and ``async_buffer.npz`` with deltas in flight. ``rng_key`` is
     written as its raw key words. ``block=False`` copies everything to
     the host now and writes the files from the background writer
-    (returns the Future; ``wait_pending()`` is the barrier)."""
+    (returns the Future; ``wait_pending()`` is the barrier). Under a
+    client-axis mesh (``state.ctx.mesh``) the state is the same on every
+    rank: rank 0 writes, and then every rank waits at a barrier, so the
+    save blocks whatever ``block`` says and every rank can load the files
+    as soon as it returns. No mesh is written: a state saved at one world
+    size resumes at another, or with no mesh."""
     from repro_torch.core.device_clustering import DeviceClusters
 
     os.makedirs(dirpath, exist_ok=True)
@@ -218,6 +223,13 @@ def save_server_state(dirpath: str, state, block: bool = True) -> Optional[Futur
         if buffer_arrays is not None:
             np.savez(os.path.join(dirpath, "async_buffer.npz"), **buffer_arrays)
 
+    mesh = state.ctx.mesh
+    if mesh is not None:
+        from repro_torch.sharding import specs
+        if specs.mesh_rank(mesh) == 0:
+            write()
+        specs.barrier(mesh, state.ctx.device)
+        return None
     if block:
         write()
         return None
@@ -230,7 +242,8 @@ def load_server_state(dirpath: str, state):
     parameter templates; the returned state carries the checkpoint's
     tensors (on the engine's device, in its dtypes), partition (on the
     engine's device too), history, rng position and async buffer. A
-    checkpoint without an async buffer loads with ``buffer=None``."""
+    checkpoint without an async buffer loads with ``buffer=None``. Under a
+    mesh every rank loads the same files onto its own context."""
     from repro_torch.core.clustering import ClusterState
     from repro_torch.core.device_clustering import DeviceClusters
     from repro_torch.engine.async_agg import AsyncBuffer, _Entry

@@ -15,13 +15,26 @@ def _weights(weights, like: torch.Tensor) -> torch.Tensor:
     return w / torch.sum(w)
 
 
-def mean_aggregate(stacked, weights):
-    """FedAvg: sample-size-weighted mean (the paper's default G)."""
-    w = _weights(weights, trees.leaves(stacked)[0])
+def mean_aggregate(stacked, weights, split=None):
+    """FedAvg: sample-size-weighted mean (the paper's default G).
+
+    Under a mesh, ``split`` (``sharding.RowSplit``) names the cohort rows
+    ``stacked`` holds, this rank's, and ``weights`` stays full length: the
+    weights' total and each leaf's weighted sum are local partial sums,
+    each summed over the ranks by one ``all_reduce``."""
+    if split is None:
+        w = _weights(weights, trees.leaves(stacked)[0])
+    else:
+        like = trees.leaves(stacked)[0]
+        w = split.take(torch.as_tensor(weights, dtype=torch.float32, device=like.device))
+        w = w / split.reduce_(torch.sum(w))
 
     def leaf(x):
         wb = w.reshape((-1,) + (1,) * (x.dim() - 1))
-        return torch.sum(x * wb, dim=0).to(x.dtype)
+        out = torch.sum(x * wb, dim=0)
+        if split is not None:
+            split.reduce_(out)
+        return out.to(x.dtype)
 
     return trees.tree_map(leaf, stacked)
 
@@ -70,3 +83,16 @@ AGGREGATORS = {
     "trimmed_mean": trimmed_mean_aggregate,
     "krum": krum_select,
 }
+
+
+def aggregate_omega(name: str, stacked, weights, split=None):
+    """``AGGREGATORS[name](stacked, weights)`` over a cohort whose rows may
+    be split over a mesh's ranks (``split``, this rank's rows in
+    ``stacked``): the mean as partial sums and an ``all_reduce``; the
+    order statistics (median, trimmed mean, Krum) on the full stack,
+    gathered to every rank."""
+    if split is None:
+        return AGGREGATORS[name](stacked, weights)
+    if name == "mean":
+        return mean_aggregate(stacked, weights, split)
+    return AGGREGATORS[name](split.gather(stacked), weights)

@@ -29,6 +29,7 @@ from torch.func import vmap
 
 from repro_torch.core.aggregators import mean_aggregate
 from repro_torch.kernels import ops
+from repro_torch.sharding.specs import segment_sum
 from repro_torch.utils import trees
 
 
@@ -277,21 +278,22 @@ def aggregate(trees_list, weights):
 aggregate_stacked = mean_aggregate
 
 
-def aggregate_segments(stacked, weights, segment_ids, num_segments: int):
+def aggregate_segments(stacked, weights, segment_ids, num_segments: int,
+                       split=None):
     """Per-cluster FedAvg as one batched op: the weighted mean over rows of
     a stacked tree grouped by ``segment_ids`` (cohort row -> cluster
-    index). Segments with no rows come out as zero rows."""
+    index). Segments with no rows come out as zero rows.
+
+    Under a mesh, ``split`` (``sharding.RowSplit``) names the cohort rows
+    ``stacked`` holds, this rank's, and ``weights`` / ``segment_ids`` stay
+    full length: the denominators and then each leaf's numerators are
+    ``sharding.segment_sum``'s partial sums, each summed over the ranks by
+    one ``all_reduce``."""
     x0 = trees.leaves(stacked)[0]
     w = torch.as_tensor(weights, dtype=torch.float32, device=x0.device)
     seg = torch.as_tensor(segment_ids, device=x0.device).long()
-    denom = torch.zeros((num_segments,), dtype=torch.float32,
-                        device=x0.device).index_add_(0, seg, w)
+    local_w = w if split is None else split.take(w)
+    denom = segment_sum(local_w, None, seg, num_segments, split)
     wn = w / denom[seg]
-
-    def leaf(x):
-        contrib = x * wn.reshape((-1,) + (1,) * (x.dim() - 1))
-        out = torch.zeros((num_segments,) + tuple(x.shape[1:]),
-                          dtype=contrib.dtype, device=x.device)
-        return out.index_add_(0, seg, contrib).to(x.dtype)
-
-    return trees.tree_map(leaf, stacked)
+    agg = segment_sum(stacked, wn, seg, num_segments, split)
+    return trees.tree_map(lambda a, x: a.to(x.dtype), agg, stacked)

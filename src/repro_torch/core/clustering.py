@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.specs import ordered_index_add_
 
 
 class UnionFind:
@@ -103,14 +104,19 @@ class ClusterState:
 
     def cluster_means(self) -> Tuple[List[int], torch.Tensor]:
         """Ψ̃ per cluster: (roots, (K̃, D) tensor of member means), one
-        segment sum over the stacked Ψ rows."""
+        segment sum over the stacked Ψ rows, in one fixed order
+        (``sharding.ordered_index_add_``; the card's ``index_add_`` adds
+        with atomics, in an order that changes from run to run), so the
+        means of a state are bitwise the same every time, and every rank
+        of a mesh, each computing them on its own, takes the same merge
+        decisions."""
         cids = sorted(self.reps)
         per = np.fromiter((self.uf.find(c) for c in cids), np.int64, len(cids))
         roots, inv = np.unique(per, return_inverse=True)
         R = torch.stack([self.reps[c] for c in cids])
         idx = torch.as_tensor(inv, device=self.device)
-        mat = torch.zeros((len(roots), R.shape[1]), dtype=torch.float32,
-                          device=self.device).index_add_(0, idx, R)
+        mat = ordered_index_add_(torch.zeros((len(roots), R.shape[1]), dtype=torch.float32,
+                                             device=self.device), idx, R)
         counts = torch.as_tensor(np.bincount(inv).astype(np.float32),
                                  device=self.device)
         return [int(r) for r in roots], mat / counts[:, None]

@@ -42,11 +42,12 @@ rows of it. That copy is the reference's own cost (``.at[].set`` on an
 undonated array copies too) and is cheaper than the alternative of copying
 the bank whenever a state is forked.
 
-Determinism. The segment sum behind the cluster means is ``index_add_``,
-which on CUDA adds floats with atomics in an order that changes from run
-to run. It runs under ``torch.use_deterministic_algorithms(True)``, scoped
-to the call, so the means of a state are bitwise the same every time and
-two runs of the same rounds take the same merge decisions.
+Determinism. ``index_add_`` on CUDA adds floats with atomics in an order
+that changes from run to run, so the segment sum behind the cluster means
+is ``sharding.ordered_index_add_`` (``index_put_`` with ``accumulate``,
+after a stable sort): the means of a state are bitwise the same every
+time, and two runs of the same rounds, or two ranks of a mesh, take the
+same merge decisions.
 
 Scatters with the reference's ``mode="drop"`` write into a buffer with one
 scratch row at index ``capacity`` that is sliced off, because ``index_put_``
@@ -61,7 +62,6 @@ of each transition, so reads never touch the device.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -70,6 +70,7 @@ import torch
 
 from repro_torch.core.clustering import ClusterState
 from repro_torch.kernels import ops, ref
+from repro_torch.sharding.specs import ordered_index_add_
 
 
 def _pow2(n: int) -> int:
@@ -118,19 +119,6 @@ def grow(state: DeviceClusterState, capacity: int) -> DeviceClusterState:
         rep=torch.cat([state.rep, state.rep.new_zeros((cap - old, state.rep.shape[1]))]))
 
 
-@contextlib.contextmanager
-def _deterministic():
-    """``torch.use_deterministic_algorithms(True)`` for the duration, then
-    the caller's setting back."""
-    was, warn = (torch.are_deterministic_algorithms_enabled(),
-                 torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(was, warn_only=warn)
-
-
 def _scatter_drop(x: torch.Tensor, idx: torch.Tensor, values) -> torch.Tensor:
     """New tensor: ``x`` with rows ``idx`` set to ``values``; rows equal to
     ``len(x)`` land in a scratch row that is sliced off (the reference's
@@ -153,12 +141,11 @@ def _segment_means(state: DeviceClusterState):
     cap_t = torch.full_like(root, cap)
     seg = torch.where(state.live, root, cap_t).long()
     d = state.rep.shape[1]
-    with _deterministic():
-        sums = torch.zeros((cap + 1, d), dtype=torch.float32,
-                           device=state.rep.device).index_add_(0, seg, state.rep)
-        counts = torch.zeros((cap + 1,), dtype=torch.float32,
-                             device=state.rep.device).index_add_(
-            0, seg, state.live.to(torch.float32))
+    dev = state.rep.device
+    sums = ordered_index_add_(torch.zeros((cap + 1, d), dtype=torch.float32, device=dev),
+                              seg, state.rep)
+    counts = ordered_index_add_(torch.zeros((cap + 1,), dtype=torch.float32, device=dev),
+                                seg, state.live.to(torch.float32))
     sums[cap] = 0.0                       # dead rows' scratch segment
     means = sums.div_(torch.clamp_min(counts, 1.0)[:, None])
     return root, means, counts

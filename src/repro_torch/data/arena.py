@@ -59,7 +59,7 @@ class ClientArena:
 
     def __init__(self, packed, mask, sizes: np.ndarray, ragged: bool,
                  rows: Optional[np.ndarray] = None, n_rows: Optional[int] = None,
-                 dead: frozenset = frozenset()):
+                 dead: frozenset = frozenset(), mesh=None):
         self.packed = packed
         self.mask = mask
         self.sizes = np.asarray(sizes)
@@ -68,6 +68,7 @@ class ClientArena:
                      if rows is None else np.asarray(rows, np.int64))
         self.n_rows = int(len(self.sizes) if n_rows is None else n_rows)
         self.dead = frozenset(int(c) for c in dead)
+        self.mesh = mesh
         self._device_rows = None
 
     # ------------------------------------------------------------- builders
@@ -153,7 +154,7 @@ class ClientArena:
     def _with(self, **kw) -> "ClientArena":
         args = dict(packed=self.packed, mask=self.mask, sizes=self.sizes,
                     ragged=self.ragged, rows=self.rows, n_rows=self.n_rows,
-                    dead=self.dead)
+                    dead=self.dead, mesh=self.mesh)
         args.update(kw)
         return ClientArena(**args)
 
@@ -294,6 +295,19 @@ class ClientArena:
             raise KeyError(f"client {cid} was compacted away")
         n = int(self.sizes[cid])
         return trees.tree_map(lambda x: x[row, :n], self.packed)
+
+    # ----------------------------------------------------------- sharding
+    def place(self, mesh) -> "ClientArena":
+        """This arena attached to a client-axis mesh (``engine.init``
+        calls it once). Every rank keeps every row, so a cohort gather
+        stays local; the rows a rank trains are its slice of the cohort
+        (``sharding.place_cohort``). The reference splits the rows over
+        its devices instead; per GPU this arena costs what the arena
+        without a mesh costs. The mesh rides every arena derived from
+        this one."""
+        if mesh is None:
+            return self
+        return self._with(mesh=mesh)
 
     # ------------------------------------------------------------- stats
     @property

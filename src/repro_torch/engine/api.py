@@ -45,11 +45,13 @@ from repro_torch.engine.state import (EngineConfig, EngineContext, ServerState,
                                       cast_floating, compute_dtype, on_device,
                                       resolve_device)
 from repro_torch.kernels import _build
+from repro_torch.sharding import specs as shard_specs
 
 
 def init(strategy: str, loss_fn, init_params, clients,
          cfg: Optional[EngineConfig] = None, eval_fn=None,
-         device=None, arena: bool = False, leaf_filter=None) -> ServerState:
+         device=None, arena: bool = False, leaf_filter=None,
+         mesh=None) -> ServerState:
     """Build the static context and the strategy's initial ``ServerState``.
 
     Args:
@@ -74,6 +76,17 @@ def init(strategy: str, loss_fn, init_params, clients,
       leaf_filter: optional Ψ restriction to a parameter subset, called
         with each leaf's ``/``-joined path (LLM anchors:
         ``extractor.llm_leaf_filter``).
+      mesh: optional client-axis ``DeviceMesh`` (``launch.mesh.
+        make_client_mesh``), one process per rank. Each rank trains its
+        contiguous slice of every cohort (the whole cohort where its size
+        does not divide the ranks), every cross-client reduction is a
+        local partial sum plus one ``all_reduce``, and everything else is
+        computed on every rank, so after every round the state is the
+        same on every rank. The engine runs on the mesh's device
+        (``sharding.mesh_device``); the arena's row capacity is aligned
+        to the mesh. Every rank must make the same calls with the same
+        arguments. A mesh of one rank gives the results of no mesh, bit
+        for bit.
 
     With ``cfg.dtype`` other than "float32" the floating leaves of the
     parameters and of every client batch are cast to it; Ψ stays anchored
@@ -81,21 +94,35 @@ def init(strategy: str, loss_fn, init_params, clients,
     objective keep full precision.
     """
     cfg = cfg or EngineConfig()
-    dev = resolve_device(device)
+    dev = _mesh_device(mesh, device) if mesh is not None else resolve_device(device)
     params = psi_anchor = on_device(init_params, dev)
     if cfg.dtype != "float32":
         params = cast_floating(params, compute_dtype(cfg.dtype))
     ctx = EngineContext(loss_fn=loss_fn, init_params=params, clients=[],
                         cfg=cfg, device=dev, eval_fn=eval_fn,
-                        leaf_filter=leaf_filter)
+                        leaf_filter=leaf_filter, mesh=mesh)
     ctx.clients = [ctx.client_batch(c) for c in clients]
     if arena:
-        ctx.arena = ClientArena.from_clients(ctx.clients, device=dev)
+        # the row capacity aligned to the mesh, as the reference aligns it
+        # for its row-split arena; pow2 growth keeps the alignment
+        cap = (shard_specs.align_cohort_chunk(len(ctx.clients), mesh)
+               if mesh is not None else None)
+        ctx.arena = ClientArena.from_clients(ctx.clients, capacity=cap,
+                                             device=dev).place(mesh)
     strat = get_strategy(strategy)
     if strat.needs_extractor:
         ctx.extractor = make_extractor(loss_fn, psi_anchor, cfg.project_dim,
                                        leaf_filter=leaf_filter)
     return strat.init_state(ctx)
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """The engine's device under a mesh: the mesh's (this rank's), which a
+    given ``device`` must agree with in type."""
+    dev = shard_specs.mesh_device(mesh)
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"device {device!r} does not match the mesh's {dev.type!r} ranks")
+    return dev
 
 
 def sample_clients(state: ServerState, unavailable=frozenset()):
@@ -207,6 +234,13 @@ def scan_blockers(state: ServerState) -> Optional[str]:
     if bad:
         return (f"live clients {bad} were compacted out of the arena — "
                 "rebuild it before scanning")
+    if (ctx.mesh is not None and ctx.device.type == "cuda"
+            and shard_specs.mesh_backend(ctx.mesh) != "nccl"):
+        return (f"run_rounds on the card captures the round, collectives "
+                f"included, in a CUDA graph, and a "
+                f"{shard_specs.mesh_backend(ctx.mesh)!r} group cannot be captured "
+                "(it synchronises the host); use an 'nccl' group, or the eager "
+                "run_round loop")
     return None
 
 
@@ -270,10 +304,13 @@ def scan_program(state: ServerState, rounds: int, unavailable=frozenset()):
     if m == 0:
         return None
     carry0, consts, step, finalize, statics = strat.scan_round(ctx, state, pool, m)
+    # a program captured under one mesh (or none) is never replayed under
+    # another: its collectives are baked into the graph
+    statics = statics + (shard_specs.mesh_fingerprint(ctx.mesh),)
     shapes = tuple((tuple(x.shape), str(x.dtype)) for x in _leaves((carry0, consts)))
     cache_key = (f"scan:{state.strategy}:{m}:"
                  f"{hash((_structure((carry0, consts)), shapes, statics))}")
-    program = ctx.cached(cache_key, lambda: RoundProgram(step, ctx.device))
+    program = ctx.cached(cache_key, lambda: RoundProgram(step, ctx.device, ctx.mesh))
     return (lambda c0, cs: program(c0, cs, rounds)), carry0, consts, finalize
 
 
@@ -371,11 +408,15 @@ class RoundProgram:
     there is no eager fallback. The kernels' launch counters are kept
     true under capture (``_build.add_launches``): ``per_round`` holds the
     launches one replay makes. The returned carry is a copy, so the
-    states it goes into never alias the program's buffers."""
+    states it goes into never alias the program's buffers. Under a
+    ``mesh`` (an NCCL group on the card) the step's all-reduces are
+    captured too; one all-reduce before the warm-up makes the
+    communicator, which must exist before a capture."""
 
-    def __init__(self, step, device: torch.device):
+    def __init__(self, step, device: torch.device, mesh=None):
         self.step = step
         self.device = torch.device(device)
+        self.mesh = mesh
         self.graph = None
         self.stream = None
         self.carry = self.consts = self.record = None
@@ -402,6 +443,8 @@ class RoundProgram:
     def _replay(self, carry0, consts, rounds):
         main = torch.cuda.current_stream(self.device)
         if self.carry is None:
+            if self.mesh is not None:
+                shard_specs.barrier(self.mesh, self.device)
             self.stream = torch.cuda.Stream(self.device)
             self.carry = _rebuild(carry0, [x.clone() for x in _leaves(carry0)])
             self.consts = _rebuild(consts, [x.clone() for x in _leaves(consts)])

@@ -221,6 +221,18 @@ class AsyncBuffer:
                               slots, aux)
         return self.replace(payload=p, aux=a)
 
+    def place(self, mesh) -> "AsyncBuffer":
+        """The buffer on a client-axis mesh's rank. Every rank keeps every
+        row (each dispatch writes every rank's rows, gathered), so the row
+        banks only move to the rank's device; a flush's rows are split
+        over the ranks where they are merged (``run_round_async``,
+        ``sharding.place_buffer_rows``). No-op without a mesh."""
+        if mesh is None:
+            return self
+        from repro_torch.sharding import specs
+        pl = lambda t: None if t is None else specs.place_replicated(t, mesh)
+        return self.replace(payload=pl(self.payload), aux=pl(self.aux), psi=pl(self.psi))
+
     def flush(self, t: int, staleness_cap: int, left=frozenset()):
         """Split the in-flight entries at round ``t`` into merged, kept and
         dropped; returns ``(buffer', FlushBatch | None, drops)``.
@@ -281,7 +293,9 @@ def run_round_async(state, client_ids: Optional[Sequence[int]] = None, delays=No
     dispatch order with weights ``count · γ^staleness``.
 
     The record adds ``merged``, ``dropped_stale``, ``dropped_left``,
-    ``in_flight`` and ``max_staleness`` to the strategy's metrics. Raises
+    ``in_flight`` and ``max_staleness`` to the strategy's metrics. Under a
+    client-axis mesh every rank keeps the whole buffer and merges its
+    slice of each flush (``AsyncBuffer.place``). Raises
     ``NotImplementedError`` for strategies without async hooks (ditto,
     ifca, cfl) and ``ValueError`` on an empty cohort."""
     from repro_torch.engine.api import sample_clients
@@ -313,7 +327,7 @@ def run_round_async(state, client_ids: Optional[Sequence[int]] = None, delays=No
     weights = np.asarray(state.sizes, np.float32)[client_ids]
     buf = state.buffer
     if buf is None:
-        buf = AsyncBuffer.fresh(_auto_capacity(m, acfg))
+        buf = AsyncBuffer.fresh(_auto_capacity(m, acfg)).place(ctx.mesh)
     buf, slots = buf.reserve(client_ids, t, t + delays, weights)
     state, buf = strat.async_dispatch(ctx, state, client_ids, buf, slots)
 
@@ -321,6 +335,13 @@ def run_round_async(state, client_ids: Optional[Sequence[int]] = None, delays=No
     if (t + 1) % max(int(acfg.flush_every), 1) == 0:
         buf, batch, drops = buf.flush(t, int(acfg.staleness_cap), state.left)
         if batch is not None:
+            if ctx.mesh is not None:
+                # this rank's slice of the flushed rows: the merge sums it
+                # and all-reduces the partial sums
+                from repro_torch.sharding import specs
+                batch = dataclasses.replace(
+                    batch, payload=specs.place_buffer_rows(batch.payload, ctx.mesh),
+                    aux=specs.place_buffer_rows(batch.aux, ctx.mesh))
             w_eff = staleness_weights(batch.weight, batch.staleness, acfg.staleness_decay)
             state, srec = strat.async_merge(ctx, state, batch, w_eff)
             rec.update(srec)

@@ -198,13 +198,16 @@ class ClusterBank(Mapping):
                            [int(remap.get(r, r)) for r in self.roots])
 
     # ------------------------------------------------------------ merging
-    def merge(self, merges, counts, init_params) -> "ClusterBank":
+    def merge(self, merges, counts, init_params, mesh=None) -> "ClusterBank":
         """Batched Algorithm-1 model merge: θ of each merged group is the
         member-count-weighted mean of its pre-merge models (one gather and
         one weighted segment sum per leaf). ``merges`` is the (keep,
         absorb) list from ``ClusterState.merge_round``; ``counts`` the
         pre-merge {root: members} snapshot; missing models default to
-        ``init_params`` (lazy θ_k = ω₀)."""
+        ``init_params`` (lazy θ_k = ω₀). Under a client-axis ``mesh`` each
+        rank gathers its slice of the merged rows and the segment sums are
+        partial sums plus an ``all_reduce``
+        (``sharding.row_split``)."""
         if not merges:
             return self
         parent: Dict[int, int] = {}
@@ -222,6 +225,7 @@ class ClusterBank(Mapping):
             groups.setdefault(find(r), []).append(r)
 
         from repro_torch.core.bilevel import aggregate_segments
+        from repro_torch.sharding import specs
 
         finals = sorted(groups)
         members = [r for f in finals for r in groups[f]]
@@ -229,7 +233,12 @@ class ClusterBank(Mapping):
                         [len(groups[f]) for f in finals])
         w = np.fromiter((counts.get(r, 1) for r in members),
                         np.float32, len(members))
-        gathered = self.take(members, init_params)
-        agg = aggregate_segments(gathered, w, seg, len(finals))
+        if mesh is None:
+            gathered = self.take(members, init_params)
+            agg = aggregate_segments(gathered, w, seg, len(finals))
+        else:
+            split = specs.row_split(len(members), mesh)
+            gathered = self.take(split.take(np.asarray(members)), init_params)
+            agg = aggregate_segments(gathered, w, seg, len(finals), split)
         absorbed = [r for r in members if r not in groups]
         return self.drop(absorbed).put(finals, agg)

@@ -79,8 +79,10 @@ class EngineConfig:
 @dataclasses.dataclass
 class EngineContext:
     """Static (non-checkpointed) world: functions, data, cached updates,
-    the optional Ψ leaf filter and the optional device-resident
-    ``ClientArena`` of every shard."""
+    the optional Ψ leaf filter, the optional device-resident
+    ``ClientArena`` of every shard and the optional client-axis ``mesh``
+    (a ``torch.distributed`` ``DeviceMesh``, ``launch.mesh``) whose ranks
+    split each cohort's rows."""
     loss_fn: Callable
     init_params: Any
     clients: List[dict]
@@ -90,7 +92,17 @@ class EngineContext:
     leaf_filter: Optional[Callable] = None
     extractor: Optional[Callable] = None
     arena: Optional[Any] = None       # ClientArena: device-resident shards
+    mesh: Optional[Any] = None        # DeviceMesh: cohort rows split over its ranks
     cache: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def mesh_devices(self) -> int:
+        """Ranks along the mesh's client axes (1 without a mesh): the
+        count every split cohort axis is divided by
+        (``sharding.mesh_client_count``)."""
+        if self.mesh is None:
+            return 1
+        from repro_torch.sharding import specs
+        return max(specs.mesh_client_count(self.mesh), 1)
 
     def client_batch(self, batch):
         """A client batch as the engine holds its world: tensors on the

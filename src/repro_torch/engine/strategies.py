@@ -26,6 +26,21 @@ reference's scanned step skips work with ``lax.cond`` (StoCFL's observe,
 merge pass, bank merge and objective; CFL's split seeds), the step does
 the work every round, masked: on the rounds the reference skips, that
 work changes nothing.
+
+Under a client-axis mesh (``EngineContext.mesh``, one process per rank)
+each rank trains its contiguous slice of the cohort (``_split``: a
+``sharding.RowSplit``, the whole cohort when its size does not divide the
+ranks), gathering only its own rows' data; ω's mean, the per-cluster
+``aggregate_segments`` and the eager bank merge are local partial sums
+plus one ``all_reduce``; rows every rank needs (Ditto's personal rows,
+IFCA's losses, CFL's update vectors) come back whole through
+``RowSplit.gather``; the rest (Ψ, the partition, the bank) is computed on
+every rank from the same inputs, so the state stays the same on every
+rank. The float segment sums every rank makes on its own (the row-keyed
+bank merge, CFL's mean update, a cohort that is not split) run in one
+fixed order (``sharding.ordered_index_add_``): the card's ``index_add_``
+would sum them in another order on each rank. Without a mesh no split is
+made and the code is the single-process path.
 """
 from __future__ import annotations
 
@@ -35,13 +50,14 @@ from torch.func import vmap
 
 from repro_torch.core import bilevel
 from repro_torch.core import device_clustering as devclust
-from repro_torch.core.aggregators import AGGREGATORS
+from repro_torch.core.aggregators import aggregate_omega
 from repro_torch.data.arena import take_rows
 from repro_torch.engine import sampler
 from repro_torch.engine.bank import ClusterBank, _pow2 as bank_pow2
 from repro_torch.engine.registry import register
 from repro_torch.engine.state import (EngineContext, ServerState, fresh_rng_key,
                                       fresh_rng_state)
+from repro_torch.sharding import specs as shard_specs
 from repro_torch.utils import trees
 
 _span = torch.profiler.record_function
@@ -64,6 +80,23 @@ def _batches(ctx: EngineContext, ids):
     if ctx.arena is not None:
         return ctx.arena.gather(ids)
     return _stack(ctx, ids)
+
+
+def _split(ctx: EngineContext, n: int):
+    """This rank's share of an ``n``-row cohort under the context's mesh
+    (``sharding.row_split``); None without a mesh."""
+    return None if ctx.mesh is None else shard_specs.row_split(n, ctx.mesh)
+
+
+def _local(split, x):
+    """This rank's rows of a full-length cohort value (ids, roots, a
+    batch); ``x`` itself without a split."""
+    return x if split is None else split.take(x)
+
+
+def _gather(split, tree):
+    """Every rank's rows of a split cohort output, whole on every rank."""
+    return tree if split is None else split.gather(tree)
 
 
 def _append_to_arena(ctx: EngineContext, batch) -> None:
@@ -167,7 +200,7 @@ def merge_bound(state: ServerState, cap: int) -> int:
     return min(bank_pow2(max(k_now + unseen, 1)), cap)
 
 
-def row_bank_merge(rows, has, init, ids, rows_live, new_roots, counts):
+def row_bank_merge(rows, has, init, ids, rows_live, new_roots, counts, ordered=False):
     """``ClusterBank.merge`` over a row-keyed bank (``rows[r]`` the model
     of the cluster rooted at r, ``has[r]`` whether it has one, ``init``
     otherwise): each merged group's rows become their member-count-weighted
@@ -175,9 +208,12 @@ def row_bank_merge(rows, has, init, ids, rows_live, new_roots, counts):
     merge is given by a merge pass's outputs (``rows_live`` pre-merge live
     roots, ``new_roots`` their post-merge roots, ``counts`` their member
     counts; pads = capacity / 0); ``ids`` is ``arange(capacity)``. Segment
-    sums run over ascending rows, ``ClusterBank.merge``'s order. Without a
-    merge it changes nothing: the masked form of the reference's
-    ``lax.cond``. Returns ``(rows, has)``."""
+    sums run over ascending rows, ``ClusterBank.merge``'s order; with
+    ``ordered`` (under a mesh, where every rank merges its own copy of the
+    bank) the float sums run in one fixed order
+    (``sharding.ordered_index_add_``). Without a merge it changes
+    nothing: the masked form of the reference's ``lax.cond``. Returns
+    ``(rows, has)``."""
     cap = ids.numel()
     dev = ids.device
     rl = rows_live.long()
@@ -189,26 +225,28 @@ def row_bank_merge(rows, has, init, ids, rows_live, new_roots, counts):
         0, mapped, counted.to(torch.int32))
     merged = gsize > 1
     absorbed = counted & (mapped != ids)
-    denom = torch.zeros((cap,), dtype=torch.float32, device=dev).index_add_(
-        0, mapped, w_full)[mapped]
+    add = shard_specs.ordered_index_add_ if ordered else (
+        lambda out, idx, src: out.index_add_(0, idx, src))
+    denom = add(torch.zeros((cap,), dtype=torch.float32, device=dev), mapped, w_full)[mapped]
     wn = torch.where(denom > 0, w_full / denom, torch.zeros_like(w_full))
 
     def leaf(r, i):
         full = torch.where(_row_mask(has, r), r, i[None].to(r.dtype))
         contrib = full * _row_mask(wn, full)
-        agg = torch.zeros_like(contrib).index_add_(0, mapped, contrib)
+        agg = add(torch.zeros_like(contrib), mapped, contrib)
         return torch.where(_row_mask(merged, r), agg.to(r.dtype), r)
 
     return trees.tree_map(leaf, rows, init), (has & ~absorbed) | merged
 
 
-def merge_cluster_models(models, merges, counts, init_params):
+def merge_cluster_models(models, merges, counts, init_params, mesh=None):
     """Merge θ along partition merges, each side weighted by its member
     count. ``counts`` is the pre-merge {root: n_members} snapshot.
-    ``ClusterBank`` inputs take the batched path (``bank.merge``); plain
-    dicts the sequential pairwise means (the same math)."""
+    ``ClusterBank`` inputs take the batched path (``bank.merge``, its rows
+    split over ``mesh``'s ranks); plain dicts the sequential pairwise
+    means (the same math)."""
     if isinstance(models, ClusterBank):
-        return models.merge(merges, counts, init_params)
+        return models.merge(merges, counts, init_params, mesh)
     models = dict(models)
     counts = dict(counts)
     for keep, absorb in merges:
@@ -344,7 +382,8 @@ class StoCFLStrategy(Strategy):
         the gather and the bi-level cohort step. ``handshake(new_ids,
         reps) -> reps`` routes the new clients' Ψ on its way to
         ``observe`` (the async round's buffer rows). Returns ``(clusters,
-        models, merges, thetas_i, omegas_i)``; ``state`` is not touched."""
+        models, merges, thetas_i, omegas_i)``, the last two this rank's
+        rows under a mesh; ``state`` is not touched."""
         cfg = ctx.cfg
         clusters = state.clusters.copy()
 
@@ -361,18 +400,20 @@ class StoCFLStrategy(Strategy):
             merges = clusters.merge_round()
         with _span("stocfl.bank_merge"):
             models = merge_cluster_models(state.models, merges, counts,
-                                          ctx.init_params)
+                                          ctx.init_params, ctx.mesh)
 
-        # --- bi-level CFL (lines 14-16): one cohort step
+        # --- bi-level CFL (lines 14-16): one cohort step, over this rank's
+        # rows of the cohort under a mesh
         roots = np.fromiter((clusters.uf.find(int(c)) for c in client_ids),
                             np.int64, len(client_ids))
+        split = _split(ctx, len(client_ids))
         with _span("stocfl.gather"):
-            thetas = models.take(roots, ctx.init_params)
+            thetas = models.take(_local(split, roots), ctx.init_params)
             if cfg.fused_step:
                 # one (C, P) buffer, which the fused update takes over; the
                 # gathered tree is freed here
                 thetas = bilevel.flatten_tree(thetas, batch_dims=1)
-            batches = _batches(ctx, client_ids)
+            batches = _batches(ctx, _local(split, client_ids))
         with _span("stocfl.cohort_update"):
             thetas_i, omegas_i = self._cohort(ctx)(thetas, state.omega, batches)
         return clusters, models, merges, thetas_i, omegas_i
@@ -381,12 +422,16 @@ class StoCFLStrategy(Strategy):
         """The round's aggregation half (lines 17-19): ω by the configured
         aggregator, each cluster's θ by a segment FedAvg over the rows of
         ``cids``, each rooted through ``clusters`` as it stands now; then
-        the metrics. Returns ``(state', {n_clusters, objective})``."""
+        the metrics. Under a mesh ``thetas_i`` / ``omegas_i`` hold this
+        rank's rows of ``cids`` (``_split``). Returns ``(state',
+        {n_clusters, objective})``."""
+        split = _split(ctx, len(cids))
         with _span("stocfl.aggregate"):
-            omega = AGGREGATORS[ctx.cfg.aggregator](omegas_i, w)
+            omega = aggregate_omega(ctx.cfg.aggregator, omegas_i, w, split)
             roots = np.fromiter((clusters.uf.find(int(c)) for c in cids), np.int64, len(cids))
             uroots, seg = np.unique(roots, return_inverse=True)
-            agg = bilevel.aggregate_segments(thetas_i, w, seg, bank_pow2(len(uroots)))
+            agg = bilevel.aggregate_segments(thetas_i, w, seg, bank_pow2(len(uroots)),
+                                             split)
             models = models.put([int(r) for r in uroots], agg)
 
         with _span("stocfl.objective"):
@@ -414,7 +459,9 @@ class StoCFLStrategy(Strategy):
         new clients' Ψ rows are scattered into its Ψ bank and ``observe``
         reads them back from there; the cohort's (θᵢ, ωᵢ) rows land in
         ``slots``. With ``fused_step`` those rows are views of the flat
-        (C, P) buffer K1 wrote; the write copies them out."""
+        (C, P) buffer K1 wrote; the write copies them out. Under a mesh
+        every rank's rows are gathered first: each rank keeps the whole
+        buffer."""
         client_ids = np.asarray(client_ids)
         at = {int(c): int(s) for c, s in zip(client_ids, slots)}
 
@@ -427,12 +474,15 @@ class StoCFLStrategy(Strategy):
 
         clusters, models, _merges, thetas_i, omegas_i = self._train(
             ctx, state, client_ids, handshake)
-        buf = buf.write(slots, thetas_i, omegas_i)
+        split = _split(ctx, len(client_ids))
+        buf = buf.write(slots, _gather(split, thetas_i), _gather(split, omegas_i))
         return state.replace(models=models, clusters=clusters), buf
 
     def async_merge(self, ctx, state, batch, weights):
         """``_aggregate`` over one flush: each delta re-roots through the
-        current partition, so merges made while it was in flight count."""
+        current partition, so merges made while it was in flight count.
+        Under a mesh the batch's rows are this rank's slice of the flush
+        (``run_round_async``)."""
         w = torch.as_tensor(weights, device=ctx.device)
         return self._aggregate(ctx, state, state.clusters, state.models, batch.cids,
                                batch.payload, batch.aux, w)
@@ -506,9 +556,14 @@ class StoCFLStrategy(Strategy):
                   rows0, has0)
         cohort = self._cohort(ctx)
         psi = ctx.extractor
-        aggregate = AGGREGATORS[cfg.aggregator]
+        aggregator = cfg.aggregator
         fused = bool(cfg.fused_step)
         k_bound = merge_bound(state, cap)
+        # under a mesh: this rank's cohort rows; Ψ, the partition and the
+        # row-keyed bank (its masked merge included, its sums in a fixed
+        # order) run on every rank, as the reference's scan keeps them
+        # replicated
+        split, mesh = _split(ctx, m), ctx.mesh
 
         def step(carry, cs):
             key, omega, parent, live, rep, rows, has = carry
@@ -527,22 +582,23 @@ class StoCFLStrategy(Strategy):
                     dcs, tau, k_bound)
             with _span("stocfl.bank_merge"):
                 rows, has = row_bank_merge(rows, has, cs["init"], ids_arr, rows_live,
-                                           new_roots, counts_c)
+                                           new_roots, counts_c, ordered=mesh is not None)
             with _span("stocfl.gather"):
                 r_ids = dcs.parent[ids].long()      # fully compressed roots
-                has_r = has[r_ids]
+                r_loc = _local(split, r_ids)
+                has_r = has[r_loc]
                 thetas = trees.tree_map(
                     lambda r, init: torch.where(_row_mask(has_r, r),
-                                                torch.index_select(r, 0, r_ids),
+                                                torch.index_select(r, 0, r_loc),
                                                 init[None].to(r.dtype)),
                     rows, cs["init"])
                 if fused:
                     thetas = bilevel.flatten_tree(thetas, batch_dims=1)
             with _span("stocfl.cohort_update"):
-                thetas_i, omegas_i = cohort(thetas, omega, batches)
+                thetas_i, omegas_i = cohort(thetas, omega, _local(split, batches))
             with _span("stocfl.aggregate"):
                 w = cs["sizes"][ids]
-                omega = aggregate(omegas_i, w)
+                omega = aggregate_omega(aggregator, omegas_i, w, split)
                 # per-cluster FedAvg over compact cohort slots (the first
                 # position of each root), then a scatter of the touched rows
                 pos = torch.arange(m, device=dev)
@@ -550,7 +606,7 @@ class StoCFLStrategy(Strategy):
                                       dim=1)
                 is_first = firsts == pos
                 slot = (torch.cumsum(is_first.to(torch.int64), 0) - 1)[firsts]
-                agg = bilevel.aggregate_segments(thetas_i, w, slot, m)
+                agg = bilevel.aggregate_segments(thetas_i, w, slot, m, split)
                 target = torch.where(is_first, r_ids, cap)
                 rows = trees.tree_map(
                     lambda r, a: devclust._scatter_drop(r, target, a[slot].to(r.dtype)),
@@ -688,22 +744,27 @@ class FedAvgStrategy(Strategy):
 
     def round(self, ctx, state, client_ids):
         ids = np.asarray(client_ids)
-        outs = self._upd(ctx)(state.omega, _batches(ctx, ids))
-        omega = bilevel.aggregate_stacked(outs, _weights(state, ids))
+        split = _split(ctx, len(ids))
+        outs = self._upd(ctx)(state.omega, _batches(ctx, _local(split, ids)))
+        omega = bilevel.aggregate_stacked(outs, _weights(state, ids), split)
         return state.replace(omega=omega), {"sampled": len(ids)}
 
     def async_dispatch(self, ctx, state, client_ids, buf, slots):
         """Broadcast ω and run the cohort's local SGD (the round's update),
-        the local params scattered into ``slots``."""
+        the local params scattered into ``slots`` (under a mesh, every
+        rank's rows: each rank keeps the whole buffer)."""
         ids = np.asarray(client_ids)
-        outs = self._upd(ctx)(state.omega, _batches(ctx, ids))
-        return state, buf.write(slots, outs)
+        split = _split(ctx, len(ids))
+        outs = self._upd(ctx)(state.omega, _batches(ctx, _local(split, ids)))
+        return state, buf.write(slots, _gather(split, outs))
 
     def async_merge(self, ctx, state, batch, weights):
         """The weighted mean of the flushed local params under the
-        staleness-effective weights (the round's ``aggregate_stacked``)."""
+        staleness-effective weights (the round's ``aggregate_stacked``),
+        over this rank's slice of them under a mesh."""
         w = torch.as_tensor(weights, device=ctx.device)
-        return state.replace(omega=bilevel.aggregate_stacked(batch.payload, w)), {}
+        omega = bilevel.aggregate_stacked(batch.payload, w, _split(ctx, batch.n))
+        return state.replace(omega=omega), {}
 
     def scan_round(self, ctx, state, pool, m):
         """FedAvg / FedProx as a step: draw, gather, the eager round's local
@@ -714,11 +775,13 @@ class FedAvgStrategy(Strategy):
         consts = dict(_arena_consts(ctx), pool=torch.as_tensor(pool, device=dev),
                       sizes=_sizes_f32(state))
 
+        split = _split(ctx, m)
+
         def step(carry, cs):
             key, omega = carry
             key, ids = sampler.draw(key, cs["pool"], m)
-            outs = upd(omega, _gather_scan(cs, ids, ragged))
-            omega = bilevel.aggregate_stacked(outs, cs["sizes"][ids])
+            outs = upd(omega, _gather_scan(cs, _local(split, ids), ragged))
+            omega = bilevel.aggregate_stacked(outs, cs["sizes"][ids], split)
             return (key, omega), {"sampled": _count(m, dev)}
 
         def finalize(state, carry, ys, rounds):
@@ -761,15 +824,19 @@ class DittoStrategy(Strategy):
     def round(self, ctx, state, client_ids):
         """The global step and the personal step read the same cohort
         batch; each personal row is copied out of the cohort's output, so a
-        client's row does not hold its round's whole buffer alive."""
+        client's row does not hold its round's whole buffer alive. Under a
+        mesh each rank trains its rows and the personal rows are gathered
+        to every rank."""
         ids = np.asarray(client_ids)
         gupd, pupd = self._upds(ctx)
-        batches = _batches(ctx, ids)
+        split = _split(ctx, len(ids))
+        loc = _local(split, ids)
+        batches = _batches(ctx, loc)
         g_outs = gupd(state.omega, batches)
         v_stack = trees.tree_map(lambda *xs: torch.stack(xs),
-                                 *[state.personal[int(c)] for c in ids])
-        v_outs = pupd(v_stack, state.omega, batches)
-        omega = bilevel.aggregate_stacked(g_outs, _weights(state, ids))
+                                 *[state.personal[int(c)] for c in loc])
+        v_outs = _gather(split, pupd(v_stack, state.omega, batches))
+        omega = bilevel.aggregate_stacked(g_outs, _weights(state, ids), split)
         personal = dict(state.personal)
         for j, c in enumerate(ids):
             personal[int(c)] = trees.tree_map(lambda x: x[j].clone(), v_outs)
@@ -791,15 +858,17 @@ class DittoStrategy(Strategy):
             *[state.personal[i if i < n else 0] for i in range(capn)])
         consts = dict(_arena_consts(ctx), pool=torch.as_tensor(pool, device=dev),
                       sizes=_sizes_f32(state))
+        split = _split(ctx, m)
 
         def step(carry, cs):
             key, omega, personal = carry
             key, ids = sampler.draw(key, cs["pool"], m)
-            batches = _gather_scan(cs, ids, ragged)
+            loc = _local(split, ids)
+            batches = _gather_scan(cs, loc, ragged)
             g_outs = gupd(omega, batches)
-            v = trees.tree_map(lambda p: torch.index_select(p, 0, ids), personal)
-            v_outs = pupd(v, omega, batches)
-            omega = bilevel.aggregate_stacked(g_outs, cs["sizes"][ids])
+            v = trees.tree_map(lambda p: torch.index_select(p, 0, loc), personal)
+            v_outs = _gather(split, pupd(v, omega, batches))
+            omega = bilevel.aggregate_stacked(g_outs, cs["sizes"][ids], split)
             personal = trees.tree_map(lambda p, x: p.index_copy(0, ids, x.to(p.dtype)),
                                       personal, v_outs)
             return (key, omega, personal), {"sampled": _count(m, dev)}
@@ -874,21 +943,26 @@ class IFCAStrategy(Strategy):
             losses, (None, 0), ctx.cfg.cohort_chunk))
 
     def choices(self, ctx, state, client_ids, batches=None) -> np.ndarray:
-        """Each client's hypothesis: the first argmin of its losses."""
+        """Each client's hypothesis: the first argmin of its losses. Under
+        a mesh ``batches`` holds this rank's rows of the cohort and the
+        losses are gathered to every rank."""
+        split = _split(ctx, len(client_ids))
         if batches is None:
-            batches = _batches(ctx, np.asarray(client_ids))
+            batches = _batches(ctx, _local(split, np.asarray(client_ids)))
         hyps = state.models.take(np.arange(ctx.cfg.n_models), ctx.init_params)
-        return np.argmin(self._choice(ctx)(hyps, batches).cpu().numpy(), axis=1)
+        losses = _gather(split, self._choice(ctx)(hyps, batches))
+        return np.argmin(losses.cpu().numpy(), axis=1)
 
     def round(self, ctx, state, client_ids):
         ids = np.asarray(client_ids)
-        batches = _batches(ctx, ids)
+        split = _split(ctx, len(ids))
+        batches = _batches(ctx, _local(split, ids))
         choices = self.choices(ctx, state, ids, batches)
-        thetas = state.models.take(choices, ctx.init_params)
+        thetas = state.models.take(_local(split, choices), ctx.init_params)
         outs = self._upd(ctx)(thetas, batches)
         w = _weights(state, ids)
         um, seg = np.unique(choices, return_inverse=True)
-        agg = bilevel.aggregate_segments(outs, w, seg, bank_pow2(len(um)))
+        agg = bilevel.aggregate_segments(outs, w, seg, bank_pow2(len(um)), split)
         models = state.models.put([int(m) for m in um], agg)
         return state.replace(models=models), {"sampled": len(ids)}
 
@@ -905,16 +979,18 @@ class IFCAStrategy(Strategy):
         rows0 = state.models.take(np.arange(n_models), ctx.init_params)
         consts = dict(_arena_consts(ctx), pool=torch.as_tensor(pool, device=dev),
                       sizes=_sizes_f32(state))
+        split = _split(ctx, m)
 
         def step(carry, cs):
             key, rows = carry
             key, ids = sampler.draw(key, cs["pool"], m)
-            batches = _gather_scan(cs, ids, ragged)
-            choices = torch.argmin(choice(rows, batches), dim=1)
-            thetas = trees.tree_map(lambda r: torch.index_select(r, 0, choices), rows)
+            batches = _gather_scan(cs, _local(split, ids), ragged)
+            choices = torch.argmin(_gather(split, choice(rows, batches)), dim=1)
+            c_loc = _local(split, choices)
+            thetas = trees.tree_map(lambda r: torch.index_select(r, 0, c_loc), rows)
             outs = upd(thetas, batches)
             w = cs["sizes"][ids]
-            agg = bilevel.aggregate_segments(outs, w, choices, n_models)
+            agg = bilevel.aggregate_segments(outs, w, choices, n_models, split)
             present = torch.zeros((n_models,), dtype=torch.int32, device=dev).index_add_(
                 0, choices, torch.ones_like(choices, dtype=torch.int32)) > 0
             rows = trees.tree_map(
@@ -955,10 +1031,14 @@ class CFLStrategy(Strategy):
 
     def _core(self, ctx):
         """The whole CFL round over a fixed L-client layout: ``(assign
-        (L,), k, model rows (L, ...), batches, sizes) -> (assign', k',
-        rows')``, the reference's jitted ``_core``; ``k`` and ``k'`` are
-        0-d device tensors (``k`` may be an int). The eager round and the
-        ``run_rounds`` step both call it.
+        (L,), k, model rows (L, ...), batches, sizes, split) -> (assign',
+        k', rows')``, the reference's jitted ``_core``; ``k`` and ``k'``
+        are 0-d device tensors (``k`` may be an int). The eager round and
+        the ``run_rounds`` step both call it. Under a mesh ``batches``
+        holds this rank's rows (``split``): each rank trains those, the
+        update vectors are gathered to every rank for the split
+        statistics, and the per-cluster FedAvg is a partial sum plus an
+        ``all_reduce``.
 
         Every client trains from its cluster's model; per-cluster FedAvg
         and the Sattler split statistics are segment reductions over the
@@ -971,24 +1051,29 @@ class CFLStrategy(Strategy):
         every round, where the reference's ``lax.cond`` skips them on
         rounds with no split candidate; only the candidates' seeds are
         used. No host read."""
-        cfg = ctx.cfg
+        cfg, mesh = ctx.cfg, ctx.mesh
 
         def build():
             upd = bilevel.chunk_map(_cohort_sgd(ctx), (0, 0), cfg.cohort_chunk)
 
-            def core(assign, k, rows, batches, sizes):
+            def core(assign, k, rows, batches, sizes, split=None):
                 L, dev = assign.numel(), assign.device
-                thetas = trees.tree_map(lambda R: torch.index_select(R, 0, assign), rows)
+                a_loc = _local(split, assign)
+                thetas = trees.tree_map(lambda R: torch.index_select(R, 0, a_loc), rows)
                 outs = upd(thetas, batches)
                 deltas = trees.tree_map(torch.sub, outs, thetas)
-                flat = vmap(trees.tree_flatten_vector)(deltas)          # (L, d)
+                flat = _gather(split, vmap(trees.tree_flatten_vector)(deltas))   # (L, d)
                 norms = torch.linalg.vector_norm(flat, dim=1)
                 ks = torch.arange(L, device=dev)
                 cnt = torch.zeros(L, dtype=torch.int64, device=dev).index_add_(
                     0, assign, torch.ones_like(assign))
-                new_models = bilevel.aggregate_segments(outs, sizes, assign, L)
-                mean_g = (torch.zeros_like(flat).index_add_(0, assign, flat)
-                          / cnt.clamp(min=1)[:, None])
+                new_models = bilevel.aggregate_segments(outs, sizes, assign, L, split)
+                g_sum = torch.zeros_like(flat)
+                if mesh is None:
+                    g_sum.index_add_(0, assign, flat)
+                else:                                   # every rank sums it
+                    shard_specs.ordered_index_add_(g_sum, assign, flat)
+                mean_g = g_sum / cnt.clamp(min=1)[:, None]
                 mean_norm = torch.linalg.vector_norm(mean_g, dim=1)
                 # empty segments stay -inf, as jax.ops.segment_max leaves them
                 max_norm = torch.full((L,), -torch.inf, device=dev).scatter_reduce_(
@@ -1071,9 +1156,10 @@ class CFLStrategy(Strategy):
         live, assign, k, rows = self._matrix(ctx, state)
         sizes = torch.as_tensor(np.asarray(state.sizes, np.float32)[live],
                                 device=ctx.device)
+        split = _split(ctx, len(live))
         assign2, k2, rows2 = self._core(ctx)(
             torch.as_tensor(assign, device=ctx.device), k, rows,
-            _batches(ctx, live), sizes)
+            _batches(ctx, _local(split, live)), sizes, split)
         members, models = self._untangle(live, assign2.cpu().numpy(), int(k2), rows2)
         state = state.replace(members=members, models=models)
         return state, {"n_clusters": len(members),
@@ -1094,11 +1180,12 @@ class CFLStrategy(Strategy):
                                             device=dev))
         carry0 = (torch.as_tensor(assign, device=dev),
                   torch.tensor(k, dtype=torch.int64, device=dev), rows)
+        split = _split(ctx, L)
 
         def step(carry, cs):
             assign, k, rows = carry
-            assign, k, rows = core(assign, k, rows, _gather_scan(cs, cs["live"], ragged),
-                                   cs["sizes"])
+            batches = _gather_scan(cs, _local(split, cs["live"]), ragged)
+            assign, k, rows = core(assign, k, rows, batches, cs["sizes"], split)
             return (assign, k, rows), {"n_clusters": k.to(torch.int32),
                                        "sampled": _count(L, dev)}
 

@@ -26,9 +26,16 @@ Two modes:
           --rounds 10 --clients 8 --domains 2
 
 It runs on the card unless ``--device cpu`` is given; with no GPU and no
-``--device cpu`` it raises instead of running on the CPU. ``--mesh`` and
-``--compile-cache`` are the reference's flags for parts not ported yet
-(ROADMAP.md queue 1 items 4 and 1); each raises ``NotImplementedError``.
+``--device cpu`` it raises instead of running on the CPU. ``--mesh``
+splits each cohort over a ``("clients",)`` mesh of the default process
+group's ranks (``launch.mesh.make_client_mesh``), one process per rank;
+the multi-GPU entry point is
+
+      torchrun --standalone --nproc_per_node N -m repro_torch.launch.train --mesh ...
+
+and without ``torchrun`` it is a world of one. Only rank 0 prints.
+``--compile-cache`` is the reference's flag for a part not ported yet
+(ROADMAP.md queue 1 item 1); it raises ``NotImplementedError``.
 Parameters are drawn with ``torch.Generator``, so for one seed they are
 not the reference's ``jax.random`` draws.
 """
@@ -47,8 +54,25 @@ from repro_torch.core import adjusted_rand_index
 from repro_torch.core.extractor import llm_leaf_filter
 from repro_torch.data import make_federation, synthetic_lm_batch
 from repro_torch.launch import device_of
+from repro_torch.launch.mesh import make_client_mesh
 from repro_torch.models import simple
 from repro_torch.models.registry import build
+from repro_torch.sharding import specs as shard_specs
+from repro_torch.utils.logging import process_rank
+
+
+def _say(*args, **kw) -> None:
+    """``print`` on rank 0 only (every process is rank 0 without a group)."""
+    if process_rank() == 0:
+        print(*args, **kw)
+
+
+def _mesh_and_device(args):
+    """``(mesh or None, device)``: under ``--mesh`` the rank's device."""
+    if not args.mesh:
+        return None, device_of(args.device)
+    mesh = make_client_mesh(device=args.device)
+    return mesh, shard_specs.mesh_device(mesh)
 
 
 def _generator(dev, seed: int) -> torch.Generator:
@@ -63,7 +87,7 @@ def _engine_cfg(args) -> engine.EngineConfig:
         # needs the device partition (run_rounds preconditions)
         rng_backend = "device"
         if args.algo == "stocfl" and cluster_backend != "device":
-            print("--scan-rounds: forcing --cluster-backend device")
+            _say("--scan-rounds: forcing --cluster-backend device")
             cluster_backend = "device"
     async_cfg = None
     if getattr(args, "async_mode", False):
@@ -95,7 +119,7 @@ def _churn_timeline(args, n_clusters: int):
 
 
 def run_classification(args) -> dict:
-    dev = device_of(args.device)
+    mesh, dev = _mesh_and_device(args)
     clients, true_cluster, test_sets = make_federation(
         args.setting, n_clients=args.clients, seed=args.seed)
 
@@ -107,7 +131,7 @@ def run_classification(args) -> dict:
     t0 = time.time()
     arena = args.arena or args.scan_rounds   # the captured loop gathers from the arena
     st = engine.init(args.algo, loss, params, clients, _engine_cfg(args),
-                     eval_fn=evalf, device=dev, arena=arena)
+                     eval_fn=evalf, device=dev, arena=arena, mesh=mesh)
     out = {"algo": args.algo, "rounds": args.rounds}
     log_every = max(args.rounds // 10, 1)
     if args.churn:
@@ -132,14 +156,14 @@ def run_classification(args) -> dict:
         for t in range(args.rounds):
             st, rec = engine.run_round_async(st)
             if t % log_every == 0:
-                print(f"round {t}: {rec}")
+                _say(f"round {t}: {rec}")
     elif args.scan_rounds:
         st = engine.run_rounds(st, args.rounds)   # one captured round body, replayed
         for t, rec in enumerate(st.history):
             if t % log_every == 0:
-                print(f"round {t}: {rec}")
+                _say(f"round {t}: {rec}")
     else:
-        st = engine.run(st, args.rounds, log_every=log_every)
+        st = engine.run(st, args.rounds, log_every=log_every if process_rank() == 0 else 0)
     res = engine.evaluate(st, test_sets, true_cluster)
     out.update({"cluster_avg_acc": res["cluster_avg"],
                 "wall_s": round(time.time() - t0, 1)})
@@ -154,13 +178,13 @@ def run_classification(args) -> dict:
         # the JSON summary below overlaps the checkpoint write;
         # wait_pending() waits for it before returning
         save_server_state(args.save, st, block=False)
-    print(json.dumps(out, indent=1))
+    _say(json.dumps(out, indent=1))
     wait_pending()
     return out
 
 
 def run_llm(args) -> dict:
-    dev = device_of(args.device)
+    mesh, dev = _mesh_and_device(args)
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build(cfg)
     clients, true_cluster = [], []
@@ -177,13 +201,13 @@ def run_llm(args) -> dict:
                                cluster_backend=args.cluster_backend,
                                fused_step=args.fused_step, dtype=args.dtype)
     st = engine.init("stocfl", model.loss_fn, params, clients, ecfg, device=dev,
-                     leaf_filter=llm_leaf_filter, arena=args.arena)
+                     leaf_filter=llm_leaf_filter, arena=args.arena, mesh=mesh)
     t0 = time.time()
     for t in range(args.rounds):
         st, rec = engine.run_round(st)
         with torch.no_grad():
             loss0 = float(model.loss_fn(st.omega, st.ctx.clients[0]))
-        print(f"round {t}: clusters={rec['n_clusters']} omega_loss={loss0:.4f}")
+        _say(f"round {t}: clusters={rec['n_clusters']} omega_loss={loss0:.4f}")
     assign = st.clusters.assignment()
     ids = sorted(assign)
     ari = adjusted_rand_index([assign[c] for c in ids], [true_cluster[c] for c in ids])
@@ -191,7 +215,7 @@ def run_llm(args) -> dict:
            "rounds": args.rounds, "wall_s": round(time.time() - t0, 1)}
     if args.save:
         save_server_state(args.save, st, block=False)
-    print(json.dumps(out, indent=1))
+    _say(json.dumps(out, indent=1))
     wait_pending()
     return out
 
@@ -206,8 +230,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default=None, help="LLM mode: assigned arch id")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard the engine over a client mesh (not ported yet: "
-                         "raises, ROADMAP.md queue 1 item 4)")
+                    help="split each cohort over a (\"clients\",) mesh of the process "
+                         "group's ranks (torchrun --nproc_per_node N; a world of one "
+                         "without torchrun)")
     ap.add_argument("--arena", action="store_true",
                     help="pack client shards into a device-resident arena "
                          "(cohort = one gather instead of a per-round restack)")
@@ -283,13 +308,15 @@ def main(argv=None) -> dict:
         raise SystemExit("--async is host-orchestrated (the delta buffer "
                          "bookkeeping lives on the host) and cannot be "
                          "combined with --scan-rounds")
-    if args.mesh:
-        raise NotImplementedError("--mesh: sharding the engine over a device mesh is "
-                                  "not ported yet: ROADMAP.md queue 1 item 4")
     if args.compile_cache is not None:
         raise NotImplementedError("--compile-cache: a persistent compilation cache is "
                                   "not ported yet: ROADMAP.md queue 1 item 1")
-    return run_llm(args) if args.arch else run_classification(args)
+    owns_group = args.mesh and not torch.distributed.is_initialized()
+    try:
+        return run_llm(args) if args.arch else run_classification(args)
+    finally:
+        if owns_group and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

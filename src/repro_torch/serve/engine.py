@@ -114,8 +114,9 @@ class ServeEngine:
                 f"max_len={cfg.max_len} exceeds the model's sliding "
                 f"window ({window}); the modular cache layout would wrap")
         if mesh is not None:
-            raise NotImplementedError("serving over a mesh is not ported yet: "
-                                      "ROADMAP.md queue 1 item 4")
+            raise NotImplementedError("serving over a mesh (ServeEngine(mesh=...), "
+                                      "place_decode_state) is not ported yet: ROADMAP.md "
+                                      "queue 1 item 4, its serving half")
         if not state.models:
             raise ValueError("ServerState has no cluster models to serve")
         self.model = model

@@ -151,7 +151,11 @@ def simulate(state, timeline: Timeline, rounds: Optional[int] = None,
         no eval point, no cohort quantum) through ``engine.run_rounds`` in
         power-of-two chunks: on the card each is a replay of the captured
         round. States that ``run_rounds`` refuses (``scan_blockers``) run
-        the span eagerly.
+        the span eagerly. When the state's context carries a client-axis
+        mesh, rounds and spans run over it unchanged: every rank makes the
+        same seeded draws, joins and leaves, so churn boundaries hold on
+        every rank (a ``gloo`` group on the card is refused by
+        ``scan_blockers`` and runs its spans eagerly).
       async_mode: drive every round through ``engine.run_round_async``
         (stocfl, fedavg, fedprox). A ``Straggle`` no longer drops its
         victims: each reports back one round late (the same seeded draw),

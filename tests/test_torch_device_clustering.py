@@ -348,9 +348,10 @@ def test_empty_and_singleton_edge_cases():
 
 
 def test_cluster_means_are_deterministic():
-    """The segment sum runs in deterministic mode, scoped to the call: the
-    means of one state are bitwise equal computed twice, and the caller's
-    setting is left as it was."""
+    """The segment sum runs in one fixed order (``sharding.
+    ordered_index_add_``): the means of one state are bitwise equal
+    computed twice, and the caller's deterministic-algorithms setting is
+    left as it was."""
     labels = [0, 1, 0, 1, 2, 2, 0]
     b = tdc.DeviceClusters(0.8)
     b.observe(range(7), _unit_reps(labels, seed=2))

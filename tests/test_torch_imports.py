@@ -56,6 +56,9 @@ SLICE10 = ("repro_torch.models.moe", "repro_torch.models.hybrid",
            "repro_torch.launch.train")
 # the encoder-decoder and VLM families
 SLICE11 = ("repro_torch.models.encdec", "repro_torch.models.vlm")
+# the client-axis mesh
+SLICE12 = ("repro_torch.sharding", "repro_torch.sharding.specs",
+           "repro_torch.launch.mesh", "repro_torch.utils.logging")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -73,6 +76,7 @@ def test_importing_every_module_loads_no_jax():
     assert set(SLICE9) <= set(names), sorted(set(SLICE9) - set(names))
     assert set(SLICE10) <= set(names), sorted(set(SLICE10) - set(names))
     assert set(SLICE11) <= set(names), sorted(set(SLICE11) - set(names))
+    assert set(SLICE12) <= set(names), sorted(set(SLICE12) - set(names))
     assert bad == "", f"port imports pulled in {bad}"
 
 

@@ -8,12 +8,15 @@ is replaced here by one that hands over the reference's initial MLP
 parameters through numpy. Then ``ari`` and ``n_clusters`` are equal and
 the accuracies agree within 1e-5. Also: the printed JSON has the
 reference's keys in both modes, ``--save`` writes the reference's
-checkpoint files, ``--mesh`` and ``--compile-cache`` raise naming their
-ROADMAP.md items, and without ``--device cpu`` and without a GPU the
+checkpoint files, ``--compile-cache`` raises naming its ROADMAP.md item,
+``--mesh`` runs a world of one (and, under ``torchrun``, two ranks) that
+prints the JSON once, and without ``--device cpu`` and without a GPU the
 driver raises instead of running on the CPU.
 """
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -28,6 +31,8 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.checkpoint import load_server_state  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import simple as tsimple  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ATOL = 1e-5
 CLASSIFY = ["--rounds", "3", "--clients", "24", "--device", "cpu"]
@@ -103,12 +108,43 @@ def test_main_prints_the_reference_json_in_both_modes(capsys):
     assert out["arch"] == "zamba2-1.2b" and np.isfinite(out["ari"])
 
 
-@pytest.mark.parametrize("flag,item", [(["--mesh"], "queue 1 item 4"),
+@pytest.mark.parametrize("flag,item", [(["--compile-cache", "auto"], "queue 1 item 1"),
                                        (["--compile-cache"], "queue 1 item 1"),
                                        (["--compile-cache", "/nonexistent"], "queue 1 item 1")])
 def test_unported_flags_raise_naming_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(CLASSIFY + flag)
+
+
+def _same_but_wall(a, b):
+    return {k: v for k, v in a.items() if k != "wall_s"} == \
+        {k: v for k, v in b.items() if k != "wall_s"}
+
+
+def test_mesh_runs_a_world_of_one_and_prints_the_json_once(capsys):
+    """Without ``torchrun`` ``--mesh`` is a world of one over an in-process
+    store, which the driver tears down again; its result is the run
+    without a mesh."""
+    out = ttrain.main(CLASSIFY + ["--sample-rate", "0.5", "--mesh"])
+    text = capsys.readouterr().out
+    assert text.count('"algo"') == 1 and _last_json(text) == out
+    assert not torch.distributed.is_initialized()
+    assert _same_but_wall(out, ttrain.main(CLASSIFY + ["--sample-rate", "0.5"]))
+
+
+def test_mesh_under_torchrun_prints_one_json_from_rank_zero(tmp_path):
+    """Two CPU ranks under ``torchrun --standalone``: one JSON, rank 0's,
+    with the world of one's clustering."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
+    argv = CLASSIFY + ["--sample-rate", "0.5", "--mesh"]
+    run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node", "2", "-m", "repro_torch.launch.train"] + argv,
+                         env=env, cwd=str(tmp_path), capture_output=True, text=True,
+                         timeout=120)
+    assert run.returncode == 0, run.stderr[-4000:]
+    assert run.stdout.count('"algo"') == 1
+    out = _last_json(run.stdout)
+    assert out["n_clusters"] == 4 and out["ari"] == 1.0
 
 
 def test_async_with_scan_rounds_is_refused():
