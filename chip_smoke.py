@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fifteen phases, each printing its lines; any failure exits non-zero and
+Seventeen phases, each printing its lines; any failure exits non-zero and
 prints no result.
 
 1. Build: compile the CUDA kernels of ``kernels/csrc`` with nvcc.
@@ -227,6 +227,20 @@ prints no result.
    with ``--mesh`` on the rotated setting (4 clusters, ARI 1) and on
    falcon-mamba smoke with ``use_pallas``. Every rank's launches are
    added to the kernels line.
+17. The model axis and serving over a mesh, ranks again subprocesses.
+   (a) One NCCL rank on ``make_host_mesh()`` (1 x 1): qwen2-1.5b at full
+   width in fp32 (TF32 off) through ``launch.steps.lower_step``'s train
+   step (StoCFL's bi-level step, K1 on each rank's local shards) at
+   global batch 2 x 256 tokens, prefill, 8 decode steps and the Psi
+   step, each bitwise equal to the same step without a mesh in the same
+   process; K1's launches counted and its first launch held bitwise
+   against ``ref.prox_update_ref_`` on the step's own operands; the peak
+   memory. (b) ``ServeEngine(mesh=make_client_mesh())`` over qwen2-1.5b
+   at full width, 2 cluster groups, 8 requests, on one NCCL rank and on
+   two ``gloo`` ranks on the card: every rank's tokens, routes and stats
+   equal; tokens equal the engine without a mesh (on the same routes)
+   under the near-tie rule; each rank holds K / ranks groups; each
+   rank's peak.
 
 The line before the last is one JSON object describing every kernel of the
 paths; the last line is ``{"ok": true, "device": {...}}``.
@@ -236,6 +250,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4139,10 +4154,11 @@ def mesh_rank_main(spec) -> int:
     return 0
 
 
-def run_mesh_world(part, world, backend, root):
-    """Start ``world`` ranks of ``mesh_rank_main`` and wait for them; a
-    rank that fails or outlasts MESH_TIMEOUT_S fails the phase. Returns
-    each rank's results."""
+def run_mesh_world(part, world, backend, root, flag=MESH_FLAG):
+    """Start ``world`` ranks of ``mesh_rank_main`` (``steps_rank_main``
+    with ``flag=STEPS_FLAG``) and wait for them; a rank that fails or
+    outlasts MESH_TIMEOUT_S fails the phase. Returns each rank's
+    results."""
     import pickle
     sys.stdout.flush()
     store = os.path.join(root, f"store_{part}")
@@ -4150,9 +4166,9 @@ def run_mesh_world(part, world, backend, root):
     for rank in range(world):
         out = os.path.join(root, f"{part}_rank{rank}.pkl")
         spec = dict(rank=rank, world=world, backend=backend, store=store, out=out, part=part,
-                    deterministic=part == "a")
+                    deterministic=flag == MESH_FLAG and part == "a")
         env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), MESH_FLAG,
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), flag,
                                        json.dumps(spec)], env=env))
         outs.append(out)
     try:
@@ -4163,7 +4179,7 @@ def run_mesh_world(part, world, backend, root):
             if p.poll() is None:
                 p.kill()
     codes = [p.returncode for p in procs]
-    assert codes == [0] * world, f"phase 16{part}: ranks exited with {codes}"
+    assert codes == [0] * world, f"ranks of part {part} exited with {codes}"
     results = []
     for out in outs:
         with open(out, "rb") as f:
@@ -4363,6 +4379,335 @@ def phase_mesh(smi):
     return total
 
 
+# ----------------------------------------------------------------- phase 17
+STEPS_FLAG = "--steps-rank"     # runs steps_rank_main, one rank of phase 17
+STEPS_BATCH, STEPS_SEQ = 2, 256   # 17a: train_4k's global batch and length, cut
+STEPS_DECODE = 8                # 17a: decode steps after the prefill
+SERVE17_REQUESTS = 8            # 17b: one wave over 2 groups x 4 slots
+SERVE17_HISTORY = (64, 2)       # 17b: a client's routing batch (13a's 256 x 8 cut so
+                                # that two ranks' states and routing fit one card)
+
+
+@contextlib.contextmanager
+def recording_first_k1():
+    """Within the block the first K1 launch ``ops.prox_update_tree`` makes
+    also keeps device copies of its operands (θ, ω, g_θ, g_ω, η, λ) and
+    the (θ', ω') it wrote; yields the list that receives them."""
+    from repro_torch.kernels import ops
+    real, records = ops._prox_kernel, []
+
+    def record(theta, omega, g_theta, g_omega, eta, lam):
+        first = not records
+        if first:
+            records.append([x.detach().clone() for x in (theta, omega, g_theta, g_omega)]
+                           + [float(eta), float(lam)])
+        out = real(theta, omega, g_theta, g_omega, eta, lam)
+        if first:
+            records[0] += [theta, omega]
+        return out
+
+    with patched(ops, "_prox_kernel", record):
+        yield records
+
+
+def _bitwise(a, b) -> bool:
+    """Two trees (tuples and dicts of DTensors or tensors) hold the same
+    bits, leaf for leaf."""
+    from repro_torch.utils import trees
+    local = lambda x: x.to_local() if hasattr(x, "to_local") else x
+    flat = lambda t: ([x for part in t for x in flat(part)] if isinstance(t, (tuple, list))
+                      else trees.leaves(t))
+    la, lb = flat(a), flat(b)
+    return len(la) == len(lb) and all(torch_equal(local(x), local(y)) for x, y in zip(la, lb))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+    return x.shape == y.shape and x.dtype == y.dtype and bool(torch.equal(x, y))
+
+
+def _timed(fn):
+    """(fn(), its host ms ending in a synchronise)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def steps17a():
+    """17a on this rank (a world of one under NCCL): every step of
+    ``launch.steps`` on ``make_host_mesh()`` against the same step
+    without a mesh, bitwise."""
+    import torch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.registry import grow_cache
+    from repro_torch.utils import trees
+
+    from repro_torch.sharding import specs
+
+    mesh = make_host_mesh()
+    dev = specs.mesh_device(mesh)
+    cfg, model = serve_setting("qwen2-1.5b")
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(0)
+    theta = model.init(g, dev)
+    omega = trees.tree_map(lambda x: x + 0.01 * torch.randn(x.shape, generator=g, device=dev),
+                           theta)
+    tokens = torch.randint(0, cfg.vocab_size, (STEPS_BATCH, STEPS_SEQ), generator=g, device=dev,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens}
+    bind = lambda kind, s: steps.lower_step(model, InputShape(kind, s, STEPS_BATCH, kind),
+                                            mesh, kind)
+    out = {"n_params": sum(x.numel() for x in trees.leaves(theta)), "mesh": tuple(mesh.mesh.shape),
+           "remat": cfg.remat, "n_leaves": len(trees.leaves(theta))}
+
+    # each step twice, the first result kept on the host (the card holds
+    # theta, omega, one step's gradients and outputs, and the K1 record)
+    on_host = lambda out: [(x.to_local() if hasattr(x, "to_local") else x).to("cpu")
+                           for part in out for x in trees.leaves(part)]
+    plain_step = steps.stocfl_train_step(model)
+    plain, out["train_ms"] = _timed(lambda: on_host(plain_step(theta, omega, batch)))
+    _, out["train_ms2"] = _timed(lambda: plain_step(theta, omega, batch) and None)
+    train = bind("train", STEPS_SEQ)
+    _zero_counts()
+    with recording_first_k1() as rec:
+        got, out["train_mesh_ms"] = _timed(lambda: train.fn(theta, omega, batch))
+    out["train_bitwise"] = _bitwise(on_host(got), plain)
+    out["losses"] = {k: float(v.full_tensor()) for k, v in got[2].items()}
+    del got
+    _, out["train_mesh_ms2"] = _timed(lambda: train.fn(theta, omega, batch) and None)
+    out["launches"] = {k: v for k, v in _build.launch_counts().items() if v}
+    th, om, gt, go, eta, lam, kt, ko = rec[0]
+    pt, po = ref.prox_update_ref_(th.clone(), om.clone(), gt, go, eta, lam)
+    out["k1"] = {"n": th.numel(), "bitwise": torch_equal(kt, pt) and torch_equal(ko, po),
+                 "max_abs_err": float(max((kt - pt).abs().max(), (ko - po).abs().max()))}
+    del plain, rec, th, om, gt, go, kt, ko, pt, po
+    out["peak_train"] = torch.cuda.max_memory_allocated()
+
+    (logits, cache), out["prefill_ms"] = _timed(lambda: steps.prefill_step(model)(theta, batch))
+    (mlogits, mcache), out["prefill_mesh_ms"] = _timed(
+        lambda: bind("prefill", STEPS_SEQ).fn(theta, batch))
+    out["prefill_bitwise"] = _bitwise((logits, cache), (mlogits, mcache))
+    del mlogits, mcache
+
+    s_max = STEPS_SEQ + STEPS_DECODE
+    cache = grow_cache(model, cache, STEPS_BATCH, s_max)
+    dec, plain_dec = bind("decode", s_max), steps.decode_step(model)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    mtok, mcache, bits, toks = tok, cache, [], []
+    walls = {"plain": [], "mesh": []}
+    for i in range(STEPS_DECODE):
+        pos = torch.tensor(STEPS_SEQ + i, dtype=torch.int32, device=dev)
+        (lg, cache), ms = _timed(lambda: plain_dec(theta, tok, cache, pos))
+        walls["plain"].append(ms)
+        (mlg, mcache), ms = _timed(lambda: dec.fn(theta, mtok, mcache, pos))
+        walls["mesh"].append(ms)
+        bits.append(_bitwise(lg, mlg) and _bitwise(cache, mcache))
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        mtok = torch.argmax(mlg.full_tensor(), -1).to(torch.int32)
+        toks.append(tok.tolist())
+    out.update(decode_bitwise=bits, decode_tokens=toks, decode_ms=walls)
+    del cache, mcache, lg, mlg
+
+    psi, out["repr_ms"] = _timed(lambda: steps.repr_step(model)(theta, batch))
+    mpsi, out["repr_mesh_ms"] = _timed(lambda: bind("repr", STEPS_SEQ).fn(theta, batch))
+    out["repr_bitwise"] = _bitwise(psi, mpsi)
+    out["repr_finite"] = all(bool(torch.isfinite(x).all()) for x in trees.leaves(psi))
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def steps17b(mesh_size):
+    """17b on this rank: ``ServeEngine(mesh=make_client_mesh())`` over
+    qwen2-1.5b at full width, 2 cluster groups, one wave of 8 requests;
+    then the engine without a mesh on the same router (the routes
+    cached), its tokens the reference of the near-tie rule, with
+    ``SequentialLoop``'s gaps for a request whose tokens differ. Each
+    client, and each cluster's reference client, routes on
+    ``SERVE17_HISTORY`` tokens."""
+    import dataclasses
+
+    import torch
+    from repro_torch import serve
+    from repro_torch.core import extractor
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.sharding import specs
+    from repro_torch.utils import trees
+
+    mesh = make_client_mesh()
+    dev = specs.mesh_device(mesh)
+    cfg, model = serve_setting("qwen2-1.5b")
+    seq, rows = SERVE17_HISTORY
+    small = lambda cfg, _seq, _rows, **kw: synthetic_lm_batch(cfg, seq, rows, **kw)
+    # the Psi sketch's host draws over the vocab leaves (seconds of host
+    # time; build_server_state sketches to 8192 with seed 0, and main()
+    # caches the draws) on every rank at once, before the turns below
+    extractor.jl_draws(2 * cfg.vocab_size * cfg.d_model, 8192, 0)
+    # the ranks build their states in turn, each joining its clusters'
+    # reference clients on SERVE17_HISTORY tokens and then returning the
+    # allocator's cache (the layer-by-layer inits leave ~2 models of it),
+    # so that two ranks' states and their routing fit the one card
+    for turn in range(mesh_size):
+        if turn == specs.mesh_rank(mesh):
+            with patched(launch_serve, "synthetic_lm_batch", small):
+                st = launch_serve.build_server_state(cfg, model, SERVE_CLUSTERS, SERVE_TAU, 0,
+                                                     device=dev)
+            torch.cuda.empty_cache()
+        specs.barrier(mesh, dev)
+    reqs = [dataclasses.replace(r, history=synthetic_lm_batch(
+                cfg, seq, rows, seed=1000 + r.rid, domain=r.rid % SERVE_CLUSTERS))
+            for r in launch_serve.make_requests(cfg, SERVE17_REQUESTS, SERVE_PROMPT, SERVE_GEN,
+                                                SERVE_CLUSTERS)]
+    scfg = serve.ServeConfig(slots=SERVE_SLOTS, max_len=SERVE_PROMPT + SERVE_GEN,
+                             max_gen=SERVE_GEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _zero_counts()
+    eng = serve.ServeEngine(model, st, scfg, mesh=mesh)
+    res, routes, route_s, wall = serve_wave(eng, reqs)
+    launches = {k: v for k, v in _build.launch_counts().items() if v}
+    nbytes = lambda tree: sum(x.numel() * x.element_size() for x in trees.leaves(tree))
+    out = {"backend": specs.mesh_backend(mesh), "ranks": mesh_size, "base": base,
+           "peak": torch.cuda.max_memory_allocated(), "route_s": route_s, "wall": wall,
+           "held": int(trees.leaves(eng._stacked)[0].shape[0]),
+           "lane_bytes": sum(nbytes(x) for x in eng.sl),
+           "stats": eng.stats(), "launches": launches, "captures": eng.captures,
+           "routes": [(rt.root, rt.similarity, rt.accepted) for rt in routes],
+           "tokens": {r.rid: [int(t) for t in res[r.rid].tokens] for r in reqs}}
+    ref_eng = serve.ServeEngine(model, st, scfg)
+    ref_eng.router = eng.router
+    ref_res, _, _, out["wall_nomesh"] = serve_wave(ref_eng, reqs)
+    out["stats_nomesh"] = ref_eng.stats()
+    loop = serve.SequentialLoop(model, st, max_len=scfg.max_len, max_gen=scfg.max_gen)
+    loop.router = eng.router
+    eps, stops = serve.NEAR_TIE_EPS["cuda"], []
+    for r in reqs:
+        want = ref_res[r.rid].tokens
+        if list(want) != out["tokens"][r.rid]:
+            gaps = loop.serve(r).gaps
+            stop = serve.near_tie_compare(want, res[r.rid].tokens, gaps, eps)
+            stops.append((r.rid, stop))
+    out["stops"] = stops
+    out["equal_nomesh"] = not stops
+    return out
+
+
+def steps_rank_main(spec) -> int:
+    """One rank of phase 17 (``chip_smoke.py --steps-rank SPEC``): joins
+    the world of ``spec`` through a FileStore and runs 17a or 17b; writes
+    its results to ``spec["out"]``."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = spec["rank"], spec["world"]
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(spec["backend"], store=dist.FileStore(spec["store"], world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    if spec["part"].startswith("a"):
+        # 17a, then 17b's world of one in the same process and NCCL group
+        out = {"a": steps17a()}
+        torch.cuda.empty_cache()
+        out["b"] = steps17b(world)
+    else:
+        out = steps17b(world)
+    with open(spec["out"], "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_steps_mesh(smi):
+    """Phase 17: the model axis (``launch.steps`` over DTensor placements)
+    and serving over a client-axis mesh, ranks subprocesses of this
+    script. Returns K1's launches on 17a's mesh train step."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="steps17_")
+    gb = lambda n: f"{n / 1e9:.2f} GB"
+
+    # --- 17a: one NCCL rank on make_host_mesh() (1 x 1), against no mesh;
+    # then 17b's world of one in that process
+    t0 = time.perf_counter()
+    (ab,) = run_mesh_world("a17", 1, "nccl", root, flag=STEPS_FLAG)
+    a = ab["a"]
+    print(f"[steps17a] the world of one (17a, then 17b's one rank) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[steps17a] qwen2-1.5b full width, {a['n_params']} parameters in {a['n_leaves']} "
+          f"leaves, fp32 compute (TF32 off), remat {a['remat']}, mesh {a['mesh']} (data, model) "
+          f"of one NCCL rank; global batch {STEPS_BATCH} x {STEPS_SEQ} tokens (train_4k's "
+          f"shape cut to one card's step)")
+    print(f"[steps17a] train (StoCFL bi-level step, both gradients, K1 on the local shards): "
+          f"no mesh {a['train_ms']:.1f} / {a['train_ms2']:.1f} ms, mesh "
+          f"{a['train_mesh_ms']:.1f} / {a['train_mesh_ms2']:.1f} ms (host clock, first / "
+          f"second call; {smi}); the first call's outputs bitwise equal {a['train_bitwise']}; "
+          f"losses {a['losses']}; launches on the two mesh steps {a['launches']}")
+    k1 = a["k1"]
+    print(f"[steps17a] K1 on the mesh step's first launch's operands (n={k1['n']}): bitwise "
+          f"equal to ref.prox_update_ref_ {k1['bitwise']} (max |diff| {k1['max_abs_err']:.3e})")
+    print(f"[steps17a] prefill {STEPS_BATCH} x {STEPS_SEQ}: no mesh {a['prefill_ms']:.1f} ms, "
+          f"mesh {a['prefill_mesh_ms']:.1f} ms; bitwise equal {a['prefill_bitwise']}")
+    fmt = lambda ws: ", ".join(f"{w:.1f}" for w in ws)
+    print(f"[steps17a] {STEPS_DECODE} decode steps: no mesh ms {fmt(a['decode_ms']['plain'])}; "
+          f"mesh ms {fmt(a['decode_ms']['mesh'])}; logits and caches bitwise equal "
+          f"{a['decode_bitwise']}; tokens {a['decode_tokens']}")
+    print(f"[steps17a] Psi (anchor gradient, one global L2 norm): no mesh {a['repr_ms']:.1f} ms, "
+          f"mesh {a['repr_mesh_ms']:.1f} ms; bitwise equal {a['repr_bitwise']}, finite "
+          f"{a['repr_finite']}")
+    print(f"[steps17a] peak device memory {gb(a['peak'])} (after train {gb(a['peak_train'])}; "
+          f"torch.cuda.max_memory_allocated; {smi})")
+    assert a["train_bitwise"] and a["prefill_bitwise"] and all(a["decode_bitwise"])
+    assert a["repr_bitwise"] and a["repr_finite"] and k1["bitwise"]
+    assert a["launches"].get("prox_update.launches") == 2 * a["n_leaves"], a["launches"]
+    assert all(map(math.isfinite, a["losses"].values())), a["losses"]
+
+    # --- 17b: ServeEngine(mesh=...) on one NCCL rank (above), then two gloo
+    # ranks on the card
+    t0 = time.perf_counter()
+    ranks = {1: [ab["b"]], 2: run_mesh_world("b17g", 2, "gloo", root, flag=STEPS_FLAG)}
+    print(f"[serve17b] the world of two gloo ranks took {time.perf_counter() - t0:.1f} s")
+    for n, res in ranks.items():
+        for r, x in enumerate(res):
+            assert x["tokens"] == res[0]["tokens"] and x["routes"] == res[0]["routes"], (n, r)
+            # the engine without a mesh reads the same router: its counters differ
+            loop_stats = lambda st: {k: v for k, v in st.items() if not k.startswith("router")}
+            assert x["stats"] == res[0]["stats"], (n, r, x["stats"])
+            assert loop_stats(x["stats"]) == loop_stats(x["stats_nomesh"]), (n, r, x["stats"])
+            assert x["held"] == SERVE_CLUSTERS // n, (n, r, x["held"])
+            assert len(x["stops"]) <= SERVE_MAX_STOPS, (n, r, x["stops"])
+            assert x["captures"] == 1, x["captures"]
+            print(f"[serve17b] {n} rank(s) ({x['backend']}), rank {r}: holds {x['held']} of "
+                  f"{SERVE_CLUSTERS} groups (their weights views of the state's bank, which "
+                  f"every rank holds whole; lanes {x['lane_bytes'] / 1e6:.1f} MB); wave of "
+                  f"{SERVE17_REQUESTS}: routing {x['route_s']:.2f} s, wall {x['wall']:.2f} s "
+                  f"(no mesh, routes cached: {x['wall_nomesh']:.2f} s); tokens equal the "
+                  f"engine without a mesh {x['equal_nomesh']} (near-tie stops {x['stops']}); "
+                  f"peak {gb(x['peak'])} from {gb(x['base'])} before the engine ({smi}); "
+                  f"launches {x['launches']}")
+        print(f"[serve17b] {n} rank(s): every rank's tokens, routes and stats equal; stats "
+              f"{res[0]['stats']}")
+    assert ranks[1][0]["tokens"] == ranks[2][0]["tokens"]
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[steps17] phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return a["launches"].get("prox_update.launches", 0)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4382,6 +4727,8 @@ def main() -> int:
         return mesh_rank_main(json.loads(sys.argv[2]))
     if sys.argv[1:2] == [TRAIN16_FLAG]:
         return train16_main(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == [STEPS_FLAG]:
+        return steps_rank_main(json.loads(sys.argv[2]))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -4454,6 +4801,7 @@ def main() -> int:
     kernels["cosine_sim"]["max_abs_err"] = max(kernels["cosine_sim"]["max_abs_err"], k2_err15)
     for k, n in phase_mesh(smi).items():
         kernels[k]["launches"] += n
+    kernels["prox_update"]["launches"] += phase_steps_mesh(smi)
     print(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

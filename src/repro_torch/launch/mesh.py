@@ -1,4 +1,4 @@
-"""Client-axis meshes of the port: 1-D ``torch.distributed`` device meshes.
+"""The port's meshes: ``torch.distributed`` device meshes over the ranks.
 
 The JAX package builds its meshes over the local devices of one process.
 The port runs one process per rank (``torchrun --nproc_per_node N``, or
@@ -16,6 +16,10 @@ caller initialised keeps its backend (``gloo`` for two ranks on one card,
 where NCCL refuses a GPU shared by two ranks). Rank r computes on
 ``cuda:(local_rank % device_count)``, or on the CPU when ``device="cpu"``
 is asked for; a CUDA mesh without a GPU raises.
+
+``make_host_mesh`` builds the 2-D ``("data", "model")`` mesh the LLM
+parameter rule table places over (``sharding.param_shardings``,
+``launch.steps``).
 """
 from __future__ import annotations
 
@@ -70,3 +74,17 @@ def make_cohort_mesh(n: int = 0, device=None) -> DeviceMesh:
     """1-D ``("data",)`` mesh for the cohort step: the same placement as
     ``make_client_mesh`` under the reference's other client-axis name."""
     return _mesh("data", n, device)
+
+
+def make_host_mesh(model_parallel: int = 1, device=None) -> DeviceMesh:
+    """2-D ``("data", "model")`` mesh over the default group's ranks:
+    ``mp = min(model_parallel, world)`` ranks on the model axis and
+    ``world // mp`` on the data axis, ranks in row-major order. ``device``
+    as ``make_client_mesh``."""
+    kind = _device_type(device)
+    _ensure_group(kind)
+    world = dist.get_world_size()
+    mp = max(1, min(int(model_parallel), world))
+    dp = world // mp
+    ranks = torch.arange(dp * mp).reshape(dp, mp)
+    return DeviceMesh(kind, ranks, mesh_dim_names=("data", "model"))

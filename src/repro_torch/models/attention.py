@@ -21,7 +21,9 @@ sit outside any TPU kernel in the reference, so they are plain PyTorch
 here too. The encoder-decoder family adds bidirectional (encoder)
 self-attention over GQA weights and cross-attention over the encoder's
 precomputed keys and values; both are unmasked and unchunked, as the
-reference's are.
+reference's are. Queries, keys and values are placed with
+``sharding.shard`` where the reference places them (heads on the ``tp``
+axis; a no-op without an entered ``ShardCtx``).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.sharding.specs import local_heads, merge_heads, shard, split_heads
 
 _CHUNK = 1024          # query-chunk rows for long-sequence attention
 _NEG = -1e30
@@ -60,11 +63,12 @@ def _qkv(params, x, cfg, positions):
         q = q + params["b_q"].to(dt)
         k = k + params["b_k"].to(dt)
         v = v + params["b_v"].to(dt)
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+    q = split_heads(q, cfg.n_heads, hd)
+    k = split_heads(k, cfg.n_kv_heads, hd)
+    v = split_heads(v, cfg.n_kv_heads, hd)
+    q = shard(apply_rope(q, positions, cfg.rope_theta), "batch", None, "tp", None)
+    k = shard(apply_rope(k, positions, cfg.rope_theta), "batch", None, "tp", None)
+    return q, k, shard(v, "batch", None, "tp", None)
 
 
 def _repeat_kv(k, n_heads: int):
@@ -97,8 +101,7 @@ def causal_attention(q, k, v, cfg, q_offset: int = 0):
     position of q[0] relative to k[0] (prefill: 0)."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
-    k = _repeat_kv(k, H)
-    v = _repeat_kv(v, H)
+    (q, k, v), wrap = local_heads(q, _repeat_kv(k, H), _repeat_kv(v, H))
     scale = _scale(hd)
     kpos = torch.arange(Sk, device=q.device)
 
@@ -110,12 +113,12 @@ def causal_attention(q, k, v, cfg, q_offset: int = 0):
 
     if Sq <= _CHUNK:
         qpos = torch.arange(Sq, device=q.device) + q_offset
-        return _attend_rows(q, k, v, mask_for(qpos), scale)
+        return wrap(_attend_rows(q, k, v, mask_for(qpos), scale))
     outs = []
     for start in range(0, Sq, _CHUNK):
         qpos = torch.arange(start, min(start + _CHUNK, Sq), device=q.device) + q_offset
         outs.append(_attend_rows(q[:, start:start + _CHUNK], k, v, mask_for(qpos), scale))
-    return torch.cat(outs, dim=1)
+    return wrap(torch.cat(outs, dim=1))
 
 
 def _positions(B: int, S: int, device):
@@ -152,8 +155,7 @@ def gqa_train(params, x, cfg, positions=None):
     if positions is None:
         positions = _positions(B, S, x.device)
     q, k, v = _qkv(params, x, cfg, positions)
-    out = causal_attention(q, k, v, cfg).reshape(B, S, -1)
-    return out @ params["wo"].to(x.dtype)
+    return merge_heads(causal_attention(q, k, v, cfg)) @ params["wo"].to(x.dtype)
 
 
 def gqa_prefill(params, x, cfg, positions=None):
@@ -163,7 +165,7 @@ def gqa_prefill(params, x, cfg, positions=None):
     if positions is None:
         positions = _positions(B, S, x.device)
     q, k, v = _qkv(params, x, cfg, positions)
-    out = causal_attention(q, k, v, cfg).reshape(B, S, -1) @ params["wo"].to(x.dtype)
+    out = merge_heads(causal_attention(q, k, v, cfg)) @ params["wo"].to(x.dtype)
     if cfg.sliding_window and S > cfg.sliding_window:
         k = k[:, -cfg.sliding_window:]
         v = v[:, -cfg.sliding_window:]
@@ -190,13 +192,13 @@ def gqa_decode(params, x, cache, pos, cfg):
     k = torch.where(write, k_new.to(cache["k"].dtype), cache["k"])
     v = torch.where(write, v_new.to(cache["v"].dtype), cache["v"])
 
-    kk = _repeat_kv(k.to(dt), cfg.n_heads)
-    vv = _repeat_kv(v.to(dt), cfg.n_heads)
-    logits = torch.einsum("bqhd,bshd->bhqs", q, kk).to(torch.float32) * _scale(q.shape[-1])
     mask = (idx[None, :] < valid_len[:, None])[:, None, None, :]      # (B,1,1,S_max)
+    (q, kk, vv, mask), wrap = local_heads(q, _repeat_kv(k.to(dt), cfg.n_heads),
+                                          _repeat_kv(v.to(dt), cfg.n_heads), rows=(mask,))
+    logits = torch.einsum("bqhd,bshd->bhqs", q, kk).to(torch.float32) * _scale(q.shape[-1])
     logits = torch.where(mask, logits, _NEG)
     probs = torch.softmax(logits, dim=-1).to(dt)
-    out = torch.einsum("bhqs,bshd->bqhd", probs, vv).reshape(B, 1, -1)
+    out = merge_heads(wrap(torch.einsum("bhqs,bshd->bqhd", probs, vv)))
     return out @ params["wo"].to(dt), {"k": k, "v": v}
 
 
@@ -229,8 +231,10 @@ def _mla_qkv_full(params, x, cfg, positions):
     k_rope = apply_rope(kv_a[..., r:][:, :, None, :], positions, cfg.rope_theta)
     kv = (c_kv @ params["wkv_b"].to(dt)).reshape(B, S, H, qk_n + dv)
     k_nope, v = kv[..., :qk_n], kv[..., qk_n:]
-    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    q_full = shard(torch.cat([q_nope, q_rope], dim=-1), "batch", None, "tp", None)
     k_full = torch.cat([k_nope, k_rope.expand(B, S, H, k_rope.shape[-1])], dim=-1)
+    k_full = shard(k_full, "batch", None, "tp", None)
+    v = shard(v, "batch", None, "tp", None)
     return q_full, k_full, v, c_kv, k_rope[:, :, 0, :]
 
 
@@ -323,10 +327,10 @@ def _attend_all(q, k, v):
     (B,Sk,H_kv,hd): logits scaled by 1/sqrt(hd) and the softmax in fp32.
     Returns (B, Sq, H·hd) in q's dtype."""
     B, Sq, H, hd = q.shape
-    k, v = _repeat_kv(k.to(q.dtype), H), _repeat_kv(v.to(q.dtype), H)
+    (q, k, v), wrap = local_heads(q, _repeat_kv(k.to(q.dtype), H), _repeat_kv(v.to(q.dtype), H))
     logits = torch.einsum("bqhd,bshd->bhqs", q, k).to(torch.float32) * _scale(hd)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqs,bshd->bqhd", probs, v).reshape(B, Sq, H * hd)
+    return merge_heads(wrap(torch.einsum("bhqs,bshd->bqhd", probs, v)))
 
 
 def cross_attend(params, x, kv, cfg):

@@ -27,6 +27,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (dense_init, embed_init, gelu_mlp, gelu_mlp_init,
                                        layernorm, layernorm_init, remat)
 from repro_torch.models.ssm_lm import dtype_of
+from repro_torch.sharding.specs import shard, unshard_fsdp
 from repro_torch.utils import trees
 
 
@@ -80,6 +81,7 @@ def _n(stack) -> int:
 
 
 def _enc_body(cfg, h, p):
+    p = unshard_fsdp(p)
     h = h + attn.bidir_attention(p["attn"], layernorm(p["attn_norm"], h), cfg)
     return h + gelu_mlp(p["mlp"], layernorm(p["mlp_norm"], h))
 
@@ -87,7 +89,7 @@ def _enc_body(cfg, h, p):
 def encode(params, frames, cfg):
     """frames (B, enc_seq, d_model) stub embeddings -> the encoder output
     in ``cfg.dtype``."""
-    h = frames.to(dtype_of(cfg.dtype))
+    h = shard(frames.to(dtype_of(cfg.dtype)), "batch", None, None)
     body = functools.partial(_enc_body, cfg)
     for i in range(_n(params["enc_layers"])):
         h = remat(cfg, body, h, _layer(params["enc_layers"], i))
@@ -98,6 +100,7 @@ def _dec_body(cfg, mode, h, p, ckv, cache=None, pos=None):
     """One decoder layer. train: h; prefill: (h, its self-attention
     cache); decode (one new position, ``cache`` and ``pos`` given): (h,
     the new cache)."""
+    p = unshard_fsdp(p)
     a_in = layernorm(p["attn_norm"], h)
     new_cache = None
     if mode == "train":
@@ -137,7 +140,7 @@ def forward_train(params, batch, cfg):
     body = functools.partial(_dec_body, cfg, "train")
     for i in range(_n(params["dec_layers"])):
         h = remat(cfg, body, h, _layer(params["dec_layers"], i), _layer(ckvs, i))
-    logits = _logits(params, h, cfg)
+    logits = shard(_logits(params, h, cfg), "batch", None, "tp")
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 

@@ -23,6 +23,7 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (dense_init, embed_init, remat, rmsnorm,
                                        rmsnorm_init, swiglu, swiglu_init)
 from repro_torch.models.ssm_lm import dtype_of
+from repro_torch.sharding.specs import shard, unshard_fsdp
 from repro_torch.utils import trees
 
 
@@ -65,10 +66,10 @@ def _mamba_group(cfg, mode, h, params, layers, caches=None):
     out_caches = []
 
     def train(h, p):
-        return h + ssm.mamba2_train(p, h, cfg)
+        return h + ssm.mamba2_train(unshard_fsdp(p), h, cfg)
 
     def prefill(h, p):
-        out, cache = ssm.mamba2_prefill(p, h, cfg)
+        out, cache = ssm.mamba2_prefill(unshard_fsdp(p), h, cfg)
         return h + out, cache
 
     for i in layers:
@@ -79,7 +80,8 @@ def _mamba_group(cfg, mode, h, params, layers, caches=None):
         if mode == "prefill":
             h, cache = remat(cfg, prefill, h, p)
         else:
-            out, cache = ssm.mamba2_decode(p, h, trees.tree_map(lambda x: x[i], caches), cfg)
+            out, cache = ssm.mamba2_decode(unshard_fsdp(p), h,
+                                           trees.tree_map(lambda x: x[i], caches), cfg)
             h = h + out
         out_caches.append(cache)
     return h, (out_caches if mode != "train" else None)
@@ -88,10 +90,10 @@ def _mamba_group(cfg, mode, h, params, layers, caches=None):
 def _shared_block(cfg, params, h, h_embed, mode, cache=None, pos=None):
     """The shared attention + MLP block. Returns (h, its new KV cache, or
     None in train)."""
-    sp = params["shared"]
+    sp = unshard_fsdp(params["shared"])
     dt = h.dtype
     x2 = rmsnorm(sp["attn_norm"], torch.cat([h_embed, h], dim=-1))
-    x = x2 @ sp["in_proj"].to(dt)
+    x = shard(x2 @ sp["in_proj"].to(dt), "batch", None, None)
     new_cache = None
     if mode == "train":
         a = attn.gqa_train(sp["attn"], x, cfg)
@@ -111,13 +113,14 @@ def _stack(caches):
 def forward_train(params, tokens, cfg):
     """tokens (B, S) -> (logits (B, S, V) in ``cfg.dtype``, aux 0.0)."""
     dt = dtype_of(cfg.dtype)
-    h = h_embed = params["embed"].to(dt)[tokens]
+    h = h_embed = shard(params["embed"].to(dt)[tokens], "batch", None, None)
     groups, rem = _group_slices(cfg)
     for layers in groups:
         h, _ = _mamba_group(cfg, "train", h, params, layers)
         h, _ = _shared_block(cfg, params, h, h_embed, "train")
     h, _ = _mamba_group(cfg, "train", h, params, rem)
-    logits = rmsnorm(params["final_norm"], h) @ params["lm_head"].to(dt)
+    logits = shard(rmsnorm(params["final_norm"], h) @ params["lm_head"].to(dt),
+                   "batch", None, "tp")
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 

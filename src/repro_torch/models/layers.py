@@ -1,7 +1,9 @@
 """Shared building blocks of the port's models: parameter inits, RMSNorm
 and LayerNorm, rotary embeddings, the SwiGLU and GELU MLPs, the
 next-token loss, and ``remat``, the layer checkpoint that stands for the
-reference's ``jax.checkpoint``."""
+reference's ``jax.checkpoint``. The MLPs place their hidden activation
+with ``sharding.shard`` where the reference does (a no-op without an
+entered ``ShardCtx``)."""
 from __future__ import annotations
 
 import math
@@ -9,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.sharding.specs import current_ctx, shard
 from repro_torch.utils import trees
 
 
@@ -97,7 +100,8 @@ def swiglu(params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     dt = compute_dtype or x.dtype
     g = x @ params["w_gate"].to(dt)
     u = x @ params["w_up"].to(dt)
-    return (torch.nn.functional.silu(g) * u) @ params["w_down"].to(dt)
+    h = shard(torch.nn.functional.silu(g) * u, "batch", None, "tp")
+    return h @ params["w_down"].to(dt)
 
 
 def gelu_mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
@@ -116,17 +120,25 @@ def gelu_mlp(params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     dt = compute_dtype or x.dtype
     h = torch.nn.functional.gelu(x @ params["w_up"].to(dt) + params["b_up"].to(dt),
                                  approximate="tanh")
+    h = shard(h, "batch", None, "tp")
     return h @ params["w_down"].to(dt) + params["b_down"].to(dt)
 
 
 def ce_loss(logits: torch.Tensor, tokens: torch.Tensor, aux) -> torch.Tensor:
     """Mean next-token cross entropy in fp32 plus 0.01·aux. The gold logit
     is gathered; the reference contracts with a one-hot, which picks the
-    same value exactly (one term times 1, the rest times 0)."""
+    same value exactly (one term times 1, the rest times 0). Under an
+    entered ``ShardCtx`` the loss takes the reference's one-hot
+    contraction, which a vocab-sharded DTensor sums shard by shard (its
+    gather over a sharded vocab gives wrong shapes)."""
     logits = logits[:, :-1].to(torch.float32)
     targets = tokens[:, 1:].to(torch.int64)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    if current_ctx() is not None:
+        onehot = torch.nn.functional.one_hot(targets, logits.shape[-1]).to(logits.dtype)
+        gold = torch.einsum("bsv,bsv->bs", logits, onehot)
+    else:
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     return torch.mean(logz - gold) + 0.01 * aux
 
 
@@ -137,7 +149,12 @@ class _Remat(torch.autograd.Function):
     It has a generated vmap rule, so it runs inside the cohort update's
     ``torch.func.vmap`` (``torch.utils.checkpoint`` does not: its
     non-reentrant form lets a tensor escape the vmap, and its reentrant
-    form has no ``setup_context``)."""
+    form has no ``setup_context``). Under a ``ShardCtx`` (DTensors, never
+    under ``vmap``) the backward recomputes with plain autograd instead,
+    within the forward's context: it may run on another thread
+    (autograd's, on the card), whose stack of contexts is its own, and
+    ``torch.func``'s wrappers would hide the DTensors from the models'
+    hooks."""
     generate_vmap_rule = True
 
     @staticmethod
@@ -147,12 +164,21 @@ class _Remat(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.body = inputs[0]
+        ctx.shard_ctx = current_ctx()
         ctx.save_for_backward(*inputs[1:])
 
     @staticmethod
     def backward(ctx, *grads):
-        _, pullback = torch.func.vjp(ctx.body, *ctx.saved_tensors)
-        return (None,) + tuple(pullback(grads))
+        if ctx.shard_ctx is None:
+            _, pullback = torch.func.vjp(ctx.body, *ctx.saved_tensors)
+            return (None,) + tuple(pullback(grads))
+        with ctx.shard_ctx, torch.enable_grad():
+            xs = [x.detach().requires_grad_(x.is_floating_point()) for x in ctx.saved_tensors]
+            pairs = [(o, g) for o, g in zip(ctx.body(*xs), grads)
+                     if g is not None and o.requires_grad]
+            got = torch.autograd.grad([o for o, _ in pairs], xs, [g for _, g in pairs],
+                                      allow_unused=True) if pairs else [None] * len(xs)
+        return (None,) + tuple(got)
 
 
 def remat(cfg, fn, *args):

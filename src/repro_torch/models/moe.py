@@ -23,6 +23,7 @@ import math
 import torch
 
 from repro_torch.models.layers import dense_init, swiglu, swiglu_init
+from repro_torch.sharding.specs import shard
 
 
 def moe_init(generator: torch.Generator, cfg, dtype=torch.float32, device="cpu"):
@@ -121,10 +122,12 @@ def moe_ffn(params, x, cfg, group_size: int = 0):
     combine = torch.einsum("gsk,gske,gskc->gsec", top_vals.to(dt), exp_onehot, cap_onehot)
 
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xg)               # (E,G,c,d)
+    expert_in = shard(expert_in, "expert", None, None, None)
     w = params["experts"]
     h = torch.nn.functional.silu(torch.einsum("egcd,edf->egcf", expert_in, w["w_gate"].to(dt)))
     h = h * torch.einsum("egcd,edf->egcf", expert_in, w["w_up"].to(dt))
     expert_out = torch.einsum("egcf,efd->egcd", h, w["w_down"].to(dt))     # (E,G,c,d)
+    expert_out = shard(expert_out, "expert", None, None, None)
 
     out = torch.einsum("gsec,egcd->gsd", combine, expert_out).reshape(B, S, d)
     if "shared" in params:

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.specs import shard
 
 
 def _scan_y(dA, dBx, C, h0, cfg, need_state: bool):
@@ -112,6 +113,7 @@ def _mamba1_core(params, x, cfg, h0=None, conv_tail=None, need_state=True):
     f32 = torch.float32
     xz = x @ params["in_proj"].to(dt_)
     x_in, z = torch.split(xz, di, dim=-1)
+    x_in = shard(x_in, "batch", None, "tp")
     x_c, new_tail = _causal_conv(x_in, params["conv_w"].to(dt_),
                                  params["conv_b"].to(dt_), conv_tail)
     x_c = F.silu(x_c)

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.models import ssm
 from repro_torch.models.layers import dense_init, embed_init, remat, rmsnorm, rmsnorm_init
+from repro_torch.sharding.specs import shard, unshard_fsdp
 from repro_torch.utils import trees
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -52,15 +53,16 @@ def _n_layers(params) -> int:
 def forward_train(params, tokens, cfg):
     """tokens (B, S) -> (logits (B, S, V) in ``cfg.dtype``, aux 0.0)."""
     dt = dtype_of(cfg.dtype)
-    h = params["embed"].to(dt)[tokens]
+    h = shard(params["embed"].to(dt)[tokens], "batch", None, None)
 
     def body(h, p):
+        p = unshard_fsdp(p)
         return h + ssm.mamba1_train(p["mixer"], rmsnorm(p["norm"], h), cfg)
 
     for i in range(_n_layers(params)):
         h = remat(cfg, body, h, _layer(params, i))
     h = rmsnorm(params["final_norm"], h)
-    logits = h @ params["lm_head"].to(dt)
+    logits = shard(h @ params["lm_head"].to(dt), "batch", None, "tp")
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
@@ -68,10 +70,11 @@ def prefill(params, tokens, cfg):
     """tokens (B, S) -> (last position's logits (B, V), per-layer caches
     stacked on a leading layer axis)."""
     dt = dtype_of(cfg.dtype)
-    h = params["embed"].to(dt)[tokens]
+    h = shard(params["embed"].to(dt)[tokens], "batch", None, None)
     caches = []
 
     def body(h, p):
+        p = unshard_fsdp(p)
         out, cache = ssm.mamba1_prefill(p["mixer"], rmsnorm(p["norm"], h), cfg)
         return h + out, cache
 
@@ -89,7 +92,7 @@ def decode_step(params, token, caches, pos, cfg):
     h = params["embed"].to(dt)[token][:, None, :]
     new = []
     for i in range(_n_layers(params)):
-        p = _layer(params, i)
+        p = unshard_fsdp(_layer(params, i))
         cache = trees.tree_map(lambda x: x[i], caches)
         out, c = ssm.mamba1_decode(p["mixer"], rmsnorm(p["norm"], h), cache, cfg)
         h = h + out

@@ -11,8 +11,10 @@ and ``moe_layers`` the MoE layers. The reference's layer ``scan`` is a
 Python loop over that axis, and caches carry the same leading axis under
 the same two names. With ``cfg.remat`` each layer of a training or prefill
 pass that takes a gradient is checkpointed (``layers.remat``), as the
-reference wraps it in ``jax.checkpoint``; the reference's ``shard`` /
-``unshard_fsdp`` placements are no-ops on one device.
+reference wraps it in ``jax.checkpoint``. Each layer body starts with
+``unshard_fsdp`` of its parameters and hidden states are placed with
+``shard``, at the reference's sites; both are no-ops without an entered
+``ShardCtx`` (``launch.steps`` enters one).
 
 MoE routing groups: training and prefill group the batch's B·S tokens by
 ``cfg.moe_group_size`` (``moe.moe_ffn``), as the reference does. A decode
@@ -32,6 +34,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dense_init, embed_init, remat, rmsnorm,
                                        rmsnorm_init, swiglu, swiglu_init)
 from repro_torch.models.ssm_lm import dtype_of
+from repro_torch.sharding.specs import embed_rows, shard, unshard_fsdp
 from repro_torch.utils import trees
 
 STACKS = (("layers", False), ("moe_layers", True))
@@ -84,7 +87,9 @@ def _stacks(params):
 
 
 def _embed(params, tokens, cfg):
-    return params["embed"].to(dtype_of(cfg.dtype))[tokens]
+    """The rows of ``tokens`` (``sharding.embed_rows``: an index, shard
+    by shard over a vocab-sharded table)."""
+    return embed_rows(tokens, params["embed"].to(dtype_of(cfg.dtype)))
 
 
 def _logits(params, h, cfg):
@@ -106,11 +111,12 @@ def _layer(stack, i: int):
 
 def _layer_train(cfg, moe: bool, h, p):
     """One layer of a training pass: h, or (h, aux) for an MoE layer."""
+    p = unshard_fsdp(p)
     dt = h.dtype
     train = attn.mla_train if _is_mla(cfg) else attn.gqa_train
     h = h + train(p["attn"], rmsnorm(p["attn_norm"], h), cfg)
     out, a = _mlp(p, rmsnorm(p["mlp_norm"], h), cfg, moe)
-    h = (h + out).to(dt)
+    h = shard(h + out, "batch", None, None).to(dt)
     return (h, a) if moe else h
 
 
@@ -133,10 +139,11 @@ def apply_stack_train(params, h, cfg):
 
 def _layer_prefill(cfg, moe: bool, h, p):
     """One layer of a prefill pass: (h, its cache)."""
+    p = unshard_fsdp(p)
     pre = attn.mla_prefill if _is_mla(cfg) else attn.gqa_prefill
     out, cache = pre(p["attn"], rmsnorm(p["attn_norm"], h), cfg)
     h = h + out
-    return h + _mlp(p, rmsnorm(p["mlp_norm"], h), cfg, moe)[0], cache
+    return shard(h + _mlp(p, rmsnorm(p["mlp_norm"], h), cfg, moe)[0], "batch", None, None), cache
 
 
 def apply_stack_prefill(params, h, cfg):
@@ -158,14 +165,16 @@ def apply_stack_prefill(params, h, cfg):
 def forward_train(params, tokens, cfg):
     """tokens (B, S) -> (logits (B, S, V) in ``cfg.dtype``, the MoE aux
     loss summed over the MoE layers (0.0 without))."""
-    h, aux = apply_stack_train(params, _embed(params, tokens, cfg), cfg)
-    return _logits(params, h, cfg), aux
+    h = shard(_embed(params, tokens, cfg), "batch", None, None)
+    h, aux = apply_stack_train(params, h, cfg)
+    return shard(_logits(params, h, cfg), "batch", None, "tp"), aux
 
 
 def prefill(params, tokens, cfg):
     """tokens (B, S) -> (last position's logits (B, V), the caches of
     ``apply_stack_prefill``)."""
-    h, caches = apply_stack_prefill(params, _embed(params, tokens, cfg), cfg)
+    h = shard(_embed(params, tokens, cfg), "batch", None, None)
+    h, caches = apply_stack_prefill(params, h, cfg)
     return _logits(params, h[:, -1:], cfg)[:, 0], caches
 
 
@@ -181,7 +190,7 @@ def decode_step(params, token, caches, pos, cfg):
     for name, moe, n in _stacks(params):
         stack = []
         for i in range(n):
-            p = _layer(params[name], i)
+            p = unshard_fsdp(_layer(params[name], i))
             cache = _layer(caches[name], i)
             out, c = dec(p["attn"], rmsnorm(p["attn_norm"], h), cache, pos, cfg)
             h = h + out

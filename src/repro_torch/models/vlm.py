@@ -16,6 +16,7 @@ import torch
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import ce_loss, dense_init, rmsnorm
 from repro_torch.models.ssm_lm import dtype_of
+from repro_torch.sharding.specs import shard
 
 
 def init(generator: torch.Generator, cfg, device="cpu"):
@@ -33,7 +34,7 @@ def _assemble(params, batch, cfg):
     dt = dtype_of(cfg.dtype)
     patches = batch["patches"].to(dt) @ params["patch_proj"].to(dt)
     text = params["embed"].to(dt)[batch["tokens"]]
-    return torch.cat([patches, text], dim=1)
+    return shard(torch.cat([patches, text], dim=1), "batch", None, None)
 
 
 def forward_train(params, batch, cfg):
@@ -42,7 +43,7 @@ def forward_train(params, batch, cfg):
     P = batch["patches"].shape[1]
     h, aux = tf.apply_stack_train(params, _assemble(params, batch, cfg), cfg)
     h = rmsnorm(params["final_norm"], h[:, P:])
-    return h @ params["lm_head"].to(dtype_of(cfg.dtype)), aux
+    return shard(h @ params["lm_head"].to(dtype_of(cfg.dtype)), "batch", None, "tp"), aux
 
 
 def loss_fn(params, batch, cfg):

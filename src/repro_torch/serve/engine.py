@@ -25,8 +25,22 @@ step ``vmap``s over it, so a batch window mixes clusters freely — each
 lane attends with its own cluster's weights. On the card the step is a
 CUDA graph captured once over the engine's buffers (``slots.DecodeGraph``)
 and a burst of n steps is n replays; on the CPU it runs eagerly. The port
-of the JAX package's ``serve/engine.py``; its mesh placement is not
-ported (ROADMAP.md queue 1 item 4).
+of the JAX package's ``serve/engine.py``.
+
+Under a client-axis mesh (``ServeEngine(mesh=make_client_mesh())``, one
+process per rank) each rank serves its ``row_split`` of the K cluster
+groups (``sharding.place_decode_state``): its decode lanes are those
+groups' alone, and its decode step runs over their stacked parameters
+alone. Those parameters are views of the ``ServerState``'s bank, which
+every rank builds and holds whole, so the lanes' memory a rank falls as
+ranks are added and the weights' does not. The router, the scheduler
+and the routes stay replicated: every rank routes the same requests to
+the same groups and keeps the same bookkeeping, but prefills and inserts
+only the requests of its own groups. At each harvest (and at ``evict``)
+the lanes' output tokens are gathered to every rank in one collective
+(``RowSplit.gather``), so ``run`` returns the same results on every
+rank. Where K does not divide the ranks,
+nothing is split and no collective runs (the reference's relaxation).
 """
 from __future__ import annotations
 
@@ -41,6 +55,7 @@ from repro_torch.serve.router import Route, Router
 from repro_torch.serve.scheduler import Request, SlotScheduler
 from repro_torch.serve.slots import (DecodeGraph, alloc_slots, clear_slots, harvest,
                                      make_decode_step, make_insert, make_prefill)
+from repro_torch.sharding.specs import place_decode_state, row_split
 from repro_torch.utils import trees
 
 __all__ = ["ServeConfig", "RequestResult", "ServeEngine"]
@@ -101,7 +116,8 @@ class ServeEngine:
     in place) and the routing cache; ``stats`` reports counters
     (admissions, prefill groups, decode steps, router hits/misses).
     ``captures`` counts the CUDA graphs this engine has captured; a
-    ``reset`` keeps it, so a second capture shows."""
+    ``reset`` keeps it, so a second capture shows. ``mesh``: a client-axis
+    mesh (module docstring); ``split`` is this rank's share of the groups."""
 
     def __init__(self, model, state, cfg: ServeConfig = ServeConfig(), mesh=None):
         if model.cfg.arch_type not in _TOKEN_ARCHS:
@@ -113,10 +129,6 @@ class ServeEngine:
             raise ValueError(
                 f"max_len={cfg.max_len} exceeds the model's sliding "
                 f"window ({window}); the modular cache layout would wrap")
-        if mesh is not None:
-            raise NotImplementedError("serving over a mesh (ServeEngine(mesh=...), "
-                                      "place_decode_state) is not ported yet: ROADMAP.md "
-                                      "queue 1 item 4, its serving half")
         if not state.models:
             raise ValueError("ServerState has no cluster models to serve")
         self.model = model
@@ -125,12 +137,15 @@ class ServeEngine:
         self.router = Router(state)
         self.roots = sorted(state.models.keys())
         self._root_to_k = {r: k for k, r in enumerate(self.roots)}
-        self._params_list = [state.cluster_model(r) for r in self.roots]
-        self._stacked = stack_cluster_models(state, self.roots)
+        self.mesh = mesh
+        self.split = row_split(len(self.roots), mesh)
+        local = self.split.take(self.roots)
+        self._params_list = [state.cluster_model(r) for r in local]
+        self._stacked = place_decode_state(stack_cluster_models(state, self.roots), mesh)
         self._prefill = make_prefill(model)
         self._insert = make_insert(model)
         self._step = make_decode_step(model)
-        self.sl = alloc_slots(model, len(self.roots), cfg.slots, cfg.max_len,
+        self.sl = alloc_slots(model, len(local), cfg.slots, cfg.max_len,
                               cfg.max_gen, device=self.device)
         self._decode_graph: Optional[DecodeGraph] = None
         self.captures = 0
@@ -168,21 +183,31 @@ class ServeEngine:
         return routes
 
     # ---- serving loop -------------------------------------------------
+    def _local(self, k: int) -> Optional[int]:
+        """Group ``k``'s index among this rank's groups, or None when
+        another rank holds it."""
+        return k - self.split.lo if self.split.lo <= k < self.split.hi else None
+
     def _admit_all(self) -> None:
         """Fill every free lane: grouped prefill per (cluster, prompt
         length) off the queue heads, then one insert per admitted
-        request."""
+        request (only for this rank's groups under a mesh; the
+        scheduler's bookkeeping runs for all of them)."""
         for k in range(len(self.roots)):
+            lk = self._local(k)
             while True:
                 group, slot_ids = self.sched.next_group(k)
                 if not group:
                     break
-                plen = len(group[0].prompt)
-                toks = np.stack([np.asarray(r.prompt, np.int32) for r in group])
-                gtok, gcache = self._prefill(
-                    self._params_list[k], {"tokens": torch.as_tensor(toks, device=self.device)})
-                for j, (req, s) in enumerate(zip(group, slot_ids)):
-                    self.sl = self._insert(self.sl, gcache, gtok, j, k, s, plen, req.gen)
+                if lk is not None:
+                    plen = len(group[0].prompt)
+                    toks = np.stack([np.asarray(r.prompt, np.int32) for r in group])
+                    gtok, gcache = self._prefill(
+                        self._params_list[lk],
+                        {"tokens": torch.as_tensor(toks, device=self.device)})
+                    for j, (req, s) in enumerate(zip(group, slot_ids)):
+                        self.sl = self._insert(self.sl, gcache, gtok, j, lk, s, plen, req.gen)
+                for req, s in zip(group, slot_ids):
                     self.sched.occupy(k, s, req)
                 self.stats_["prefill_groups"] += 1
                 self.stats_["admitted"] += len(group)
@@ -207,10 +232,29 @@ class ServeEngine:
                 self._step(self._stacked, self.sl)
         self.stats_["decode_steps"] += n
 
-    def _harvest_lane(self, k: int, s: int, req: Request,
-                      emitted: int, evicted: bool = False) -> RequestResult:
+    def _outputs(self):
+        """Every group's output rows on the host, (K, slots, max_gen),
+        gathered from the ranks in one collective; None when the groups
+        are not split (each lane is then read where it lies)."""
+        if not self.split.sharded:
+            return None
+        return self.split.gather(self.sl.out).to("cpu", copy=True).numpy()
+
+    def _harvest_lanes(self, lanes, out: Dict[Any, RequestResult]) -> None:
+        """Harvest finished lanes ``(k, s, req)`` at their full ``gen``."""
+        if not lanes:
+            return
+        rows = self._outputs()
+        for k, s, req in lanes:
+            out[req.rid] = self._harvest_lane(k, s, req, req.gen, rows=rows)
+
+    def _harvest_lane(self, k: int, s: int, req: Request, emitted: int,
+                      evicted: bool = False, rows=None) -> RequestResult:
         rt = self._routes[req.rid]
-        row = harvest(self.sl, k, s)[:emitted]
+        if rows is None:
+            row = harvest(self.sl, k, s)[:emitted]
+        else:
+            row = rows[k, s, :emitted].copy()
         res = RequestResult(rid=req.rid, cluster=rt.root,
                             similarity=rt.similarity, accepted=rt.accepted,
                             tokens=row, evicted=evicted)
@@ -227,14 +271,12 @@ class ServeEngine:
         out: Dict[Any, RequestResult] = {}
         while self.sched.pending() or self.sched.running:
             self._admit_all()
-            for k, s, req in self.sched.tick(0):      # gen == 1 finishes
-                out[req.rid] = self._harvest_lane(k, s, req, req.gen)
+            self._harvest_lanes(self.sched.tick(0), out)      # gen == 1 finishes
             n = self.sched.min_remaining()
             if n == 0:
                 continue
             self._decode_burst(n)
-            for k, s, req in self.sched.tick(n):
-                out[req.rid] = self._harvest_lane(k, s, req, req.gen)
+            self._harvest_lanes(self.sched.tick(n), out)
         return out
 
     def evict(self, rid: Any) -> Optional[RequestResult]:
@@ -248,9 +290,11 @@ class ServeEngine:
             k, s = loc
             req = self.sched.running[(k, s)].req
             emitted = self.sched.emitted(k, s)
-            self.sl.active[k, s] = False
-            self.sl.remaining[k, s] = 0
-            return self._harvest_lane(k, s, req, emitted, evicted=True)
+            lk = self._local(k)
+            if lk is not None:
+                self.sl.active[lk, s] = False
+                self.sl.remaining[lk, s] = 0
+            return self._harvest_lane(k, s, req, emitted, evicted=True, rows=self._outputs())
         for k, q in enumerate(self.sched.queues):
             for req in list(q):
                 if req.rid == rid:

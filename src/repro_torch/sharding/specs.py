@@ -1,4 +1,5 @@
-"""Client-axis placement of the federated engine over a torch ``DeviceMesh``.
+"""Mesh placement over a torch ``DeviceMesh``: the client axis of the
+federated engine, and the model axis of the LLM parameter rule table.
 
 The JAX package places each cohort's stacked inputs on the client axis
 of a ``jax.sharding.Mesh`` and lets GSPMD split the per-client math and
@@ -30,28 +31,48 @@ tensors (as it does ``broadcast``, but not ``all_gather`` or
 ``reduce_scatter``), so two ranks on one card can run the engine under
 ``gloo`` where NCCL refuses two ranks on one GPU.
 
+The model axis (``ShardCtx``, ``shard``, ``PARAM_RULES``,
+``param_shardings``, ``unshard_fsdp``) is the reference's GSPMD rule
+table as DTensor placements. A spec is a tuple with one entry per tensor
+dimension (a mesh-axis name, a tuple of names, or ``None``), exactly the
+reference's ``PartitionSpec`` (a one-name tuple is that name, as
+``PartitionSpec`` normalises it); its placements give each mesh
+dimension ``Shard(d)`` where the spec names that axis at dimension ``d``
+and ``Replicate()`` elsewhere. A dimension its axes do not divide is
+replicated, as the reference relaxes it, though DTensor could shard it
+unevenly, so every placement is the reference's spec. The models call
+``shard`` and ``unshard_fsdp`` at the reference's sites; without an
+entered ``ShardCtx`` over a mesh both return their input, so every path
+that enters none runs as it did.
+
 The helpers that read only axis names and sizes (``client_axes``,
 ``mesh_client_count``, ``align_cohort_chunk``, ``cohort_spec``,
-``_divisible``) take any object with ``mesh_dim_names`` (a
-``DeviceMesh``) or ``axis_names`` and a ``shape`` (a tuple in axis order,
-or a mapping by axis name).
+``_divisible``, ``ShardCtx.resolve``, ``spec_for_path``, ``relax``,
+``NamedSharding.placements``) take any object with ``mesh_dim_names``
+(a ``DeviceMesh``) or ``axis_names`` and a ``shape`` (a tuple in axis
+order, or a mapping by axis name).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import re
+import threading
 from collections.abc import Mapping
-from typing import Any
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.utils import trees
 
 try:                                    # public since torch 2.4
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 except ImportError:                     # pragma: no cover - older torch
-    from torch.distributed._tensor import Replicate, Shard
+    from torch.distributed._tensor import (DTensor, Partial, Replicate, Shard,
+                                           distribute_tensor)
 
 CLIENT_AXES = ("pod", "data", "clients")
 
@@ -322,3 +343,355 @@ def psum_segments(stacked, weights, segment_ids, num_segments: int, mesh):
         return segment_sum(stacked, weights, segment_ids, num_segments)
     split = row_split(int(trees.leaves(stacked)[0].shape[0]), mesh)
     return segment_sum(split.take(stacked), weights, segment_ids, num_segments, split)
+
+
+# ============================================================ model axis
+_ctx = threading.local()
+
+
+def _spec_entry(axes):
+    """One dimension's entry as ``PartitionSpec`` keeps it: ``None``, a
+    name, or a tuple of two or more names (a one-name tuple is the name)."""
+    if isinstance(axes, tuple):
+        return axes[0] if len(axes) == 1 else (axes or None)
+    return axes
+
+
+@contextlib.contextmanager
+def _implicit_replication():
+    """Plain tensors mixed with DTensors count as replicated within the
+    block (DTensor's own ``implicit_replication``, with the previous
+    setting restored on the way out, so that blocks may nest)."""
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = before
+
+
+class ShardCtx:
+    """Maps logical axis names (``batch``, ``fsdp``, ``tp``, ``expert``) to
+    the axes of one mesh; entered with ``with``, it is what ``shard`` and
+    ``unshard_fsdp`` read. Entered over a ``DeviceMesh`` it also lets the
+    models' plain tensors (positions, masks) mix with DTensors as
+    replicated values. The entered contexts are a stack of this thread's;
+    a layer recomputed in the backward (``layers.remat``) enters its
+    forward's context again on the autograd thread."""
+
+    def __init__(self, mesh, logical_map: Optional[dict] = None):
+        self.mesh = mesh
+        if logical_map is None and mesh is not None:
+            axes = _names(mesh)
+            logical_map = {
+                "batch": tuple(a for a in ("pod", "data") if a in axes) or None,
+                "fsdp": "data" if "data" in axes else None,
+                "tp": "model" if "model" in axes else None,
+                "expert": "model" if "model" in axes else None,
+            }
+        self.logical_map = logical_map or {}
+
+    def resolve(self, logical: Sequence) -> tuple:
+        """Logical per-dimension names -> the spec (unmapped names and
+        ``None`` dimensions replicate)."""
+        return tuple(None if ax is None else _spec_entry(self.logical_map.get(ax))
+                     for ax in logical)
+
+    def __enter__(self):
+        mode = (_implicit_replication() if isinstance(self.mesh, DeviceMesh)
+                else contextlib.nullcontext())
+        mode.__enter__()
+        _ctx.stack = getattr(_ctx, "stack", []) + [(self, mode)]
+        return self
+
+    def __exit__(self, *exc):
+        (_, mode), _ctx.stack = _ctx.stack[-1], _ctx.stack[:-1]
+        mode.__exit__(*exc)
+        return False
+
+
+def current_ctx() -> Optional[ShardCtx]:
+    """The innermost entered ``ShardCtx`` of this thread, or None (then
+    ``shard`` and ``unshard_fsdp`` return their input)."""
+    stack = getattr(_ctx, "stack", [])
+    return stack[-1][0] if stack else None
+
+
+def _axes(entry) -> tuple:
+    return () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+
+
+def relax(shape, spec, mesh) -> tuple:
+    """``spec`` with every dimension its axes do not divide replicated
+    (the reference's divisibility rule)."""
+    out = []
+    for dim, entry in zip(shape, spec):
+        n = 1
+        for a in _axes(entry):
+            n *= _size(mesh, a)
+        out.append(entry if entry is not None and int(dim) % n == 0 else None)
+    return tuple(out)
+
+
+def placements(spec, mesh) -> tuple:
+    """A spec as one DTensor placement per mesh dimension: ``Shard(d)``
+    where the spec names that axis at dimension ``d``, ``Replicate()``
+    elsewhere. A dimension split over several axes names them in the
+    mesh's order (DTensor splits a dimension over its mesh dimensions in
+    that order); another order raises, as does an axis named twice."""
+    names = _names(mesh)
+    where = {}
+    for d, entry in enumerate(spec):
+        axes = _axes(entry)
+        if [names.index(a) for a in axes] != sorted(names.index(a) for a in axes):
+            raise ValueError(f"spec {spec}: dimension {d} names {axes} out of the "
+                             f"mesh's order {names}")
+        for a in axes:
+            if a in where:
+                raise ValueError(f"spec {spec} names mesh axis {a!r} twice")
+            where[a] = d
+    return tuple(Shard(where[a]) if a in where else Replicate() for a in names)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A tensor's relaxed ``spec`` on ``mesh`` and its DTensor
+    ``placements``: the counterpart of ``jax.sharding.NamedSharding``."""
+    mesh: Any
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, self.mesh)
+
+
+# ---------------------------------------------------------------------------
+# Parameter sharding rules: (path regex, logical spec per dim), the
+# reference's table verbatim. Paths are "/"-joined sorted keys
+# ("layers/attn/wq"); stacked-layer leaves have a leading L axis, so a
+# rule binds to the TRAILING dims and the leading ones replicate.
+# ---------------------------------------------------------------------------
+PARAM_RULES = [
+    # embeddings (vocab, d) / head (d, vocab): vocab on tp, d replicated
+    (r".*(embed)$", ("tp", None)),
+    (r".*(lm_head|output_proj)$", (None, "tp")),
+    # attention projections (d_model, heads*hd): rows fsdp, cols tp
+    (r".*(wq|wk|wv|wkv_a|wkv_b|wq_a|wq_b|w_cross_k|w_cross_v)$", ("fsdp", "tp")),
+    (r".*(wo)$", ("tp", "fsdp")),
+    # MoE experts: (E, d, ff) -> experts on tp (expert parallel), rows fsdp
+    # (must precede the generic mlp rules: same leaf names, extra E dim)
+    (r".*experts/(w_gate|w_up)$", ("expert", "fsdp", None)),
+    (r".*experts/(w_down)$", ("expert", None, "fsdp")),
+    (r".*router/w$", ("fsdp", None)),
+    # mlp
+    (r".*(w_gate|w_up)$", ("fsdp", "tp")),
+    (r".*(w_down)$", ("tp", "fsdp")),
+    # mamba
+    (r".*(in_proj)$", ("fsdp", "tp")),
+    (r".*(x_proj)$", ("tp", None)),
+    (r".*(dt_proj)$", (None, "tp")),
+    (r".*(out_proj)$", ("tp", "fsdp")),
+    (r".*(a_log2|conv_w)$", ("tp", None)),
+    (r".*(a_log|d_skip|conv_b|dt_bias)$", ("tp",)),
+    # biases / norms / small vectors: replicate
+    (r".*(scale|bias|b_q|b_k|b_v)$", ()),
+]
+
+
+def spec_for_path(path: str, ndim: int, ctx: ShardCtx) -> tuple:
+    """A parameter path's spec: the first matching rule wins and binds to
+    the TRAILING dims (a stacked leaf's leading axes replicate); no match
+    replicates everything."""
+    for pat, logical in PARAM_RULES:
+        if re.match(pat, path):
+            spec = ctx.resolve(logical)
+            pads = ndim - len(logical)
+            if pads < 0:        # rule longer than rank (e.g. stacked scalar)
+                return tuple(spec[-ndim:]) if ndim else ()
+            return (None,) * pads + tuple(spec)
+    return (None,) * ndim
+
+
+def _map_paths(fn, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over a nested dict, paths ``/``-joined as
+    ``extractor.leaf_paths`` joins them."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    return fn(prefix[:-1], tree)
+
+
+def param_shardings(params, mesh, ctx: Optional[ShardCtx] = None):
+    """A ``NamedSharding`` per leaf of a parameter tree (tensors, or
+    anything with a ``shape``): its rule's spec, relaxed."""
+    ctx = ctx or ShardCtx(mesh)
+    return _map_paths(lambda path, x: NamedSharding(
+        mesh, relax(x.shape, spec_for_path(path, len(x.shape), ctx), mesh)), params)
+
+
+def replicated(mesh) -> NamedSharding:
+    """Fully replicated over ``mesh``."""
+    return NamedSharding(mesh, ())
+
+
+def _distribute(x: torch.Tensor, mesh, placements):
+    """``x`` (the same full tensor on every rank) as a DTensor of
+    ``placements`` on ``mesh``: each rank keeps its own shard, with no
+    collective."""
+    try:
+        return distribute_tensor(x, mesh, placements, src_data_rank=None)
+    except TypeError:                   # pragma: no cover - torch < 2.5
+        return distribute_tensor(x, mesh, placements)
+
+
+def place_params(tree, shardings):
+    """Every leaf of ``tree`` as a DTensor of its ``NamedSharding`` (the
+    counterpart of ``jax.device_put(params, shardings)``). Every rank
+    passes the same full tree, as every rank makes it from one seed."""
+    return trees.tree_map(lambda x, s: _distribute(x, s.mesh, s.placements), tree, shardings)
+
+
+def _redistribute(x, mesh, spec):
+    want = placements(spec, mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def shard(x, *logical):
+    """An activation put in its logical layout when a ``ShardCtx`` over a
+    mesh is entered: a DTensor is redistributed to the resolved spec,
+    relaxed where its axes do not divide. Without one, or for a plain
+    tensor, ``x`` itself."""
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh is None or not isinstance(x, DTensor):
+        return x
+    return _redistribute(x, ctx.mesh, relax(x.shape, ctx.resolve(logical), ctx.mesh))
+
+
+def split_heads(x, n: int, hd: int):
+    """(B, S, n·hd) -> (B, S, n, hd). Under an entered ``ShardCtx`` a
+    DTensor is first put where the reference's head layout
+    (``shard(·, "batch", None, "tp", None)``) puts it: its columns on the
+    ``tp`` axis only when that axis divides ``n``, else replicated, as
+    DTensor cannot split a dimension sharded across a head boundary."""
+    B, S = x.shape[0], x.shape[1]
+    ctx = current_ctx()
+    if ctx is not None and ctx.mesh is not None and isinstance(x, DTensor):
+        spec = relax((B, S, n, hd), ctx.resolve(("batch", None, "tp", None)), ctx.mesh)
+        x = _redistribute(x, ctx.mesh, spec[:3])
+    return x.reshape(B, S, n, hd)
+
+
+def merge_heads(x):
+    """(B, S, n, hd) -> (B, S, n·hd), the inverse of ``split_heads``.
+    Under an entered ``ShardCtx`` the result is put in the same layout
+    (columns on ``tp`` only when it divides ``n``), and so is the
+    gradient that comes back through it (``DTensor.from_local``'s
+    backward redistributes it), which the reshape's backward must split
+    into heads. The result is rewrapped with a contiguous global stride:
+    DTensor's view rule gives size-1 dimensions other strides, and
+    ``matmul`` then takes a batched product in place of the one
+    ``mm`` a plain tensor folds into, which rounds differently."""
+    B, S, n, hd = x.shape
+    out = x.reshape(B, S, n * hd)
+    ctx = current_ctx()
+    if ctx is not None and ctx.mesh is not None and isinstance(out, DTensor):
+        spec = relax((B, S, n, hd), ctx.resolve(("batch", None, "tp", None)), ctx.mesh)
+        out = _redistribute(out, ctx.mesh, spec[:3])
+        out = DTensor.from_local(out.to_local(), ctx.mesh, out.placements, run_check=False,
+                                 shape=out.shape, stride=(S * n * hd, n * hd, 1))
+    return out
+
+
+def local_heads(q, *kv, rows=()):
+    """Attention's operands as this rank's local tensors, all in ``q``'s
+    layout, and the function that wraps a local result (one row and head
+    of it per row and head of ``q``) back into a DTensor of that layout.
+    Attention is independent per batch row and head, so each rank attends
+    its own rows and heads on local tensors: what GSPMD partitions the
+    reference's einsums into. (DTensor's einsum decomposes into a batched
+    product that flattens the batch and head dimensions together, which
+    some torch versions refuse when the head dimension is sharded.) ``q``
+    is (B, S, H, d), sharded on at most its batch and head dimensions;
+    each of ``kv`` is (B, S', H, d') and is redistributed to that layout.
+    ``rows`` are plain tensors with one leading entry per batch row (a
+    decode's per-row masks), narrowed to this rank's rows. Without an
+    entered ``ShardCtx`` or for plain tensors, the operands and the
+    identity."""
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh is None or not isinstance(q, DTensor):
+        return (q, *kv, *rows), lambda out: out
+    mesh, pl = q.device_mesh, tuple(q.placements)
+    if any(isinstance(p, Shard) and p.dim not in (0, 2) for p in pl):
+        raise ValueError(f"attention's query must be sharded on batch and heads only, got {pl}")
+    place = lambda x, want: (x if tuple(x.placements) == tuple(want)
+                             else x.redistribute(mesh, want)).to_local()
+    by_row = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pl)
+    local = [q.to_local()] + [place(x, pl) for x in kv] + [
+        place(r, by_row) if isinstance(r, DTensor)
+        else _distribute(r, mesh, by_row).to_local() for r in rows]
+    return local, lambda out: DTensor.from_local(out, mesh, pl, run_check=False)
+
+
+def embed_rows(tokens, table):
+    """``table[tokens]``. Under an entered ``ShardCtx`` a table whose
+    vocab rows are split over one mesh dimension is looked up shard by
+    shard, as GSPMD partitions the reference's gather: each rank indexes
+    the rows it holds (the others zero), and one sum over that dimension
+    completes them; on a mesh of one rank that is the index without a
+    mesh, gradient included. (DTensor's own rule gives a masked partial
+    sum whose gradient some torch versions cannot take.) The result is
+    split as ``tokens`` are and replicated otherwise."""
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh is None or not isinstance(table, DTensor):
+        return table[tokens]
+    mesh, tpl = table.device_mesh, tuple(table.placements)
+    vocab = [i for i, p in enumerate(tpl) if isinstance(p, Shard)]
+    if len(vocab) != 1 or tpl[vocab[0]].dim != 0:
+        return torch.nn.functional.embedding(tokens, table)
+    (dim,) = vocab
+    rows = table.shape[0] // mesh.size(dim)
+    lo = mesh.get_local_rank(dim) * rows
+    if isinstance(tokens, DTensor):
+        kpl, tokens = tuple(tokens.placements), tokens.to_local()
+    else:
+        kpl = (Replicate(),) * mesh.ndim
+    held = (tokens >= lo) & (tokens < lo + rows)
+    # a rank's gradient of its rows sums its own tokens' only: partial over
+    # the dimensions that split the tokens
+    grad = [Partial() if i != dim and isinstance(k, Shard) else t
+            for i, (k, t) in enumerate(zip(kpl, tpl))]
+    local = table.to_local(grad_placements=grad)[torch.where(held, tokens - lo, 0)]
+    local = local * held[..., None].to(local.dtype)
+    placed = [Partial() if i == dim else p for i, p in enumerate(kpl)]
+    out = DTensor.from_local(local, mesh, placed, run_check=False)
+    return out.redistribute(mesh, [Replicate() if i == dim else p for i, p in enumerate(kpl)])
+
+
+def unshard_fsdp(tree):
+    """A layer's weights in their compute layout: each DTensor leaf
+    redistributed to its rule's spec with ``fsdp`` replicated and ``tp``
+    kept (ZeRO-3's per-layer gather; its gradient comes back reduced and
+    scattered to the stored layout). Without an entered ``ShardCtx`` over
+    a mesh, ``tree`` itself."""
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh is None:
+        return tree
+    mesh = ctx.mesh
+    ctx2 = ShardCtx(mesh, {**ctx.logical_map, "fsdp": None})
+
+    def one(path, x):
+        if not isinstance(x, DTensor):
+            return x
+        return _redistribute(x, mesh, relax(x.shape, spec_for_path(path, x.dim(), ctx2), mesh))
+
+    return _map_paths(one, tree)
+
+
+def place_decode_state(tree, mesh):
+    """The serving engine's cluster-group rows on this rank: the leading
+    (cluster-group) axis of every leaf narrowed to the rank's
+    ``row_split``, whole where the group count does not divide the ranks
+    (``serve.ServeEngine(mesh=...)``; ``place_cohort``'s rule)."""
+    return place_cohort(tree, mesh)

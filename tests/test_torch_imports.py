@@ -59,6 +59,8 @@ SLICE11 = ("repro_torch.models.encdec", "repro_torch.models.vlm")
 # the client-axis mesh
 SLICE12 = ("repro_torch.sharding", "repro_torch.sharding.specs",
            "repro_torch.launch.mesh", "repro_torch.utils.logging")
+# the model axis: the mesh-aware LLM step builders
+SLICE13 = ("repro_torch.launch.steps",)
 
 
 def test_importing_every_module_loads_no_jax():
@@ -77,6 +79,7 @@ def test_importing_every_module_loads_no_jax():
     assert set(SLICE10) <= set(names), sorted(set(SLICE10) - set(names))
     assert set(SLICE11) <= set(names), sorted(set(SLICE11) - set(names))
     assert set(SLICE12) <= set(names), sorted(set(SLICE12) - set(names))
+    assert set(SLICE13) <= set(names), sorted(set(SLICE13) - set(names))
     assert bad == "", f"port imports pulled in {bad}"
 
 

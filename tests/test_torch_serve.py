@@ -380,8 +380,29 @@ def test_non_token_arch_rejected(qwen):
 
 
 def test_mesh_is_not_ported(qwen):
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        serve.ServeEngine(qwen.model, qwen.state, mesh=object())
+    """Serving over a mesh is ported now (the name is kept from when it
+    raised): on a gloo world of one, ``ServeEngine(mesh=...)`` holds every
+    group and serves the tokens of the engine without a mesh. The
+    multi-rank worlds are ``tests/test_torch_serve_mesh.py``'s."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_client_mesh
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        eng = serve.ServeEngine(qwen.model, qwen.state, serve.ServeConfig(
+            slots=2, max_len=P + G, max_gen=G), mesh=make_client_mesh(device="cpu"))
+        reqs = [qwen.req(i) for i in range(4)]
+        eng.submit_many(reqs)
+        got = eng.run()
+    finally:
+        dist.destroy_process_group()
+    ref = qwen.engine(slots=2)
+    ref.submit_many(reqs)
+    want = ref.run()
+    assert eng.split.sharded and (eng.split.lo, eng.split.hi) == (0, len(eng.roots))
+    for r in reqs:
+        assert np.array_equal(got[r.rid].tokens, want[r.rid].tokens), r.rid
+    assert eng.stats() == ref.stats()
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
