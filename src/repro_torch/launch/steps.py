@@ -26,7 +26,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.registry import Model, Spec, decode_specs
 from repro_torch.sharding.specs import (DTensor, NamedSharding, ShardCtx, _distribute,
                                         _map_paths, _redistribute, _size, param_shardings,
-                                        relax, replicated)
+                                        relax, replicated, to_local, wrap_like)
 from repro_torch.utils import trees
 
 # ---------------------------------------------------------------- helpers
@@ -94,18 +94,6 @@ def _like(g, p):
     return g
 
 
-def _local(x):
-    return x.to_local() if isinstance(x, DTensor) else x
-
-
-def _wrap(local, like):
-    """``local`` as a DTensor with ``like``'s mesh, placements and shape."""
-    if not isinstance(like, DTensor):
-        return local
-    return DTensor.from_local(local, like.device_mesh, like.placements, run_check=False,
-                              shape=like.shape, stride=like.stride())
-
-
 def _grads_like(grads, params):
     return trees.tree_map(_like, grads, params)
 
@@ -123,10 +111,10 @@ def stocfl_train_step(model: Model, lr: float = 0.1, lam: float = 0.05):
         # partition a Pallas call. K1 is elementwise and the four trees
         # share one layout, so it runs on each rank's local shards (the
         # kernel on the card, its plain version on the CPU), exactly.
-        local = lambda tree: trees.tree_map(_local, tree)
+        local = lambda tree: trees.tree_map(to_local, tree)
         t2, o2 = ops.prox_update_tree(local(theta), local(omega), local(g_t), local(g_o),
                                       lr, lam)
-        return (trees.tree_map(_wrap, t2, theta), trees.tree_map(_wrap, o2, omega),
+        return (trees.tree_map(wrap_like, t2, theta), trees.tree_map(wrap_like, o2, omega),
                 {"loss_theta": loss_t, "loss_omega": loss_o})
 
     return step

@@ -14,9 +14,12 @@ Caches:
 With a sliding window S_max is the window and writes wrap around it.
 
 Long sequences use query-chunked attention (``_CHUNK`` query rows at a
-time) so the S×S logits never materialise above that many rows. The
-reference's flash-decode path is a ``shard_map`` over a sequence-sharded
-cache; on one device it is the plain decode. Attention, RoPE and the MLP
+time) so the S×S logits never materialise above that many rows. With
+``cfg.flash_decode``, under an entered ``ShardCtx`` whose ``tp`` axis
+divides the cache's sequence, ``gqa_decode`` takes the reference's flash
+decode (``_gqa_decode_flash``): each model rank attends over its own
+contiguous slab of the cache and the ranks exchange only softmax
+statistics and the context, never cache bytes. Attention, RoPE and the MLP
 sit outside any TPU kernel in the reference, so they are plain PyTorch
 here too. The encoder-decoder family adds bidirectional (encoder)
 self-attention over GQA weights and cross-attention over the encoder's
@@ -29,9 +32,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.layers import apply_rope, dense_init
-from repro_torch.sharding.specs import local_heads, merge_heads, shard, split_heads
+from repro_torch.sharding.specs import (DTensor, _distribute, _redistribute, _size,
+                                        current_ctx, local_heads, merge_heads, placements,
+                                        relax, shard, split_heads)
 
 _CHUNK = 1024          # query-chunk rows for long-sequence attention
 _NEG = -1e30
@@ -181,7 +187,15 @@ def gqa_decode(params, x, cache, pos, cfg):
     ``sliding_window`` is set; a position past the cache lands on its last
     entry, where the reference's ``dynamic_update_slice`` clamps it) and
     attends to its first ``valid_len[b]`` entries. The write is a one-hot
-    ``where``, so the cache passed in is not modified."""
+    ``where``, so the cache passed in is not modified. With
+    ``cfg.flash_decode`` under the reference's condition (an entered
+    ``ShardCtx`` whose logical map has ``tp``, an axis size that divides
+    the cache's sequence) the step is ``_gqa_decode_flash``."""
+    if cfg.flash_decode:
+        ctx = current_ctx()
+        tp = ctx.logical_map.get("tp") if ctx is not None and ctx.mesh is not None else None
+        if tp and cache["k"].shape[1] % _size(ctx.mesh, tp) == 0:
+            return _gqa_decode_flash(params, x, cache, pos, cfg)
     B = x.shape[0]
     dt = x.dtype
     S_max = cache["k"].shape[1]
@@ -200,6 +214,82 @@ def gqa_decode(params, x, cache, pos, cfg):
     probs = torch.softmax(logits, dim=-1).to(dt)
     out = merge_heads(wrap(torch.einsum("bhqs,bshd->bqhd", probs, vv)))
     return out @ params["wo"].to(dt), {"k": k, "v": v}
+
+
+# =========================================================== flash decode
+def _flash_decode_core(group, n_shards: int, idx: int, windowed: bool, q, k, v, k_new,
+                       v_new, pos):
+    """One model rank's decode attention over its slab of a
+    sequence-sharded cache, on local tensors.
+
+    q, k_new, v_new: (B, 1, H | H_kv, hd), whole on every rank of
+    ``group`` (the model axis, ``n_shards`` ranks, this one ``idx``); k, v:
+    (B, S_loc, H_kv, hd), the contiguous entries ``[idx·S_loc,
+    (idx+1)·S_loc)`` of the cache; pos: (B,) positions. The rank holding a
+    row's slot writes k_new/v_new there (modulo the cache when
+    ``windowed``; past an unwindowed cache no rank writes, as in the
+    reference), masks its logits at global positions and takes its local
+    max; the max (MAX), the softmax's normaliser and the (B, 1, H, hd)
+    context (SUM) are all-reduced over ``group``: O(B·H·hd) elements, not
+    the cache. Returns (out (B, 1, H, hd), k, v)."""
+    B, S_loc = k.shape[0], k.shape[1]
+    S_max = S_loc * n_shards
+    start = idx * S_loc
+    slot = pos % S_max if windowed else pos
+    valid_len = torch.clamp(pos + 1, max=S_max) if windowed else pos + 1
+    idx_loc = torch.arange(S_loc, device=k.device)
+    write = (idx_loc[None, :] == (slot - start)[:, None])[:, :, None, None]   # (B,S_loc,1,1)
+    k = torch.where(write, k_new.to(k.dtype), k)
+    v = torch.where(write, v_new.to(v.dtype), v)
+
+    H, hd = q.shape[2], q.shape[3]
+    kk = _repeat_kv(k.to(q.dtype), H)
+    vv = _repeat_kv(v.to(q.dtype), H)
+    logits = torch.einsum("bqhd,bshd->bhqs", q, kk).to(torch.float32) * _scale(hd)
+    mask = ((start + idx_loc)[None, :] < valid_len[:, None])[:, None, None, :]  # (B,1,1,S_loc)
+    logits = torch.where(mask, logits, _NEG)
+
+    gmax = torch.amax(logits, dim=-1)                                   # (B,H,1)
+    dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+    p = torch.exp(logits - gmax[..., None]) * mask
+    denom = torch.sum(p, dim=-1)                                        # (B,H,1)
+    dist.all_reduce(denom, op=dist.ReduceOp.SUM, group=group)
+    ctx = torch.einsum("bhqs,bshd->bqhd", p.to(q.dtype), vv)
+    dist.all_reduce(ctx, op=dist.ReduceOp.SUM, group=group)
+    out = ctx / denom.transpose(1, 2)[..., None].to(q.dtype)
+    return out, k, v
+
+
+def _gqa_decode_flash(params, x, cache, pos, cfg):
+    """The reference's flash decode (its ``shard_map`` written out): the
+    query, the new key and value and the positions whole over ``tp`` and
+    split over the client axes where they divide the batch (the
+    reference's ``flat_spec``), the cache in its ``cache_shardings``
+    placement (batch likewise, sequence on ``tp``) on the way in and out;
+    each rank runs ``_flash_decode_core`` on its local tensors. Plain
+    tensors (a cache every rank holds whole) are placed the same way, each
+    rank keeping its own part, and the outputs are DTensors."""
+    ctx = current_ctx()
+    mesh, tp = ctx.mesh, ctx.logical_map["tp"]
+    B = x.shape[0]
+    dt = x.dtype
+    pos = row_positions(pos, B, x.device)
+    q, k_new, v_new = _qkv(params, x, cfg, pos[:, None])
+    flat = relax(q.shape, ctx.resolve(("batch", None, None, None)), mesh)
+    cspec = relax(cache["k"].shape, ctx.resolve(("batch", "tp", None, None)), mesh)
+
+    def local(t, spec):
+        if isinstance(t, DTensor):
+            return _redistribute(t, mesh, spec).to_local()
+        return _distribute(t, mesh, placements(spec, mesh)).to_local()
+
+    out, k, v = _flash_decode_core(
+        mesh.get_group(tp), _size(mesh, tp), mesh.get_local_rank(tp), bool(cfg.sliding_window),
+        local(q, flat), local(cache["k"], cspec), local(cache["v"], cspec),
+        local(k_new, flat), local(v_new, flat), local(pos, flat[:1]))
+    wrap = lambda t, spec: DTensor.from_local(t, mesh, placements(spec, mesh), run_check=False)
+    out = merge_heads(wrap(out, flat)) @ params["wo"].to(dt)
+    return out, {"k": wrap(k, cspec), "v": wrap(v, cspec)}
 
 
 # =========================================================== MLA (DeepSeek)
@@ -314,12 +404,11 @@ def cross_attn_init(generator: torch.Generator, cfg, dtype=torch.float32, device
 def cross_kv(params, enc_out, cfg):
     """The encoder output's keys and values for one decoder layer:
     ``{"k", "v": (B, Se, H_kv, hd)}`` in ``enc_out``'s dtype."""
-    B, Se, _ = enc_out.shape
     hd = cfg.resolved_head_dim
     dt = enc_out.dtype
-    k = (enc_out @ params["w_cross_k"].to(dt)).reshape(B, Se, cfg.n_kv_heads, hd)
-    v = (enc_out @ params["w_cross_v"].to(dt)).reshape(B, Se, cfg.n_kv_heads, hd)
-    return {"k": k, "v": v}
+    k = split_heads(enc_out @ params["w_cross_k"].to(dt), cfg.n_kv_heads, hd)
+    v = split_heads(enc_out @ params["w_cross_v"].to(dt), cfg.n_kv_heads, hd)
+    return {"k": shard(k, "batch", None, "tp", None), "v": shard(v, "batch", None, "tp", None)}
 
 
 def _attend_all(q, k, v):
@@ -336,9 +425,9 @@ def _attend_all(q, k, v):
 def cross_attend(params, x, kv, cfg):
     """x (B, Sq, d) queries over precomputed encoder keys and values (no
     RoPE, no mask)."""
-    B, Sq, _ = x.shape
     dt = x.dtype
-    q = (x @ params["wq"].to(dt)).reshape(B, Sq, cfg.n_heads, cfg.resolved_head_dim)
+    q = split_heads(x @ params["wq"].to(dt), cfg.n_heads, cfg.resolved_head_dim)
+    q = shard(q, "batch", None, "tp", None)
     return _attend_all(q, kv["k"], kv["v"]) @ params["wo"].to(dt)
 
 

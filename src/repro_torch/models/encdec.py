@@ -27,7 +27,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (dense_init, embed_init, gelu_mlp, gelu_mlp_init,
                                        layernorm, layernorm_init, remat)
 from repro_torch.models.ssm_lm import dtype_of
-from repro_torch.sharding.specs import shard, unshard_fsdp
+from repro_torch.sharding.specs import embed_rows, shard, unshard_fsdp
 from repro_torch.utils import trees
 
 
@@ -125,7 +125,7 @@ def _cross_kvs(params, enc_out, cfg):
 
 
 def _embed(params, tokens, cfg):
-    return params["embed"].to(dtype_of(cfg.dtype))[tokens]
+    return embed_rows(tokens, params["embed"].to(dtype_of(cfg.dtype)))
 
 
 def _logits(params, h, cfg):

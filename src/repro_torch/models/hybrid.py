@@ -23,7 +23,7 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (dense_init, embed_init, remat, rmsnorm,
                                        rmsnorm_init, swiglu, swiglu_init)
 from repro_torch.models.ssm_lm import dtype_of
-from repro_torch.sharding.specs import shard, unshard_fsdp
+from repro_torch.sharding.specs import embed_rows, shard, unshard_fsdp
 from repro_torch.utils import trees
 
 
@@ -113,7 +113,7 @@ def _stack(caches):
 def forward_train(params, tokens, cfg):
     """tokens (B, S) -> (logits (B, S, V) in ``cfg.dtype``, aux 0.0)."""
     dt = dtype_of(cfg.dtype)
-    h = h_embed = shard(params["embed"].to(dt)[tokens], "batch", None, None)
+    h = h_embed = shard(embed_rows(tokens, params["embed"].to(dt)), "batch", None, None)
     groups, rem = _group_slices(cfg)
     for layers in groups:
         h, _ = _mamba_group(cfg, "train", h, params, layers)
@@ -130,7 +130,7 @@ def prefill(params, tokens, cfg):
     With no application of the shared block the ``attn`` leaves are
     ``make_cache``'s (zero-length on axis A)."""
     dt = dtype_of(cfg.dtype)
-    h = h_embed = params["embed"].to(dt)[tokens]
+    h = h_embed = embed_rows(tokens, params["embed"].to(dt))
     groups, rem = _group_slices(cfg)
     m_caches, a_caches = [], []
     for layers in groups:
@@ -154,7 +154,7 @@ def decode_step(params, token, caches, pos, cfg):
     state is position-free). Returns (logits (B, V), new caches); the
     caches passed in are not modified."""
     dt = dtype_of(cfg.dtype)
-    h = h_embed = params["embed"].to(dt)[token][:, None, :]
+    h = h_embed = embed_rows(token, params["embed"].to(dt))[:, None, :]
     groups, rem = _group_slices(cfg)
     new_m, new_a = [], []
     for a, layers in enumerate(groups):

@@ -23,7 +23,7 @@ import math
 import torch
 
 from repro_torch.models.layers import dense_init, swiglu, swiglu_init
-from repro_torch.sharding.specs import shard
+from repro_torch.sharding.specs import local_experts, shard
 
 
 def moe_init(generator: torch.Generator, cfg, dtype=torch.float32, device="cpu"):
@@ -94,8 +94,11 @@ def route(params, xg, cfg):
     ce = torch.mean(_one_hot(top_idx[..., 0], E, torch.float32), dim=1)    # (G,E)
     aux = torch.mean(torch.sum(me * ce, dim=-1)) * E
 
-    # position of each (token, choice) within its expert's buffer, slot-major
-    flat = _one_hot(top_idx, E, torch.int32).transpose(1, 2).reshape(G, k * g, E)
+    # position of each (token, choice) within its expert's buffer, slot-major:
+    # a count over the whole group, so the choices are placed whole first
+    # (the group's tokens may be split over the client axes)
+    flat = _one_hot(shard(top_idx, None, None, None), E, torch.int32)
+    flat = flat.transpose(1, 2).reshape(G, k * g, E)
     before = torch.cumsum(flat, dim=1) - flat                              # (G,k*g,E)
     pos = torch.sum(flat * before, dim=-1)                                 # (G,k*g)
     pos = pos.reshape(G, k, g).transpose(1, 2)                             # (G,g,k)
@@ -129,7 +132,8 @@ def moe_ffn(params, x, cfg, group_size: int = 0):
     expert_out = torch.einsum("egcf,efd->egcd", h, w["w_down"].to(dt))     # (E,G,c,d)
     expert_out = shard(expert_out, "expert", None, None, None)
 
-    out = torch.einsum("gsec,egcd->gsd", combine, expert_out).reshape(B, S, d)
+    (combine, expert_out), wrap = local_experts(combine, expert_out)
+    out = wrap(torch.einsum("gsec,egcd->gsd", combine, expert_out)).reshape(B, S, d)
     if "shared" in params:
         out = out + swiglu(params["shared"], x)
     return out, aux

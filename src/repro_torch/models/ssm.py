@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
-from repro_torch.sharding.specs import shard
+from repro_torch.sharding.specs import local_channels, shard
 
 
 def _scan_y(dA, dBx, C, h0, cfg, need_state: bool):
@@ -33,10 +33,13 @@ def _scan_y(dA, dBx, C, h0, cfg, need_state: bool):
 
     When the caller does not need the final state (training) and the
     config opts in, the scan is ``ops.ssm_scan`` (h never reaches device
-    memory but every 16th step). Otherwise the plain chunked scan runs and
-    y is contracted from its states."""
+    memory but every 16th step). Under an entered ``ShardCtx`` the kernel
+    scans this rank's rows and channels (``sharding.local_channels``), and
+    its output is a DTensor again. Otherwise the plain chunked scan runs
+    and y is contracted from its states."""
     if cfg.use_pallas and not need_state and h0 is None:
-        return ops.ssm_scan(dA, dBx, C), None
+        (dA, dBx, C), wrap = local_channels(dA, dBx, C)
+        return wrap(ops.ssm_scan(dA, dBx, C)), None
     if h0 is None:
         h0 = torch.zeros(dA.shape[:1] + dA.shape[2:], dtype=torch.float32,
                          device=dA.device)
@@ -118,7 +121,9 @@ def _mamba1_core(params, x, cfg, h0=None, conv_tail=None, need_state=True):
                                  params["conv_b"].to(dt_), conv_tail)
     x_c = F.silu(x_c)
 
-    dbc = x_c @ params["x_proj"].to(dt_)                  # (B,S,dtr+2ds)
+    # the contraction over the tp-split channels is a partial sum: placed
+    # whole over tp (an all-reduce) before the small projections read it
+    dbc = shard(x_c @ params["x_proj"].to(dt_), "batch", None, None)   # (B,S,dtr+2ds)
     dt_raw, Bc, Cc = torch.split(dbc, [dtr, ds, ds], dim=-1)
     pre = dt_raw @ params["dt_proj"].to(dt_) + params["dt_bias"].to(dt_)
     delta = torch.logaddexp(pre, torch.zeros_like(pre))  # softplus, as jax.nn's

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.models import ssm
 from repro_torch.models.layers import dense_init, embed_init, remat, rmsnorm, rmsnorm_init
-from repro_torch.sharding.specs import shard, unshard_fsdp
+from repro_torch.sharding.specs import embed_rows, shard, unshard_fsdp
 from repro_torch.utils import trees
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -53,7 +53,7 @@ def _n_layers(params) -> int:
 def forward_train(params, tokens, cfg):
     """tokens (B, S) -> (logits (B, S, V) in ``cfg.dtype``, aux 0.0)."""
     dt = dtype_of(cfg.dtype)
-    h = shard(params["embed"].to(dt)[tokens], "batch", None, None)
+    h = shard(embed_rows(tokens, params["embed"].to(dt)), "batch", None, None)
 
     def body(h, p):
         p = unshard_fsdp(p)
@@ -70,7 +70,7 @@ def prefill(params, tokens, cfg):
     """tokens (B, S) -> (last position's logits (B, V), per-layer caches
     stacked on a leading layer axis)."""
     dt = dtype_of(cfg.dtype)
-    h = shard(params["embed"].to(dt)[tokens], "batch", None, None)
+    h = shard(embed_rows(tokens, params["embed"].to(dt)), "batch", None, None)
     caches = []
 
     def body(h, p):
@@ -89,7 +89,7 @@ def prefill(params, tokens, cfg):
 def decode_step(params, token, caches, pos, cfg):
     """pos is unused for SSMs (state is position-free) but kept for API parity."""
     dt = dtype_of(cfg.dtype)
-    h = params["embed"].to(dt)[token][:, None, :]
+    h = embed_rows(token, params["embed"].to(dt))[:, None, :]
     new = []
     for i in range(_n_layers(params)):
         p = unshard_fsdp(_layer(params, i))

@@ -16,7 +16,7 @@ import torch
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import ce_loss, dense_init, rmsnorm
 from repro_torch.models.ssm_lm import dtype_of
-from repro_torch.sharding.specs import shard
+from repro_torch.sharding.specs import embed_rows, shard
 
 
 def init(generator: torch.Generator, cfg, device="cpu"):
@@ -33,7 +33,7 @@ def _assemble(params, batch, cfg):
     d) in ``cfg.dtype``."""
     dt = dtype_of(cfg.dtype)
     patches = batch["patches"].to(dt) @ params["patch_proj"].to(dt)
-    text = params["embed"].to(dt)[batch["tokens"]]
+    text = embed_rows(batch["tokens"], params["embed"].to(dt))
     return shard(torch.cat([patches, text], dim=1), "batch", None, None)
 
 

@@ -43,7 +43,12 @@ replicated, as the reference relaxes it, though DTensor could shard it
 unevenly, so every placement is the reference's spec. The models call
 ``shard`` and ``unshard_fsdp`` at the reference's sites; without an
 entered ``ShardCtx`` over a mesh both return their input, so every path
-that enters none runs as it did.
+that enters none runs as it did. Where DTensor has no usable rule for a
+site the reference leaves to GSPMD, a helper hands each rank its local
+operands and wraps the local result back (``local_heads`` for
+attention, ``local_channels`` for the selective scan's kernel,
+``local_experts`` for the MoE combine, ``embed_rows`` for the vocab
+lookup); ``CollectiveLog`` counts the collectives a block issues.
 
 The helpers that read only axis names and sizes (``client_axes``,
 ``mesh_client_count``, ``align_cohort_chunk``, ``cohort_spec``,
@@ -65,6 +70,7 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.utils import trees
 
@@ -634,6 +640,89 @@ def local_heads(q, *kv, rows=()):
     return local, lambda out: DTensor.from_local(out, mesh, pl, run_check=False)
 
 
+def to_local(x):
+    """A DTensor's local shard; anything else as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def wrap_like(local, like):
+    """``local`` as a DTensor with ``like``'s mesh, placements, shape and
+    stride (a local result of a rank's own shards of ``like``'s layout);
+    ``local`` itself when ``like`` is no DTensor."""
+    if not isinstance(like, DTensor):
+        return local
+    return DTensor.from_local(local, like.device_mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
+def local_channels(dA, dBx, C):
+    """The selective scan's operands as this rank's local tensors, and the
+    function that wraps its local output back into a DTensor. The scan is
+    independent per channel and batch row, so each rank scans its own
+    rows and channels exactly: ``dA`` and ``dBx`` (B, S, D, N) are put
+    with their rows on the client axes and the channels D on ``tp``
+    (``shard(·, "batch", None, "tp", None)``; a partial sum is reduced on
+    the way), ``C`` (B, S, N) with its rows split alone. Each rank's
+    gradient of ``C`` sums its own channels only, so it comes back as a
+    partial sum over the mesh dimensions that split D. The output (B, S,
+    D) takes ``dBx``'s new placements. Without an entered ``ShardCtx`` or
+    for plain tensors, the operands and the identity."""
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh is None or not isinstance(dBx, DTensor):
+        return (dA, dBx, C), lambda out: out
+    mesh = ctx.mesh
+    spec = relax(dBx.shape, ctx.resolve(("batch", None, "tp", None)), mesh)
+    dA, dBx = _redistribute(dA, mesh, spec), _redistribute(dBx, mesh, spec)
+    C = _redistribute(C, mesh, spec[:2] + (None,))
+    pl = tuple(dBx.placements)
+    grad_c = tuple(Partial() if isinstance(p, Shard) and p.dim == 2 else q
+                   for p, q in zip(pl, C.placements))
+    local = (dA.to_local(), dBx.to_local(), C.to_local(grad_placements=grad_c))
+    return local, lambda out: DTensor.from_local(out, mesh, pl, run_check=False)
+
+
+def local_experts(combine, expert_out):
+    """The MoE combine's operands as this rank's local tensors, and the
+    function that wraps its local output back into a DTensor. The combine
+    ``out[g, s] = Σ_{e, c} combine[g, s, e, c]·expert_out[e, g, c]`` sums
+    over the experts, which ``expert_out`` (E, G, c, d) splits over the
+    ``expert`` axis: each rank contracts its own experts with their slice
+    of ``combine`` (G, g, E, c), which is put whole over those mesh
+    dimensions and keeps its row split elsewhere, and the result (G, g,
+    d) is a partial sum over the mesh dimensions that split the experts
+    (what GSPMD makes of the reference's einsum; DTensor's own einsum
+    flattens the sharded expert dimension into its neighbour, which some
+    torch versions refuse). Without an entered ``ShardCtx`` or for plain
+    tensors, the operands and the identity."""
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh is None or not isinstance(expert_out, DTensor):
+        return (combine, expert_out), lambda out: out
+    mesh = ctx.mesh
+    spec = relax(expert_out.shape, ctx.resolve(("expert", None, None, None)), mesh)
+    expert_out = _redistribute(expert_out, mesh, spec)
+    split = [isinstance(p, Shard) for p in expert_out.placements]
+    cpl = combine.placements if isinstance(combine, DTensor) else (Replicate(),) * mesh.ndim
+    want = tuple(Replicate() if e or not (isinstance(p, Shard) and p.dim == 1) else p
+                 for e, p in zip(split, cpl))
+    # a rank reads only its experts' slice of combine, so the gradient it
+    # returns for combine is a partial sum over the mesh dimensions that
+    # split the experts; the one it returns for expert_out sums its own
+    # rows only, a partial sum over the mesh dimensions that split the rows
+    out_pl = tuple(Partial() if e else p for e, p in zip(split, want))
+    local = (combine if isinstance(combine, DTensor) else
+             _distribute(combine, mesh, (Replicate(),) * mesh.ndim)).redistribute(
+        mesh, want).to_local(grad_placements=out_pl)
+    lo, n = 0, expert_out.shape[0]
+    for i, e in enumerate(split):
+        if e:
+            n //= mesh.size(i)
+            lo += mesh.get_local_rank(i) * n
+    rows = tuple(Partial() if isinstance(p, Shard) and not e else q
+                 for e, p, q in zip(split, want, expert_out.placements))
+    return ((local[:, :, lo:lo + n], expert_out.to_local(grad_placements=rows)),
+            lambda out: DTensor.from_local(out, mesh, out_pl, run_check=False))
+
+
 def embed_rows(tokens, table):
     """``table[tokens]``. Under an entered ``ShardCtx`` a table whose
     vocab rows are split over one mesh dimension is looked up shard by
@@ -687,6 +776,27 @@ def unshard_fsdp(tree):
         return _redistribute(x, mesh, relax(x.shape, spec_for_path(path, x.dim(), ctx2), mesh))
 
     return _map_paths(one, tree)
+
+
+class CollectiveLog(TorchDispatchMode):
+    """Within the block, ``calls`` receives (op, elements, bytes) of every
+    collective dispatched on this thread: ``c10d`` ops (``dist.all_reduce``
+    and its kin), ``_c10d_functional`` ops and ``_dtensor.shard_dim_alltoall``
+    (DTensor's redistributions), counted by their first tensor, the one
+    they send."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.__name__
+        if ((func.namespace in ("c10d", "_c10d_functional") and "wait" not in name)
+                or (func.namespace == "_dtensor" and "alltoall" in name)):
+            first = args[0][0] if isinstance(args[0], (list, tuple)) else args[0]
+            self.calls.append((f"{func.namespace}.{name.split('.')[0]}",
+                               int(first.numel()), int(first.numel() * first.element_size())))
+        return func(*args, **(kwargs or {}))
 
 
 def place_decode_state(tree, mesh):

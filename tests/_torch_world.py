@@ -6,12 +6,15 @@ at once, with one intra-op thread each; ``Worlds.wait`` waits at most
 the rank's log) if one exits non-zero, and kills every process it
 started on the way out (``run_worlds`` does both). The
 ranks of a world join through a ``FileStore`` under ``ROOT`` named by
-their arguments and write their results there."""
+their arguments and write their results there. ``close`` holds one
+tree of results against another, leaf by leaf, relative to the largest
+magnitude of each reference leaf."""
 import os
 import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -57,3 +60,25 @@ def start_worlds(worker, root: str, worlds, timeout: float = WORLD_TIMEOUT) -> W
 
 def run_worlds(worker, root: str, worlds, timeout: float = WORLD_TIMEOUT) -> None:
     start_worlds(worker, root, worlds, timeout).wait()
+
+
+def flat(tree, prefix=""):
+    """A nested dict of arrays as ``{"a/b": float64 array}``."""
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree) for k, v in flat(tree[key], f"{prefix}{key}/").items()}
+    return {prefix[:-1]: np.asarray(tree, np.float64)}
+
+
+def close(got, want, tol, what):
+    """Every leaf of ``got`` within ``tol`` of the largest magnitude of its
+    leaf in ``want``; returns the largest such relative error."""
+    g, w = flat(got), flat(want)
+    assert set(g) == set(w), what
+    worst = 0.0
+    for k in w:
+        assert g[k].shape == w[k].shape, (what, k)
+        err = float(np.max(np.abs(g[k] - w[k]))) if w[k].size else 0.0
+        scale = max(float(np.max(np.abs(w[k]))), 1e-30) if w[k].size else 1.0
+        assert err <= tol * scale, (what, k, err / scale)
+        worst = max(worst, err / scale)
+    return worst

@@ -32,7 +32,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_world import HERE, start_worlds  # noqa: E402
+from _torch_world import HERE, close as _close, start_worlds  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import build as jbuild  # noqa: E402
@@ -51,23 +51,6 @@ WORLDS_TIMEOUT = 180.0
 KINDS = ("train", "prefill", "decode", "repr")
 
 
-def _flat(tree, prefix=""):
-    if isinstance(tree, dict):
-        return {k: v for key in sorted(tree) for k, v in _flat(tree[key], f"{prefix}{key}/").items()}
-    return {prefix[:-1]: np.asarray(tree, np.float64)}
-
-
-def _close(got, want, tol, what):
-    """Every leaf of ``got`` within ``tol`` of the largest magnitude of its
-    leaf in ``want``."""
-    g, w = _flat(got), _flat(want)
-    assert set(g) == set(w), what
-    for k in w:
-        assert g[k].shape == w[k].shape, (what, k)
-        err = float(np.max(np.abs(g[k] - w[k]))) if w[k].size else 0.0
-        assert err <= tol * max(float(np.max(np.abs(w[k]))), 1e-30), (what, k, err)
-
-
 def _model():
     return build(get_config("qwen2-1.5b", smoke=True).with_(dtype="float32"))
 
@@ -84,7 +67,8 @@ def _inputs(root):
     tokens = rng.integers(0, jcfg.vocab_size, size=(B, S)).astype(np.int32)
     model = _model()
     logits, cache = model.prefill(convert.to_torch(theta), {"tokens": torch.as_tensor(tokens)})
-    inputs = {"theta": theta, "omega": omega, "tokens": tokens, "pos": S,
+    inputs = {"theta": theta, "omega": omega, "tokens": tokens, "batch": {"tokens": tokens},
+              "pos": S, "s_max": S_MAX,
               "token": torch.argmax(logits, -1).to(torch.int32).numpy(),
               "cache": convert.to_numpy(grow_cache(model, cache, B, S_MAX))}
     with open(os.path.join(root, "inputs.pkl"), "wb") as f:
@@ -140,7 +124,7 @@ def runs(tmp_path_factory):
         worlds.wait()
     out = {}
     for name, (mp, tp_only) in WORLDS.items():
-        with open(os.path.join(root, f"out_{mp}_{tp_only}.pkl"), "rb") as f:
+        with open(os.path.join(root, f"out_4_{mp}_{tp_only}.pkl"), "rb") as f:
             out[name] = pickle.load(f)
     return {"ref": ref, "plain": plain, "worlds": out}
 
