@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seventeen phases, each printing its lines; any failure exits non-zero and
+Nineteen phases, each printing its lines; any failure exits non-zero and
 prints no result.
 
 1. Build: compile the CUDA kernels of ``kernels/csrc`` with nvcc.
@@ -246,24 +246,44 @@ prints no result.
    under the near-tie rule; each rank holds K / ranks groups; each
    rank's peak.
 18. The model axis for the families beyond qwen2, and the flash decode,
-   ranks subprocesses. (a) One NCCL rank on ``make_host_mesh()`` (1 x 1):
-   falcon-mamba-7b at full width cut 64 -> 2 layers as path 3 is, fp32,
-   ``use_pallas``, 2 x 256 tokens: the four ``lower_step`` steps bitwise
-   equal to no mesh; each mesh step's K1 and K5 launches as reckoned (K5
-   forward 2 a layer and gradient with remat's recompute, backward 1); K1
-   bitwise and K5 both ways on the mesh train step's first operands,
-   which are tensors with storage. (b) The train step on two ``gloo``
-   ranks on the card (1 x 2): each rank's K5 on 4096 of d_inner's 8192
-   channels, its shards within 1e-4 of its own no-mesh step, the leaves
-   both ranks hold whole and the losses bitwise equal across ranks. (c)
-   whisper-medium uncut on (a)'s mesh, bitwise, K1 counted. (d)
-   qwen2-1.5b at full width with ``flash_decode``: 8 decode steps from a
-   2 x 256 prefill on the 1 x 1 mesh (logits within 1e-5 of the plain
-   decode without a mesh) and on two gloo ranks each holding half the
-   cache (within 1e-4); the entries a step does not write bitwise, the
-   written ones within the same gate; 3 flash all-reduces a layer; each
-   step's ms with and without flash on the mesh and the bytes its
-   collectives send. The launches are added to the kernels line.
+   ranks subprocesses. On each gloo rank, before its functional
+   collectives are routed through gloo's own, ``make_host_mesh`` and
+   ``param_shardings`` must refuse the group with their error, not crash.
+   (a) One NCCL rank on ``make_host_mesh()`` (1 x 1): falcon-mamba-7b at
+   full width cut 64 -> 2 layers as path 3 is, fp32, ``use_pallas``, 2 x
+   256 tokens: the four ``lower_step`` steps bitwise equal to no mesh;
+   each mesh step's K1 and K5 launches as reckoned (K5 forward 2 a layer
+   and gradient with remat's recompute, backward 1); K1 bitwise and K5
+   both ways on the mesh train step's first operands, which are tensors
+   with storage. (b) The train step on two ``gloo`` ranks on the card (1 x
+   2): each rank's K5 on 4096 of d_inner's 8192 channels, its shards
+   within 1e-4 of its own no-mesh step, the leaves both ranks hold whole
+   and the losses bitwise equal across ranks. (c) whisper-medium uncut on
+   (a)'s mesh, bitwise, K1 counted. (d) qwen2-1.5b at full width with
+   ``flash_decode``: 8 decode steps from a 2 x 256 prefill on the 1 x 1
+   mesh (logits within 1e-5 of the plain decode without a mesh) and on two
+   gloo ranks each holding half the cache (within 1e-4); the entries a
+   step does not write bitwise, the written ones within the same gate; 3
+   flash all-reduces a layer; each step's ms with and without flash on the
+   mesh and the bytes its collectives send. The launches are added to the
+   kernels line.
+19. The optimisers, the Byzantine screen and the kernel library's cache.
+   (a) Two ``chip_smoke.py --warm-start`` children, started with phase 18
+   (whose host mostly waits on its ranks), the second once the first has
+   written its results, each run one classification round through
+   ``launch.train.main --fused-step`` on the card with ``--compile-cache``
+   on one directory, empty at first: the first builds the library there
+   (``_build.builds`` 1), the second builds nothing and launches K1 and K2
+   from it; each library load's seconds. Then here: (b)
+   ``clip_by_global_norm`` with ``sgd_momentum`` (Nesterov) and with
+   ``adam`` (weight decay), 3 steps over path 1's MLP on the card under
+   sync-debug "error", within 1e-6 of the largest magnitude of the same
+   steps on the CPU; (c) one ``adam`` step plus ``apply_updates`` over
+   qwen2-1.5b's full-width fp32 tree under sync-debug "error": its ms (a
+   first and a second step), the peak, the bytes bound; (d)
+   ``byzantine_distance_screen`` over path 1's 400 Ψ rows against its last
+   round's cluster means on the card, its masks equal to the CPU's. The
+   children's launches are added to the kernels line.
 
 The line before the last is one JSON object describing every kernel of the
 paths; the last line is ``{"ok": true, "device": {...}}``.
@@ -3250,24 +3270,34 @@ def patched(module, name, value):
 @contextlib.contextmanager
 def recording_first_prox_update():
     """Within the block, the first ``ops.prox_update_flat`` call (the first
-    local step of the first cohort) also keeps a host copy of the (θ, ω,
-    g_θ, g_ω, η, λ) it received (2 × 0.36 G fp32 each on 14a: on the card
-    they would crowd the round's peak) and the seconds the copy took;
-    yields the list that receives them.
-    The call itself goes through unchanged, so its launch is counted once."""
+    local step of the first cohort) also keeps a copy on the card of the
+    (θ, ω, g_θ, g_ω, η, λ) it received; yields the list that receives it.
+    The copy (4 × 2 × 0.36 G fp32 on 14a) stays out of the path's peak:
+    ``peak_without_copy`` reads it. The call itself goes through
+    unchanged, so its launch is counted once."""
+    import torch
     from repro_torch.kernels import ops
     real, records = ops.prox_update_flat, []
 
     def record(theta, omega, g_theta, g_omega, eta, lam, backend="auto"):
         if not records:
-            t0 = time.perf_counter()
-            ops_ = tuple(x.detach().to("cpu", copy=True) for x in (theta, omega, g_theta, g_omega))
-            records.append({"ops": ops_ + (float(eta), float(lam)),
-                            "copy_s": time.perf_counter() - t0})
+            before = torch.cuda.max_memory_allocated()
+            ops_ = tuple(x.detach().clone() for x in (theta, omega, g_theta, g_omega))
+            torch.cuda.reset_peak_memory_stats()
+            records.append({"ops": ops_ + (float(eta), float(lam)), "peak_before": before,
+                            "bytes": sum(x.numel() * x.element_size() for x in ops_)})
         return real(theta, omega, g_theta, g_omega, eta, lam, backend=backend)
 
     with patched(ops, "prox_update_flat", record):
         yield records
+
+
+def peak_without_copy(record) -> int:
+    """The peak allocated bytes of a block run under
+    ``recording_first_prox_update``, without its copy: the peak before
+    the copy, or the peak since it less the copy's bytes (held since)."""
+    import torch
+    return max(record["peak_before"], torch.cuda.max_memory_allocated() - record["bytes"])
 
 
 @contextlib.contextmanager
@@ -3306,7 +3336,8 @@ def recording_rounds(profile_round=None, snapshots=False):
 
 
 def check_prox_on_path(record, tag):
-    """K1 on the operands the path's first fused step gave it, against
+    """K1 on the operands the path's first fused step gave it (the
+    record's copies on the card, which it updates), against
     ``ref.prox_update_ref_``: bitwise in fp32, in place. Returns 0.0 (the
     largest error)."""
     import torch
@@ -3314,14 +3345,12 @@ def check_prox_on_path(record, tag):
 
     th, om, gt, go, eta, lam = record
     n = th.numel()
-    dev = torch.device("cuda")
-    gt, go = gt.to(dev), go.to(dev)
-    kt, ko = th.to(dev), om.to(dev)
+    pt, po = ref.prox_update_ref_(th.clone(), om.clone(), gt, go, eta, lam)
+    kt, ko = th, om                           # the record's copies, updated in place
     ptrs = (kt.data_ptr(), ko.data_ptr())
     before = prox_update.launches
     prox_update.prox_update_flat(kt, ko, gt, go, eta, lam)
     prox_update.launches = before             # a check, not a launch of the path
-    pt, po = ref.prox_update_ref_(th.to(dev), om.to(dev), gt, go, eta, lam)
     torch.cuda.synchronize()
     exact = bool(torch.equal(kt, pt) and torch.equal(ko, po))
     print(f"[{tag}] prox_update ({th.dtype}) on the path's first local step's operands "
@@ -3367,14 +3396,11 @@ def phase_train_zamba2(dev):
             recording_cosine_inputs() as k2_in, recording_rounds(profile_round=1) as (recs, prof):
         out = train.run_llm(args)
     launches = _launched()
-    peak = torch.cuda.max_memory_allocated() - base
+    peak = peak_without_copy(k1_in[0]) - base
     state = recs[-1]["state"]
     n_params = sum(p.numel() for p in trees.leaves(state.ctx.init_params))
-    copy_s = k1_in[0]["copy_s"]
     for t, r in enumerate(recs):
-        note = (f" (under the profiler)" if r["traced"] else
-                f" ({(r['wall'] - copy_s) * 1e3:.1f} ms without the {copy_s:.1f} s host copy "
-                f"of K1's first operands)" if t == 0 else "")
+        note = " (under the profiler)" if r["traced"] else ""
         print(f"[train14] round {t}: wall {r['wall'] * 1e3:.1f} ms{note}, cohort "
               f"{r['cohort']}, n_clusters {r['n_clusters']}, merges {r['merges']}")
     kernels = {k: ms for k, ms in _device_kernels(prof).items() if not k.startswith("stocfl.")}
@@ -3686,14 +3712,11 @@ def phase_train_whisper(dev):
             recording_rounds(profile_round=1) as (recs, prof):
         out = train.run_llm(args)
     launches = _launched()
-    peak = torch.cuda.max_memory_allocated() - base
+    peak = peak_without_copy(k1_in[0]) - base
     state = recs[-1]["state"]
     n_params = sum(p.numel() for p in trees.leaves(state.ctx.init_params))
-    copy_s = k1_in[0]["copy_s"]
     for t, r in enumerate(recs):
-        note = (" (under the profiler)" if r["traced"] else
-                f" ({(r['wall'] - copy_s) * 1e3:.1f} ms without the {copy_s:.1f} s host copy "
-                f"of K1's first operands)" if t == 0 else "")
+        note = " (under the profiler)" if r["traced"] else ""
         print(f"[train15] round {t}: wall {r['wall'] * 1e3:.1f} ms{note}, cohort "
               f"{r['cohort']}, n_clusters {r['n_clusters']}, merges {r['merges']}")
     kernels = _device_kernels(prof)
@@ -4305,6 +4328,21 @@ def finish_train16(run):
     return out, launches, wall
 
 
+def hand_over_card(tag):
+    """Before a phase whose ranks are subprocesses sharing the card: this
+    process's cached blocks go back to the card (the ranks of 17b build
+    their states within a few GB of its 80), and what it still holds is
+    printed."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved on the card "
+          f"while its ranks run")
+
+
 def phase_mesh(smi):
     """Phase 16: the engine over a client-axis mesh, its ranks subprocesses
     of this script. Returns the launches of every rank's mesh runs by
@@ -4831,6 +4869,34 @@ def route_functional_to_gloo() -> None:
 _ROUTED = []      # keeps route_functional_to_gloo's Library alive in the rank
 
 
+def refusals18(world):
+    """On a gloo rank of the card, before its collectives are routed: the
+    package's model-axis entry points (``make_host_mesh``, and
+    ``param_shardings`` over a 1 x ``world`` CUDA ``DeviceMesh``) must raise
+    their error naming the remedy, not crash in DTensor's collectives.
+    Returns the two messages."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import param_shardings
+    mesh = lambda: DeviceMesh("cuda", torch.arange(world).reshape(1, world),
+                              mesh_dim_names=("data", "model"))
+    calls = {"make_host_mesh": lambda: make_host_mesh(world),
+             "param_shardings": lambda: param_shardings(
+                 {"embed": torch.empty(64, 8, device="meta")}, mesh())}
+    said = []
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            assert "'nccl'" in str(e) and "_c10d_functional" in str(e), (name, str(e))
+            said.append(f"{name}: {e}")
+        else:
+            raise AssertionError(f"{name} accepted an unrouted gloo group on the card")
+    return said
+
+
 def falcon18():
     """(config, model) of 18a and 18b: falcon-mamba-7b at full width, cut
     64 -> 2 layers as path 3 is, fp32 compute, ``use_pallas``."""
@@ -5113,13 +5179,14 @@ def steps18_rank_main(spec) -> int:
     dist.init_process_group(spec["backend"], store=dist.FileStore(spec["store"], world),
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
-    if spec["backend"] == "gloo":
-        route_functional_to_gloo()
     deadline = time.perf_counter() + MESH_TIMEOUT_S
     while spec["go"] and not os.path.exists(spec["go"]):
         assert time.perf_counter() < deadline, "no go from phase 18"
         time.sleep(0.05)
     t0, out = time.perf_counter(), {}
+    if spec["backend"] == "gloo":
+        out["refused"] = refusals18(world)
+        route_functional_to_gloo()
     parts = ((("a", steps18a), ("c", steps18c), ("d", lambda: flash18(world)))
              if spec["part"].startswith("a") else
              (("b", lambda: steps18b(world)), ("d", lambda: flash18(world))))
@@ -5195,6 +5262,10 @@ def phase_model_axis(smi):
         add(launches)
 
     # --- 18b: the train step on two gloo ranks, each K5 on half the channels
+    for r, x in enumerate(two):
+        assert len(x["refused"]) == 2, (r, x["refused"])
+    print(f"[steps18b] before routing, each gloo rank's model-axis entry points refuse "
+          f"the group: {two[0]['refused']}")
     b = [r["b"] for r in two]
     for r, x in enumerate(b):
         print(f"[steps18b] rank {r} of {len(b)} (gloo, one card), mesh {x['mesh']}: train "
@@ -5255,6 +5326,262 @@ def phase_model_axis(smi):
     return total, [max(e[i] for e in k5_errs) for i in (0, 1)]
 
 
+# ----------------------------------------------------------------- phase 19
+WARM_FLAG = "--warm-start"        # runs warm_start_main, one process of 19a
+# the driver's classification defaults, K1 through --fused-step (the tree step is plain)
+WARM_ARGV = ["--rounds", "1", "--fused-step", "--device", "cuda"]
+WARM_TIMEOUT_S = 240
+OPTIM_STEPS = 3                   # 19b: clipped optimiser steps on path 1's MLP
+OPTIM_RTOL = 1e-6                 # 19b: the card against the CPU, of the largest magnitude
+SCREEN_GAP = 2e-5                 # 19d: τ at least this far from every row's largest cosine
+
+
+def screen_inputs(state):
+    """Path 1's Ψ rows of all its clients and the cluster means of its last
+    round (``ClusterState.cluster_means``), as host copies kept for 19d."""
+    import torch
+    from repro_torch.engine import strategies
+    reps = torch.stack([strategies._psi(state.ctx, c) for c in range(len(state.ctx.clients))])
+    _, means = state.clusters.cluster_means()
+    return reps.cpu(), means.cpu()
+
+
+def warm_start_main(spec) -> int:
+    """19a's child (``chip_smoke.py --warm-start SPEC``): once ``spec["go"]``
+    exists, ``launch.train.main`` runs one classification round on the card
+    with ``--compile-cache spec["dir"]``, the kernel library's first load
+    timed; writes the builds this process ran, that load's seconds, the
+    library's path, the launches and the driver's JSON to ``spec["out"]``."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    deadline = time.perf_counter() + WARM_TIMEOUT_S
+    while spec["go"] and not os.path.exists(spec["go"]):
+        assert time.perf_counter() < deadline, "no go from phase 19"
+        time.sleep(0.05)
+    real, load_s = _build.load, []
+
+    def timed_load():
+        if _build._lib is not None:
+            return real()
+        t0 = time.perf_counter()
+        lib = real()
+        load_s.append(time.perf_counter() - t0)
+        return lib
+
+    _zero_counts()
+    with patched(_build, "load", timed_load):
+        out = train.main(WARM_ARGV + ["--compile-cache", spec["dir"]])
+    with open(spec["out"], "w") as f:
+        json.dump({"builds": _build.builds, "load_s": load_s, "lib": str(_build.library_path()),
+                   "launches": _launched(), "out": out}, f)
+    return 0
+
+
+def start_warm(tag, cache_dir, root, go=None):
+    """Start a ``--warm-start`` child (once ``go`` exists, if given);
+    ``finish_warm`` waits for it."""
+    spec = {"dir": cache_dir, "go": go, "out": os.path.join(root, f"{tag}.json")}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    sys.stdout.flush()
+    with open(os.path.join(root, f"{tag}.log"), "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), WARM_FLAG,
+                                 json.dumps(spec)], env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+    return proc, spec, tag, root
+
+
+def stop_warm(runs):
+    """Kill the ``start_warm`` children that still run."""
+    for proc, *_ in runs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_warm_pair():
+    """19a's two children, started while phase 18's ranks hold the card
+    (its host mostly waits on them): the cold child on an empty cache
+    directory, the warm one once the cold one has written its results."""
+    import tempfile
+    root = tempfile.mkdtemp(prefix="warm19_")
+    cache_dir = os.path.join(root, "cache")
+    cold = start_warm("cold", cache_dir, root)
+    return [cold, start_warm("warm", cache_dir, root, go=cold[1]["out"])]
+
+
+def finish_warm(run):
+    """The child's results; fails with its log if it failed."""
+    proc, spec, tag, root = run
+    try:
+        proc.wait(timeout=WARM_TIMEOUT_S)
+    finally:
+        stop_warm([run])
+    with open(os.path.join(root, f"{tag}.log")) as log:
+        assert proc.returncode == 0, f"[warm19a] {tag} failed:\n{log.read()[-3000:]}"
+    with open(spec["out"]) as f:
+        return json.load(f)
+
+
+def check_optimisers(dev):
+    """19b: ``clip_by_global_norm`` then ``sgd_momentum`` (Nesterov) or
+    ``adam`` (weight decay) and ``apply_updates``, ``OPTIM_STEPS`` steps
+    over path 1's MLP tree on the card (under sync-debug "error") and on
+    the CPU from the same parameters and gradients; returns the largest
+    |card - CPU| over parameters, norms and moments, each relative to the
+    largest magnitude of the CPU's tensor (the norms, ~392, are sums in
+    another order)."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.engine.api import _sync_errors
+    from repro_torch.optim.sgd import apply_updates, clip_by_global_norm
+    from repro_torch.utils import trees
+    params = main_setting()[2]
+    g = torch.Generator().manual_seed(19)
+    grads = [trees.tree_map(lambda p: torch.randn(p.shape, generator=g), params)
+             for _ in range(OPTIM_STEPS)]
+    worst = {}
+    for name, opt in (("sgd_momentum nesterov", optim.sgd_momentum(0.05, 0.9, nesterov=True)),
+                      ("adam weight_decay", optim.adam(1e-3, weight_decay=0.01))):
+        runs = {}
+        for where in ("cpu", dev):
+            p = trees.tree_map(lambda x: x.to(where), params)
+            placed = [trees.tree_map(lambda x: x.to(where), gr) for gr in grads]
+            state, norms = opt.init(p), []
+            with _sync_errors() if where == dev else contextlib.nullcontext():
+                for gr in placed:
+                    clipped, norm = clip_by_global_norm(gr, 1.0)
+                    updates, state = opt.update(clipped, state, p)
+                    p = apply_updates(p, updates)
+                    norms.append(norm)
+            runs[str(where)] = [x.cpu() for x in trees.leaves(p) + norms + trees.leaves(
+                {k: v for k, v in state.items() if k != "count"})]
+            assert int(state["count"]) == OPTIM_STEPS
+        worst[name] = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+                          for a, b in zip(runs["cpu"], runs[str(dev)]))
+    print(f"[optim19b] {OPTIM_STEPS} steps of clip_by_global_norm(1.0) + optimiser + "
+          f"apply_updates over path 1's MLP ({sum(p.numel() for p in params.values())} "
+          f"parameters), the card's steps under sync-debug 'error': largest |card - CPU| / "
+          f"max |CPU| over parameters, norms and moments {worst} (gate {OPTIM_RTOL})")
+    assert max(worst.values()) <= OPTIM_RTOL, worst
+    return worst
+
+
+def adam_full_width(dev, bw, smi):
+    """19c: one ``adam`` step with weight decay plus ``apply_updates`` over
+    qwen2-1.5b's full-width fp32 parameter tree, under sync-debug "error":
+    the first and a second step's ms (CUDA events), the peak, and the bytes
+    bound (parameters, gradients, m and v read once; parameters, m and v
+    written once: 28 B a value)."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.engine.api import _sync_errors
+    from repro_torch.optim.sgd import apply_updates
+    from repro_torch.utils import trees
+    torch.cuda.empty_cache()
+    cfg, model = serve_setting("qwen2-1.5b")
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(g, dev)
+    grads = trees.tree_map(lambda p: 1e-3 * torch.randn(p.shape, generator=g, device=dev),
+                           params)
+    n = trees.tree_size(params)
+    opt = optim.adam(1e-4, weight_decay=0.01)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with _sync_errors():
+            start.record()
+            updates, state = opt.update(grads, state, params)
+            params = apply_updates(params, updates)
+            end.record()
+        del updates
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    bound_ms = 28 * n / bw * 1e3
+    finite = bool(torch.stack([torch.isfinite(x).all() for x in trees.leaves(params)]).all())
+    print(f"[adam19c] {cfg.name} full width fp32: {n} parameters ({len(trees.leaves(params))} "
+          f"leaves); adam(1e-4, weight_decay=0.01) + apply_updates under sync-debug 'error': "
+          f"first step {times[0]:.3f} ms, second {times[1]:.3f} ms (CUDA events; {smi}); "
+          f"bytes bound {bound_ms:.3f} ms (28 B a value at {bw / 1e12:.2f} TB/s; the plain "
+          f"per-leaf chain takes {times[1] / bound_ms:.1f}x it); peak "
+          f"{peak / 1e9:.2f} GB (held before the step {base / 1e9:.2f} GB); count "
+          f"{int(state['count'])}, parameters finite {finite}")
+    assert finite and int(state["count"]) == 2
+    del params, grads, state
+    torch.cuda.empty_cache()
+    return times, bound_ms, peak
+
+
+def check_screen(dev, reps, means):
+    """19d: ``byzantine_distance_screen`` over path 1's Ψ rows against its
+    last round's cluster means, on the card and on the CPU, at τ = 0 and
+    at τ midway between two neighbouring largest cosines near their
+    median, ``SCREEN_GAP`` from every row's: the masks equal."""
+    import torch
+    from repro_torch.core.aggregators import byzantine_distance_screen
+    r64, m64 = reps.double(), means.double()
+    best = ((r64 / r64.norm(dim=1, keepdim=True)) @ (m64 / m64.norm(dim=1, keepdim=True)).T)
+    best = torch.sort(best.amax(dim=1)).values
+    i = len(best) // 2
+    while best[i + 1] - best[i] < 2 * SCREEN_GAP:
+        i += 1
+    taus = [0.0, float((best[i] + best[i + 1]) / 2)]
+    rd, md = reps.to(dev), means.to(dev)
+    for tau in taus:
+        assert float((best - tau).abs().min()) >= SCREEN_GAP
+        got = byzantine_distance_screen(rd, tau)(md)
+        want = byzantine_distance_screen(reps, tau)(means)
+        assert got.device == rd.device and got.dtype == torch.bool
+        same = bool(torch.equal(got.cpu(), want))
+        print(f"[screen19d] {tuple(reps.shape)} Psi rows against {means.shape[0]} cluster "
+              f"means, all on the card, tau {tau:.6f}: keeps {int(got.sum())}; equal to the "
+              f"CPU's mask {same}")
+        assert same
+    del rd, md
+
+
+def phase_19(dev, smi, bw, screen, warm_runs):
+    """Phase 19: the optimisers, the Byzantine screen and the kernel
+    library's warm start. ``warm_runs`` are ``start_warm_pair``'s two
+    children, each one classification round through the driver with
+    ``--compile-cache`` on one directory, empty at first, the second
+    started after the first: the first builds the library there, the
+    second builds nothing and launches K1 and K2 from it. The checks
+    19b-d run here, then the children's results are read. Returns the
+    children's K1 and K2 launches."""
+    import shutil
+    t_phase = time.perf_counter()
+    try:
+        check_optimisers(dev)
+        adam_full_width(dev, bw, smi)
+        check_screen(dev, *screen)
+        first, second = (finish_warm(run) for run in warm_runs)
+    finally:
+        stop_warm(warm_runs)
+    cache_dir = warm_runs[0][1]["dir"]
+    for tag, r in (("cold", first), ("warm", second)):
+        print(f"[warm19a] {tag} process: builds {r['builds']}, library {r['lib']}, its load "
+              f"{', '.join(f'{t:.3f}' for t in r['load_s'])} s (nvcc and dlopen, or dlopen "
+              f"only), launches {r['launches']}; driver JSON {r['out']}")
+    lib = os.path.join(cache_dir, os.path.basename(first["lib"]))
+    assert first["builds"] == 1 and second["builds"] == 0, (first["builds"], second["builds"])
+    assert len(first["load_s"]) == len(second["load_s"]) == 1
+    assert first["lib"] == second["lib"] == lib and os.path.exists(lib)
+    for r in (first, second):
+        assert r["launches"].get("prox_update.launches", 0) > 0, r["launches"]
+        assert r["launches"].get("cosine_sim.launches", 0) > 0, r["launches"]
+        assert r["out"]["rounds"] == 1 and math.isfinite(r["out"]["global_avg_acc"])
+    shutil.rmtree(warm_runs[0][3], ignore_errors=True)
+    print(f"[phase19] took {time.perf_counter() - t_phase:.1f} s (the children ran "
+          f"during phase 18)")
+    return {k: first["launches"][f"{k}.launches"] + second["launches"][f"{k}.launches"]
+            for k in ("prox_update", "cosine_sim")}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5278,6 +5605,8 @@ def main() -> int:
         return steps_rank_main(json.loads(sys.argv[2]))
     if sys.argv[1:2] == [STEPS18_FLAG]:
         return steps18_rank_main(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == [WARM_FLAG]:
+        return warm_start_main(json.loads(sys.argv[2]))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -5296,6 +5625,7 @@ def main() -> int:
     kernels = phase_kernels(dev, card_peaks(name))
     mark("2")
     launches, path_err, path1 = phase_main_path(dev)
+    screen = screen_inputs(path1[-1]["state"])
     mark("3")
     for k in ("prox_update", "cosine_sim"):
         kernels[k]["launches"] = launches[k]
@@ -5371,18 +5701,29 @@ def main() -> int:
     for k, n in launches15.items():
         kernels[k]["launches"] += n
     kernels["cosine_sim"]["max_abs_err"] = max(kernels["cosine_sim"]["max_abs_err"], k2_err15)
+    hand_over_card("mesh16")
     for k, n in phase_mesh(smi).items():
         kernels[k]["launches"] += n
     mark("16")
+    hand_over_card("steps17")
     kernels["prox_update"]["launches"] += phase_steps_mesh(smi)
     mark("17")
-    launches18, k5_errs18 = phase_model_axis(smi)
+    hand_over_card("steps18")
+    warm_runs = start_warm_pair()
+    try:
+        launches18, k5_errs18 = phase_model_axis(smi)
+    except BaseException:
+        stop_warm(warm_runs)
+        raise
     mark("18")
     for k, n in launches18.items():
         kernels[k]["launches"] += n
     for k, err in zip(("fwd", "bwd"), k5_errs18):
         entry = kernels[f"ssm_scan_{k}"]
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    for k, n in phase_19(dev, smi, card_peaks(name)[0], screen, warm_runs).items():
+        kernels[k]["launches"] += n
+    mark("19")
     print("[phases] seconds: " + ", ".join(
         f"{tag} {t - marks[i][1]:.1f}" for i, (tag, t) in enumerate(marks[1:])))
     print(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")

@@ -85,6 +85,25 @@ AGGREGATORS = {
 }
 
 
+def byzantine_distance_screen(reps, tau_screen: float = 0.0):
+    """§5 future-work sketch: flag clients whose Ψ is anomalously far from
+    EVERY cluster mean (cosine below tau_screen to all clusters) — those
+    join no benign cluster and can be quarantined. Returns
+    ``screen(means)``, a bool keep mask over the rows of ``reps``, computed
+    on ``reps``' device (``means`` may be ``DeviceClusters.cluster_means``'
+    device tensor or a host array)."""
+    reps = torch.as_tensor(reps)
+
+    def screen(means):
+        means = torch.as_tensor(means, device=reps.device)
+        rn = reps / (torch.linalg.vector_norm(reps, dim=1, keepdim=True) + 1e-12)
+        mn = means / (torch.linalg.vector_norm(means, dim=1, keepdim=True) + 1e-12)
+        sims = rn @ mn.T                                  # (n, K)
+        return sims.amax(dim=1) >= tau_screen
+
+    return screen
+
+
 def aggregate_omega(name: str, stacked, weights, split=None):
     """``AGGREGATORS[name](stacked, weights)`` over a cohort whose rows may
     be split over a mesh's ranks (``split``, this rank's rows in

@@ -2,9 +2,11 @@
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into an
 object, all sources at once, and the objects are linked into one shared
-library with a plain C interface, cached under ``kernels/_build/`` (listed
-in ``.gitignore``) by a hash of the sources and flags. No PyTorch header is
-compiled, which keeps a build to seconds. A failed build raises.
+library with a plain C interface, cached under ``BUILD_DIR`` by a hash of
+the sources and flags: ``kernels/_build/`` (listed in ``.gitignore``), or
+the directory ``utils.cache.enable_compilation_cache`` points it at. No
+PyTorch header is compiled, which keeps a build to seconds. A failed
+build raises; ``builds`` counts the builds this process ran.
 
 The wrappers call the exported C functions with raw pointers from
 ``tensor.data_ptr()`` and the stream from
@@ -65,6 +67,7 @@ LAUNCH_COUNTERS = (("prox_update", "launches"), ("prox_update", "theta_launches"
 
 _lib: Optional[ctypes.CDLL] = None
 last_build_log = ""
+builds = 0       # libraries this process compiled (a cached one found is not counted)
 _counters = {}   # (device index, stream) -> int32 arrival counters, all 0 between launches
 
 
@@ -102,7 +105,7 @@ def build(verbose: bool = False) -> Path:
     shared library, unless the cached one for these sources exists.
     ``verbose`` adds ``-Xptxas -v`` and keeps the compiler's report in
     ``last_build_log``. Returns the library's path."""
-    global last_build_log
+    global last_build_log, builds
     out = library_path()
     if out.exists():
         return out
@@ -134,6 +137,7 @@ def build(verbose: bool = False) -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(tmp_so, out)
+    builds += 1
     return out
 
 

@@ -29,6 +29,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch.sharding.specs import check_model_axis
+
 
 def _device_type(device) -> str:
     kind = torch.device("cuda" if device is None else device).type
@@ -80,11 +82,15 @@ def make_host_mesh(model_parallel: int = 1, device=None) -> DeviceMesh:
     """2-D ``("data", "model")`` mesh over the default group's ranks:
     ``mp = min(model_parallel, world)`` ranks on the model axis and
     ``world // mp`` on the data axis, ranks in row-major order. ``device``
-    as ``make_client_mesh``."""
+    as ``make_client_mesh``. Raises where DTensor's collectives cannot
+    run (``sharding.model_axis_blocker``: a non-NCCL group on the card,
+    its collectives not routed by the caller)."""
     kind = _device_type(device)
     _ensure_group(kind)
     world = dist.get_world_size()
     mp = max(1, min(int(model_parallel), world))
     dp = world // mp
     ranks = torch.arange(dp * mp).reshape(dp, mp)
-    return DeviceMesh(kind, ranks, mesh_dim_names=("data", "model"))
+    mesh = DeviceMesh(kind, ranks, mesh_dim_names=("data", "model"))
+    check_model_axis(mesh)
+    return mesh

@@ -34,8 +34,9 @@ the multi-GPU entry point is
       torchrun --standalone --nproc_per_node N -m repro_torch.launch.train --mesh ...
 
 and without ``torchrun`` it is a world of one. Only rank 0 prints.
-``--compile-cache`` is the reference's flag for a part not ported yet
-(ROADMAP.md queue 1 item 1); it raises ``NotImplementedError``.
+``--compile-cache DIR`` keeps the CUDA kernel library in ``DIR`` (bare:
+``utils.cache.default_cache_dir()``), so a warm start loads it instead
+of building it.
 Parameters are drawn with ``torch.Generator``, so for one seed they are
 not the reference's ``jax.random`` draws.
 """
@@ -260,8 +261,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "objective always stay float32")
     ap.add_argument("--compile-cache", nargs="?", const="auto", default=None,
                     metavar="DIR",
-                    help="persist compiled programs to DIR (not ported yet: "
-                         "raises, ROADMAP.md queue 1 item 1)")
+                    help="keep the CUDA kernel library in DIR (bare flag: "
+                         "$REPRO_TORCH_COMPILATION_CACHE_DIR or "
+                         "~/.cache/repro-torch-cache) so warm restarts skip "
+                         "the nvcc build")
     ap.add_argument("--async", dest="async_mode", action="store_true",
                     help="async buffered aggregation (engine.run_round_async): "
                          "delayed client deltas land in a device-resident buffer "
@@ -309,8 +312,10 @@ def main(argv=None) -> dict:
                          "bookkeeping lives on the host) and cannot be "
                          "combined with --scan-rounds")
     if args.compile_cache is not None:
-        raise NotImplementedError("--compile-cache: a persistent compilation cache is "
-                                  "not ported yet: ROADMAP.md queue 1 item 1")
+        from repro_torch.utils.cache import enable_compilation_cache
+        path = enable_compilation_cache(
+            None if args.compile_cache == "auto" else args.compile_cache)
+        _say(f"compilation cache: {path}")
     owns_group = args.mesh and not torch.distributed.is_initialized()
     try:
         return run_llm(args) if args.arch else run_classification(args)

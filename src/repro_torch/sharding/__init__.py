@@ -36,6 +36,7 @@ from repro_torch.sharding.specs import (  # noqa: F401
     mesh_fingerprint,
     mesh_group,
     mesh_rank,
+    model_axis_blocker,
     ordered_index_add_,
     param_shardings,
     place_buffer_rows,
@@ -59,10 +60,10 @@ from repro_torch.sharding.specs import (  # noqa: F401
 
 __all__ = ["PARAM_RULES", "CollectiveLog", "NamedSharding", "RowSplit", "ShardCtx",
            "align_cohort_chunk", "all_reduce_", "barrier", "client_axes", "cohort_spec",
-           "constrain_cohort", "current_ctx", "local_channels", "local_experts", "merge_heads",
-           "mesh_backend", "mesh_client_count", "mesh_device", "mesh_fingerprint",
-           "mesh_group", "mesh_rank", "ordered_index_add_", "param_shardings",
-           "place_buffer_rows", "place_cohort", "place_decode_state", "place_params",
-           "place_replicated", "placements", "psum_segments", "relax", "replicated",
-           "row_split", "segment_sum", "shard", "spec_for_path", "split_heads", "to_local",
-           "unshard_fsdp", "wrap_like"]
+           "constrain_cohort", "current_ctx", "local_channels", "local_experts",
+           "merge_heads", "mesh_backend", "mesh_client_count", "mesh_device",
+           "mesh_fingerprint", "mesh_group", "mesh_rank", "model_axis_blocker",
+           "ordered_index_add_", "param_shardings", "place_buffer_rows", "place_cohort",
+           "place_decode_state", "place_params", "place_replicated", "placements",
+           "psum_segments", "relax", "replicated", "row_split", "segment_sum", "shard",
+           "spec_for_path", "split_heads", "to_local", "unshard_fsdp", "wrap_like"]

@@ -178,6 +178,47 @@ def mesh_backend(mesh) -> str:
     return str(dist.get_backend(mesh_group(mesh)))
 
 
+# the functional collectives DTensor issues (``torch.distributed._functional_collectives``)
+FUNCTIONAL_COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+                          "all_to_all_single")
+
+
+def model_axis_blocker(mesh) -> Optional[str]:
+    """Why DTensor cannot run on ``mesh`` in this process, or None.
+
+    DTensor redistributes through ``_c10d_functional``'s collectives, which
+    have no CUDA kernel of their own: they run the group's asynchronous
+    collective and wait on it in ``wait_tensor``, and under a non-NCCL
+    group on CUDA tensors that wait crashes both ranks (SIGSEGV, gloo,
+    torch 2.11). So a CUDA mesh whose group is not ``nccl`` is refused,
+    unless the caller has registered CUDA kernels for those collectives
+    (``torch.library.Library("_c10d_functional", "IMPL")``) that run the
+    group's own blocking ones. A CPU mesh, or anything that is not a
+    ``DeviceMesh`` on CUDA, passes."""
+    if getattr(mesh, "device_type", None) != "cuda":
+        return None
+    backend = str(dist.get_backend(mesh.get_group(0)))
+    if backend == "nccl":
+        return None
+    routed = lambda op: torch._C._dispatch_has_kernel_for_dispatch_key(
+        f"_c10d_functional::{op}", "CUDA")
+    missing = [op for op in FUNCTIONAL_COLLECTIVES if not routed(op)]
+    if not missing:
+        return None
+    return (f"a {backend!r} group on CUDA tensors cannot carry DTensor's functional "
+            f"collectives ({', '.join(missing)} have no CUDA kernel here; their wait "
+            "crashes the ranks): use an 'nccl' group, or register CUDA kernels for "
+            "them with torch.library.Library('_c10d_functional', 'IMPL') that run the "
+            "group's own dist.* collectives")
+
+
+def check_model_axis(mesh) -> None:
+    """Raise ``RuntimeError`` with ``model_axis_blocker``'s reason, if any."""
+    reason = model_axis_blocker(mesh)
+    if reason is not None:
+        raise RuntimeError(reason)
+
+
 def mesh_device(mesh) -> torch.device:
     """The device this rank computes on: ``cuda:(local_rank %
     device_count)`` on a CUDA mesh, the CPU on a CPU mesh."""
@@ -529,7 +570,9 @@ def _map_paths(fn, tree, prefix: str = ""):
 
 def param_shardings(params, mesh, ctx: Optional[ShardCtx] = None):
     """A ``NamedSharding`` per leaf of a parameter tree (tensors, or
-    anything with a ``shape``): its rule's spec, relaxed."""
+    anything with a ``shape``): its rule's spec, relaxed. Raises on a mesh
+    DTensor cannot run on (``model_axis_blocker``)."""
+    check_model_axis(mesh)
     ctx = ctx or ShardCtx(mesh)
     return _map_paths(lambda path, x: NamedSharding(
         mesh, relax(x.shape, spec_for_path(path, len(x.shape), ctx), mesh)), params)

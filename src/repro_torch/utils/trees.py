@@ -39,6 +39,56 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree, s):
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_axpy(a, x, y):
+    """a*x + y elementwise over two trees."""
+    return tree_map(lambda xi, yi: a * xi + yi, x, y)
+
+
+def tree_dot(a, b) -> torch.Tensor:
+    """Inner product of two trees (fp32 accumulate): each leaf's sum of
+    products, added in sorted-key order from 0.0, as the reference's
+    ``jax.tree.reduce`` adds them. A 0-d tensor on the leaves' device."""
+    pairs = list(zip(leaves(a), leaves(b)))
+    out = torch.zeros((), dtype=torch.float32, device=pairs[0][0].device if pairs else None)
+    for x, y in pairs:
+        out = out + torch.sum(x.to(torch.float32) * y.to(torch.float32))
+    return out
+
+
+def tree_norm(tree) -> torch.Tensor:
+    return torch.sqrt(tree_dot(tree, tree))
+
+
+def tree_size(tree) -> int:
+    """Total number of scalar parameters, read from the shapes."""
+    return sum(leaf.numel() for leaf in leaves(tree))
+
+
+def tree_bytes(tree) -> int:
+    return sum(leaf.numel() * leaf.element_size() for leaf in leaves(tree))
+
+
+def tree_has_nan(tree) -> torch.Tensor:
+    """A 0-d bool tensor on the leaves' device (no host read)."""
+    return torch.stack([torch.isnan(leaf).any() for leaf in leaves(tree)]).any()
+
+
 def tree_weighted_mean(trees: Sequence, weights):
     """Weighted mean of a list of trees; ``weights`` are scalars."""
     w = torch.as_tensor(weights, dtype=torch.float32)

@@ -1,4 +1,5 @@
-"""One rank of a ``gloo`` world on the CPU for ``tests/test_torch_flash_decode.py``.
+"""One rank of a ``gloo`` world on the CPU for ``tests/test_torch_flash_decode.py``
+and ``tests/test_torch_card_worlds.py``.
 
     python tests/_torch_flash_worker.py RANK WORLD ROOT MODEL_PARALLEL
 

@@ -1,5 +1,6 @@
 """One rank of a ``gloo`` world on the CPU for the port's model-axis tests
-(``tests/test_torch_steps_mesh.py``, ``tests/test_torch_family_mesh.py``).
+(``tests/test_torch_steps_mesh.py``, ``tests/test_torch_family_mesh.py``,
+``tests/test_torch_card_worlds.py``).
 
     python tests/_torch_steps_worker.py RANK WORLD ROOT MODEL_PARALLEL TP_ONLY \
         [NAME:ARCH:USE_PALLAS ...]

@@ -31,35 +31,17 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_mesh_cases import FAMILIES, KINDS, mesh_tol, plain_steps, write_inputs  # noqa: E402
 from _torch_world import HERE, close, start_worlds  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import build as jbuild  # noqa: E402
-from repro_torch import convert  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.launch import steps  # noqa: E402
-from repro_torch.models.registry import build, grow_cache  # noqa: E402
 
 WORKER = os.path.join(HERE, "_torch_steps_worker.py")
-# family: (arch, use_pallas, the data-axis sizes of its worlds: 2 for 2×2, 1 for 1×2)
-FAMILIES = {
-    "falcon-mamba": ("falcon-mamba-7b", True, (2,)),
-    "falcon-mamba-plain": ("falcon-mamba-7b", False, (1,)),
-    "phi3.5-moe": ("phi3.5-moe-42b-a6.6b", False, (2,)),
-    "deepseek-v2": ("deepseek-v2-236b", False, (2,)),
-    "zamba2": ("zamba2-1.2b", False, (2,)),
-    "whisper": ("whisper-medium", False, (2, 1)),
-    "internvl2": ("internvl2-26b", False, (2,)),
-}
-B, S = 4, 16
-MESH_TOL, REF_TOL = 1e-5, 2e-5
-# zamba2's Mamba2 decay ``a_log`` starts at 0, so θ' and Ψ there are its
-# gradient alone, a sum over every row, step and head that cancels: on
-# these inputs its Ψ measured 1.65e-05 against no mesh and 2.83e-05
-# against the reference on the 2×2 mesh (the port without a mesh
-# 1.24e-05); every other family stays within 2.4e-06 of both
-TOLS = {"zamba2": (5e-5, 6e-5)}
-KINDS = ("train", "prefill", "decode", "repr")
+REF_TOL = 2e-5
+# against the reference zamba2 measured 2.83e-05 on the 2×2 mesh (the port
+# without a mesh 1.24e-05; see ``_torch_mesh_cases.MESH_TOLS``)
+REF_TOLS = {"zamba2": 6e-5}
 # both worlds at once, ~25 s alone; the cap leaves room for a loaded
 # machine and still fails a hung world
 WORLDS_TIMEOUT = 300.0
@@ -67,53 +49,13 @@ WORLDS_TIMEOUT = 300.0
 
 def _tols(fam):
     """(against no mesh, against the reference) for ``fam``."""
-    return TOLS.get(fam, (MESH_TOL, REF_TOL))
-
-
-def _cfgs(arch, pallas):
-    kw = {"dtype": "float32", "use_pallas": pallas}
-    return jconfigs.get_config(arch, smoke=True, **kw), get_config(arch, smoke=True, **kw)
-
-
-def _batch(cfg, rng):
-    tokens = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
-    if cfg.arch_type == "audio":
-        return {"frames": rng.standard_normal((B, cfg.enc_seq, cfg.d_model)).astype(np.float32),
-                "tokens": tokens}
-    if cfg.arch_type == "vlm":
-        return {"patches": rng.standard_normal((B, cfg.n_patches, cfg.d_model))
-                .astype(np.float32), "tokens": tokens[:, :8]}
-    return {"tokens": tokens}
-
-
-def _inputs(root, arch, pallas):
-    """The inputs every world of one family and the two references run
-    on, written to ``root/inputs.pkl``: the port's parameters from a seed
-    (carried to the reference by ``convert``; the families' tests hold
-    the two inits' layouts equal), ω a perturbation of them, a batch, and
-    a decode cache grown from the port's prefill."""
-    jcfg, tcfg = _cfgs(arch, pallas)
-    model = build(tcfg)
-    theta = convert.to_numpy(model.init(torch.Generator().manual_seed(0)))
-    rng = np.random.default_rng(0)
-    omega = jax.tree.map(lambda x: x + 0.01 * rng.standard_normal(x.shape).astype(np.float32),
-                         theta)
-    batch = _batch(jcfg, rng)
-    logits, cache = model.prefill(convert.to_torch(theta), convert.to_torch(batch))
-    seq = S if jcfg.arch_type != "vlm" else jcfg.n_patches + batch["tokens"].shape[1]
-    inputs = {"theta": theta, "omega": omega, "batch": batch, "pos": seq, "s_max": seq + 8,
-              "token": torch.argmax(logits, -1).to(torch.int32).numpy(),
-              "cache": convert.to_numpy(grow_cache(model, cache, B, seq + 8))}
-    os.makedirs(root, exist_ok=True)
-    with open(os.path.join(root, "inputs.pkl"), "wb") as f:
-        pickle.dump(inputs, f)
-    return inputs
+    return mesh_tol(fam), REF_TOLS.get(fam, REF_TOL)
 
 
 def _reference(inputs, arch, pallas):
     """The JAX package's four steps, unsharded, on ``inputs``: one program
     (one compile) for the four."""
-    jmodel = jbuild(_cfgs(arch, pallas)[0])
+    jmodel = jbuild(jconfigs.get_config(arch, smoke=True, dtype="float32", use_pallas=pallas))
 
     def four(theta, omega, batch, token, cache, pos):
         logits, pcache = jsteps.prefill_step(jmodel)(theta, batch)
@@ -129,22 +71,6 @@ def _reference(inputs, arch, pallas):
     return jax.tree.map(np.asarray, jax.jit(four)(*args, jnp.int32(inputs["pos"])))
 
 
-def _plain(inputs, arch, pallas):
-    """The port's four steps without a mesh, on ``inputs``."""
-    model = build(_cfgs(arch, pallas)[1])
-    theta, omega = convert.to_torch(inputs["theta"]), convert.to_torch(inputs["omega"])
-    batch = convert.to_torch(inputs["batch"])
-    t2, o2, m = steps.stocfl_train_step(model)(theta, omega, batch)
-    logits, pcache = steps.prefill_step(model)(theta, batch)
-    dlogits, dcache = steps.decode_step(model)(
-        theta, torch.as_tensor(inputs["token"]), convert.to_torch(inputs["cache"]),
-        torch.tensor(inputs["pos"], dtype=torch.int32))
-    return convert.to_numpy({"train": {"theta": t2, "omega": o2, **m},
-                             "prefill": {"logits": logits, "cache": pcache},
-                             "decode": {"logits": dlogits, "cache": dcache},
-                             "repr": steps.repr_step(model)(theta, batch)})
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Each family's world outputs by world, the reference's and the
@@ -153,7 +79,7 @@ def runs(tmp_path_factory):
     family's reference compiles on a thread of a pool (XLA compiles
     without the interpreter lock) while the port runs without a mesh."""
     root = str(tmp_path_factory.mktemp("families"))
-    inputs = {fam: _inputs(os.path.join(root, fam), arch, pallas)
+    inputs = {fam: write_inputs(os.path.join(root, fam), arch, pallas)
               for fam, (arch, pallas, _) in FAMILIES.items()}
     cases = lambda dp: [f"{fam}:{arch}:{int(pallas)}"
                         for fam, (arch, pallas, dps) in FAMILIES.items() if dp in dps]
@@ -167,7 +93,7 @@ def runs(tmp_path_factory):
             for fam, (arch, pallas, _) in FAMILIES.items():
                 if arch not in refs:
                     refs[arch] = pool.submit(_reference, inputs[fam], arch, pallas)
-            plain = {fam: _plain(inputs[fam], arch, pallas)
+            plain = {fam: plain_steps(inputs[fam], arch, pallas)
                      for fam, (arch, pallas, _) in FAMILIES.items()}
             ref = {fam: refs[arch].result() for fam, (arch, _, _) in FAMILIES.items()}
     finally:

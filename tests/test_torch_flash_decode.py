@@ -43,6 +43,9 @@ import jax.numpy as jnp  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
+from _torch_mesh_cases import (B, DIVIDED, FLASH_CASES as CASES, close_logits,  # noqa: E402
+                               flash_config, hold_cache, plain_decode, write_flash_cases,
+                               written)
 from _torch_world import HERE, start_worlds  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro.models import build as jbuild  # noqa: E402
@@ -56,21 +59,10 @@ from repro_torch.sharding import ShardCtx  # noqa: E402
 from repro_torch.utils import trees  # noqa: E402
 
 WORKER = os.path.join(HERE, "_torch_flash_worker.py")
-TOL = 1e-5
-B = 4
 WORLDS = {"2x2": (4, 2), "1x4": (4, 4)}   # name: (ranks, model axis)
 # the worlds' eight single-threaded ranks at once take ~20 s alone; the cap
 # leaves room for a loaded machine and still fails a hung world
 WORLDS_TIMEOUT = 300.0
-# name: (window, cache length, prefill length, position: a scalar or one a row)
-CASES = {
-    "full-scalar": (None, 16, 12, 12),
-    "full-rows": (None, 16, 12, [12, 9, 15, 3]),
-    "window-scalar": (8, 8, 11, 11),
-    "window-rows": (8, 8, 11, [11, 8, 19, 5]),
-    "long-scalar": (None, 32, 12, 12),
-    "undivided": (None, 13, 12, 12),
-}
 
 
 def _jmesh11():
@@ -90,29 +82,6 @@ def mesh11():
 
 def _full(x):
     return x.full_tensor() if hasattr(x, "full_tensor") else x
-
-
-def _written(cache_len, window, pos):
-    """(B, cache_len) booleans: the entry each row's decode writes."""
-    pos = np.broadcast_to(np.asarray(pos), (B,))
-    slot = pos % cache_len if window else pos
-    return np.arange(cache_len)[None, :] == slot[:, None]
-
-
-def _hold_cache(got, want, written, what):
-    """Caches (L, B, S, H_kv, hd): bitwise outside the written entries,
-    within TOL of the largest |value| in them."""
-    for name in want:
-        g, w = np.asarray(got[name]), np.asarray(want[name])
-        keep = ~written[None, :, :, None, None]
-        assert np.array_equal(np.where(keep, g, 0), np.where(keep, w, 0)), (what, name)
-        err = float(np.max(np.abs(g - w)))
-        assert err <= TOL * float(np.max(np.abs(w))), (what, name, err)
-
-
-def _close(got, want, what):
-    err = float(np.max(np.abs(np.asarray(got) - np.asarray(want))))
-    assert err <= TOL * float(np.max(np.abs(np.asarray(want)))), (what, err)
 
 
 # ------------------------------------------------------------- one rank
@@ -137,13 +106,13 @@ def test_flash_matches_dense_and_the_reference(mesh11, window):
     with JShardCtx(_jmesh11()):
         lj, cj = jax.jit(jflash.decode)(jparams, jnp.ones((2,), jnp.int32),
                                         jflash.make_cache(2, 16), jnp.int32(pos))
-    _close(_full(lf), ld, "flash against dense")
-    _close(_full(lf), lj, "flash against the reference's flash")
+    close_logits(_full(lf), ld, "flash against dense")
+    close_logits(_full(lf), lj, "flash against the reference's flash")
     S_max = cache["layers"]["k"].shape[2]                  # the window when it is shorter
-    written = _written(S_max, window, pos)[:2]
-    _hold_cache(trees.tree_map(_full, cf)["layers"], cd["layers"], written, "cache")
-    _hold_cache(trees.tree_map(_full, cf)["layers"], jax.tree.map(np.asarray, cj)["layers"],
-                written, "cache against the reference")
+    where = written(S_max, window, pos)[:2]
+    hold_cache(trees.tree_map(_full, cf)["layers"], cd["layers"], where, "cache")
+    hold_cache(trees.tree_map(_full, cf)["layers"], jax.tree.map(np.asarray, cj)["layers"],
+               where, "cache against the reference")
 
 
 def test_flash_sequential_decode_matches_teacher_forcing(mesh11):
@@ -170,32 +139,11 @@ def test_flash_sequential_decode_matches_teacher_forcing(mesh11):
         jcache = jgrow_cache(jmodel, jcache, n, S)
         jgot, _ = jax.jit(jmodel.decode)(jparams, jnp.asarray(tokens[:, S - 1]), jcache,
                                          jnp.int32(S - 1))
-    _close(_full(got), want[:, -1], "flash against forward_train")
-    _close(_full(got), jgot, "flash against the reference's flash")
+    close_logits(_full(got), want[:, -1], "flash against forward_train")
+    close_logits(_full(got), jgot, "flash against the reference's flash")
 
 
 # ------------------------------------------------------------- worlds
-def _case_inputs(params, model, tokens, window, cache_len, prefill, pos):
-    cfg = model.cfg.with_(sliding_window=window)
-    m = build(cfg)
-    logits, cache = m.prefill(params, {"tokens": tokens[:, :prefill]})
-    cache = grow_cache(m, cache, B, cache_len) if cache_len > prefill else cache
-    token = torch.argmax(logits, -1).to(torch.int32)
-    return {"window": window, "params": convert.to_numpy(params),
-            "cache": convert.to_numpy(cache), "token": token.numpy(),
-            "pos": np.asarray(pos, np.int32)}
-
-
-def _plain_decode(case):
-    """The port's plain decode without a mesh on ``case``."""
-    cfg = get_config("qwen2-1.5b", smoke=True).with_(dtype="float32",
-                                                     sliding_window=case["window"])
-    logits, cache = build(cfg).decode(convert.to_torch(case["params"]),
-                                      torch.as_tensor(case["token"]),
-                                      convert.to_torch(case["cache"]), torch.as_tensor(case["pos"]))
-    return logits.numpy(), convert.to_numpy(cache)
-
-
 def _reference_decode(case):
     """The JAX package's decode without a mesh on ``case`` (a scalar
     position): its dense ``gqa_decode``."""
@@ -210,19 +158,10 @@ def _reference_decode(case):
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("flash"))
-    cfg = get_config("qwen2-1.5b", smoke=True).with_(dtype="float32")
-    model = build(cfg)
-    params = model.init(torch.Generator().manual_seed(0))
-    tokens = torch.as_tensor(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (B, 16)).astype(np.int32))
-    with torch.no_grad():
-        cases = {name: _case_inputs(params, model, tokens, *spec) for name, spec in CASES.items()}
-    with open(os.path.join(root, "inputs.pkl"), "wb") as f:
-        pickle.dump(cases, f)
+    cases = write_flash_cases(root)
     running = start_worlds(WORKER, root, list(WORLDS.values()), timeout=WORLDS_TIMEOUT)
     try:
-        with torch.no_grad():
-            plain = {name: _plain_decode(case) for name, case in cases.items()}
+        plain = {name: plain_decode(case) for name, case in cases.items()}
         reference = {name: _reference_decode(cases[name]) for name in SCALAR}
     finally:
         running.wait()
@@ -230,10 +169,10 @@ def worlds(tmp_path_factory):
     for name, (ranks, mp) in WORLDS.items():
         with open(os.path.join(root, f"out_{ranks}_{mp}.pkl"), "rb") as f:
             out[name] = pickle.load(f)
-    return {"cases": cases, "plain": plain, "reference": reference, "out": out, "cfg": cfg}
+    return {"cases": cases, "plain": plain, "reference": reference, "out": out,
+            "cfg": flash_config()}
 
 
-DIVIDED = [c for c in CASES if c != "undivided"]
 GRID = [(w, c) for w in WORLDS for c in DIVIDED]
 SCALAR = [c for c in DIVIDED if np.ndim(CASES[c][3]) == 0]
 REF_GRID = [(w, c) for w in WORLDS for c in SCALAR]
@@ -244,10 +183,10 @@ def test_flash_on_the_mesh_matches_the_plain_decode(worlds, world, case):
     window, cache_len, _, pos = CASES[case]
     got = worlds["out"][world]["results"][case]["flash"]
     logits, cache = worlds["plain"][case]
-    _close(got["logits"], logits, f"{world} {case} logits")
+    close_logits(got["logits"], logits, f"{world} {case} logits")
     for stack in cache:
-        _hold_cache(got["cache"][stack], cache[stack], _written(cache_len, window, pos),
-                    f"{world} {case}")
+        hold_cache(got["cache"][stack], cache[stack], written(cache_len, window, pos),
+                   f"{world} {case}")
 
 
 @pytest.mark.parametrize("world,case", REF_GRID, ids=[f"{w}-{c}" for w, c in REF_GRID])
@@ -257,10 +196,10 @@ def test_flash_on_the_mesh_matches_the_reference(worlds, world, case):
     window, cache_len, _, pos = CASES[case]
     got = worlds["out"][world]["results"][case]["flash"]
     logits, cache = worlds["reference"][case]
-    _close(got["logits"], logits, f"{world} {case} logits against the reference")
+    close_logits(got["logits"], logits, f"{world} {case} logits against the reference")
     for stack in cache:
-        _hold_cache(got["cache"][stack], cache[stack], _written(cache_len, window, pos),
-                    f"{world} {case} against the reference")
+        hold_cache(got["cache"][stack], cache[stack], written(cache_len, window, pos),
+                   f"{world} {case} against the reference")
 
 
 @pytest.mark.parametrize("world", list(WORLDS))

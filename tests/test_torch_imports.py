@@ -61,6 +61,9 @@ SLICE12 = ("repro_torch.sharding", "repro_torch.sharding.specs",
            "repro_torch.launch.mesh", "repro_torch.utils.logging")
 # the model axis: the mesh-aware LLM step builders
 SLICE13 = ("repro_torch.launch.steps",)
+# the optimisers and the kernel library's persistent cache
+SLICE15 = ("repro_torch.optim", "repro_torch.optim.sgd", "repro_torch.optim.adam",
+           "repro_torch.optim.schedules", "repro_torch.utils.cache")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -80,6 +83,7 @@ def test_importing_every_module_loads_no_jax():
     assert set(SLICE11) <= set(names), sorted(set(SLICE11) - set(names))
     assert set(SLICE12) <= set(names), sorted(set(SLICE12) - set(names))
     assert set(SLICE13) <= set(names), sorted(set(SLICE13) - set(names))
+    assert set(SLICE15) <= set(names), sorted(set(SLICE15) - set(names))
     assert bad == "", f"port imports pulled in {bad}"
 
 

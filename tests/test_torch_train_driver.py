@@ -8,7 +8,8 @@ is replaced here by one that hands over the reference's initial MLP
 parameters through numpy. Then ``ari`` and ``n_clusters`` are equal and
 the accuracies agree within 1e-5. Also: the printed JSON has the
 reference's keys in both modes, ``--save`` writes the reference's
-checkpoint files, ``--compile-cache`` raises naming its ROADMAP.md item,
+checkpoint files, ``--compile-cache`` keeps the kernel library in its
+directory and prints it,
 ``--mesh`` runs a world of one (and, under ``torchrun``, two ranks) that
 prints the JSON once, and without ``--device cpu`` and without a GPU the
 driver raises instead of running on the CPU.
@@ -108,12 +109,27 @@ def test_main_prints_the_reference_json_in_both_modes(capsys):
     assert out["arch"] == "zamba2-1.2b" and np.isfinite(out["ari"])
 
 
-@pytest.mark.parametrize("flag,item", [(["--compile-cache", "auto"], "queue 1 item 1"),
-                                       (["--compile-cache"], "queue 1 item 1"),
-                                       (["--compile-cache", "/nonexistent"], "queue 1 item 1")])
-def test_unported_flags_raise_naming_their_item(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.main(CLASSIFY + flag)
+# the name and ids are those of the test from before the flag was ported,
+# when it raised naming ROADMAP.md queue 1 item 1
+@pytest.mark.parametrize("flag", [["--compile-cache", "auto"], ["--compile-cache"],
+                                  ["--compile-cache", "DIR"]],
+                         ids=[f"flag{i}-queue 1 item 1" for i in range(3)])
+def test_unported_flags_raise_naming_their_item(flag, tmp_path, monkeypatch, capsys):
+    """``--compile-cache`` (``auto``, bare, a directory) points the kernel
+    library's cache at its directory, prints it as the reference does,
+    and runs the round: the reference's JSON comes back."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    monkeypatch.setenv("REPRO_TORCH_COMPILATION_CACHE_DIR", str(tmp_path / "default"))
+    flag = [str(tmp_path / "given") if f == "DIR" else f for f in flag]
+    want = str(tmp_path / ("given" if len(flag) == 2 and flag[1] != "auto" else "default"))
+    out = ttrain.main(["--rounds", "1", "--clients", "8", "--device", "cpu"] + flag)
+    text = capsys.readouterr().out
+    assert f"compilation cache: {want}\n" in text and os.path.isdir(want)
+    assert str(_build.BUILD_DIR) == want
+    assert _last_json(text) == out
+    assert set(out) == {"algo", "rounds", "cluster_avg_acc", "wall_s", "ari",
+                        "n_clusters", "global_avg_acc"}
 
 
 def _same_but_wall(a, b):
