@@ -158,15 +158,22 @@ prints no result.
    again with their routes cached under the profiler: first_compile_s,
    wall_s, tok_per_s, the routing Ψ's share, the device's busy share while
    serving, the decode step eager and as a graph replay and a prefill
-   group (CUDA events), the peak memory. (b) path 3's falcon-mamba (full
-   width, 2 layers, ``use_pallas=True``), 2 waves of 4 requests: K5's
-   launches while routing (backward once a layer per Ψ, forward twice:
-   the remat recompute; none while serving) and K5 against its plain
-   versions on the first input the router's Ψ gave it; its launches are
-   added to the kernels line.
-   Gates of (a) and (b): every route is ``engine.infer``'s, and every
-   request's tokens equal ``SequentialLoop``'s under the near-tie rule
-   (``serve.near_tie_compare``, ε 1e-3 on the card). (c) The smoke
+   group (CUDA events), the peak memory. Every wave is routed through
+   the batched Ψ (``engine.infer_batch``: one vmapped Ψ call for each
+   ``launch.serve.ROUTE_CHUNK`` new clients). (b) path 3's falcon-mamba
+   (full width, 2 layers, ``use_pallas=True``), 2 waves of 4 requests:
+   K5's launches while routing (one chunk a wave: the 4 clients folded
+   into K5's B, backward once a layer, forward twice: the remat
+   recompute; none while serving) and K5 against its plain versions on
+   the first folded input the router's Ψ gave it; its launches are added
+   to the kernels line.
+   Gates of (a) and (b), and of 14b and 14c (``hold_wave``): every route
+   is ``engine.infer``'s (the per-client Ψ) with its similarity within
+   1e-4 of ``infer``'s; in (a) the wave's batched Ψ rows within 1e-4 of
+   the largest |value| of the per-client rows; the wave's routing ms a
+   client beside the batched Ψ's and ``infer``'s, with the chunk and both
+   peaks; every request's tokens equal ``SequentialLoop``'s under the
+   near-tie rule (``serve.near_tie_compare``, ε 1e-3 on the card). (c) The smoke
    configs of qwen2 and falcon-mamba on the card against the same values
    on the CPU: routes equal, tokens under the near-tie rule with the CPU's
    sequential stream the reference.
@@ -2922,6 +2929,9 @@ SERVE_FIRST, SERVE_WARM = 8, 8      # qwen2: the first wave, then a warm wave (1
 SERVE_MAMBA = 4                     # falcon-mamba: requests a wave
 SERVE_SMOKE = 6                     # 13c: requests on 2 x 2 lanes (two admission waves)
 SERVE_MAX_STOPS = 1                 # near-tie stops a wave may make (13a, 13b, 13c)
+ROUTE_SIM_ATOL = 1e-4               # a route's similarity, batched Psi against engine.infer
+ROUTE_ROWS_RTOL = 1e-4              # 13a: batched Psi rows against the per-client rows, of
+                                    # their largest |value|
 
 
 def bound_stops(tag, reqs, stops):
@@ -2979,22 +2989,79 @@ def serve_wave(eng, reqs):
     return res, routes, t1 - t0, time.perf_counter() - t0
 
 
-def hold_wave(tag, eng, state, reqs, routes, res):
-    """13's gates on one wave: each route's cluster is ``engine.infer``'s
-    (the accepted cluster, else the nearest), and each request's tokens
-    equal ``SequentialLoop``'s on the card under the near-tie rule (ε =
+def hold_wave(tag, eng, state, reqs, routes, res, route_s, rows_gate=False):
+    """13's gates on one wave. Its routes came from the batched Ψ (the
+    router's ``engine.infer_batch``, ``route_s`` seconds for the wave);
+    ``engine.infer`` (the per-client Ψ) then runs for each request, timed,
+    and the batched Ψ once more on the wave's histories, timed, each from
+    a fresh peak (the phase's own peak is read before). Each route's
+    cluster is ``infer``'s (the accepted cluster, else the nearest) and
+    its similarity within ``ROUTE_SIM_ATOL`` of ``infer``'s; with
+    ``rows_gate`` the batched rows are within ``ROUTE_ROWS_RTOL`` of the
+    per-client rows' largest |value|. Each request's tokens equal
+    ``SequentialLoop``'s on the card under the near-tie rule (ε =
     ``NEAR_TIE_EPS["cuda"]``); the loop takes the engine's router, whose
-    routes were just held to ``infer``, so it runs no Ψ of its own.
-    The wave's near-tie stops are bounded by ``bound_stops``."""
+    routes were just held to ``infer``, so it runs no Ψ of its own. The
+    wave's near-tie stops are bounded by ``bound_stops``."""
+    import torch
     from repro_torch import engine, serve
+    from repro_torch.engine.state import on_device
+    from repro_torch.engine.strategies import stack_batches
+    ctx, n = state.ctx, len(reqs)
+    real, one = ctx.extractor, []
+
+    def recorded(batch):
+        one.append(real(batch))
+        return one[-1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ctx.extractor = recorded
+    try:
+        infs = [engine.infer(state, r.history) for r in reqs]
+    finally:
+        ctx.extractor = real
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    infer_peak = torch.cuda.max_memory_allocated() - held
+    stacked = stack_batches([on_device(r.history, ctx.device) for r in reqs])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rows = ctx.batched_extractor(stacked)
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    batched_peak = torch.cuda.max_memory_allocated() - held
+    one = torch.stack(one)
+    rows_err = float((rows - one).abs().max())
+    rows_scale = float(one.abs().max())
+    del stacked, rows, one
+    sim_err = 0.0
+    for r, rt, inf in zip(reqs, routes, infs):
+        want = inf["cluster"] if inf["cluster"] is not None else inf["seed_from"]
+        assert rt.root == want, (tag, r.rid, rt, want)
+        sim_err = max(sim_err, abs(rt.similarity - inf["similarity"]))
+    assert sim_err <= ROUTE_SIM_ATOL, (tag, sim_err)
+    if rows_gate:
+        assert rows_err <= ROUTE_ROWS_RTOL * rows_scale, (tag, rows_err, rows_scale)
+    chunk = ctx.cfg.cohort_chunk or n
+    print(f"[{tag}] routing Psi: the wave's {n} new clients in {-(-n // chunk)} batched "
+          f"call(s) of at most {chunk} (cohort_chunk {ctx.cfg.cohort_chunk}): the wave's "
+          f"routing {route_s * 1e3 / n:.1f} ms a client, the batched Psi again "
+          f"{batched_s * 1e3 / n:.1f} ms a client (peak {batched_peak / 1e9:.2f} GB over the "
+          f"{held / 1e9:.2f} GB held), engine.infer {infer_s * 1e3 / n:.1f} ms a client (peak "
+          f"{infer_peak / 1e9:.2f} GB); similarities max |batched - infer| {sim_err:.3e} (at "
+          f"most {ROUTE_SIM_ATOL:g}); rows max |batched - per-client| {rows_err:.3e} of the "
+          f"largest {rows_scale:.3e}" + (f" (at most {ROUTE_ROWS_RTOL:g} of it)" if rows_gate
+                                         else ""))
     loop = serve.SequentialLoop(eng.model, state, max_len=eng.cfg.max_len,
                                 max_gen=eng.cfg.max_gen)
     loop.router = eng.router
     eps, stops, gaps = serve.NEAR_TIE_EPS["cuda"], [], []
     for r, rt in zip(reqs, routes):
-        inf = engine.infer(state, r.history)
-        want = inf["cluster"] if inf["cluster"] is not None else inf["seed_from"]
-        assert rt.root == want, (tag, r.rid, rt, want)
         sr = loop.serve(r)
         assert sr.cluster == rt.root and len(res[r.rid].tokens) == r.gen
         stop = serve.near_tie_compare(sr.tokens, res[r.rid].tokens, sr.gaps, eps)
@@ -3002,7 +3069,7 @@ def hold_wave(tag, eng, state, reqs, routes, res):
             stops.append((r.rid, stop))
         gaps.append(float(sr.gaps.min()))
     share = bound_stops(tag, reqs, stops)
-    print(f"[{tag}] {len(reqs)} routes equal engine.infer's; tokens equal SequentialLoop's "
+    print(f"[{tag}] {n} routes equal engine.infer's; tokens equal SequentialLoop's "
           f"on the card under the near-tie rule (eps {eps:g}): {len(stops)} near-tie stops "
           f"{stops} (at most {SERVE_MAX_STOPS}), {100 * share:.1f}% of the tokens compared; "
           f"smallest top-2 gap of a reference stream {min(gaps):.3e}")
@@ -3028,7 +3095,8 @@ def phase_serve_qwen(dev, peaks):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    st = launch_serve.build_server_state(cfg, model, SERVE_CLUSTERS, SERVE_TAU, 0, device=dev)
+    st = launch_serve.build_server_state(cfg, model, SERVE_CLUSTERS, SERVE_TAU, 0, device=dev,
+                                         cohort_chunk=launch_serve.ROUTE_CHUNK)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in trees.leaves(st.ctx.init_params))
@@ -3062,7 +3130,8 @@ def phase_serve_qwen(dev, peaks):
           f"({SERVE_WARM} new clients, every burst under sync-debug mode 'error', no new "
           f"graph): wall_s {wall:.4f}, tokens {n_tok}, tok_per_s {n_tok / wall:.2f}; Psi "
           f"routing {route2_s * 1e3:.1f} ms for the wave ({route2_s * 1e3 / SERVE_WARM:.1f} ms "
-          f"a client, one infer_batch), serving after routing {(wall - route2_s) * 1e3:.1f} ms "
+          f"a client, one infer_batch: {-(-SERVE_WARM // launch_serve.ROUTE_CHUNK)} batched Psi "
+          f"call(s)), serving after routing {(wall - route2_s) * 1e3:.1f} ms "
           f"({n_tok / (wall - route2_s):.2f} tok/s); stats {stats}")
 
     # the warm wave's requests again, their routes cached: serving alone
@@ -3106,8 +3175,9 @@ def phase_serve_qwen(dev, peaks):
     print(f"[serve] peak device memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated, "
           f"from {base / 1e9:.2f} GB before the phase)")
     t0 = time.perf_counter()
-    for tag, reqs, routes, res in (("first", first, routes1, res1), ("warm", warm, routes2, res2)):
-        hold_wave(f"serve {tag}", eng, st, reqs, routes, res)
+    for tag, reqs, routes, res, rs in (("first", first, routes1, res1, route1_s),
+                                       ("warm", warm, routes2, res2, route2_s)):
+        hold_wave(f"serve {tag}", eng, st, reqs, routes, res, rs, rows_gate=True)
     print(f"[serve] the gates took {time.perf_counter() - t0:.1f} s")
     del eng, st
     torch.cuda.empty_cache()
@@ -3117,10 +3187,12 @@ def phase_serve_qwen(dev, peaks):
 def phase_serve_mamba(dev):
     """13b: path 3's falcon-mamba (full width, 2 layers, ``use_pallas=True``)
     in fp32 served with 2 clusters: K5 launched forward and backward while
-    routing (the router's Ψ) and held against its plain version on the
-    first input Ψ gave it; none while serving (prefill and decode take the
-    plain scan, which returns the state); then the gates of 13a on two
-    waves. Returns (K5's launches while routing, K5's errors on y and g_C)."""
+    routing (the router's batched Ψ: a chunk of clients folded into K5's
+    B, one launch a layer each way a chunk) and held against its plain
+    version on the first folded input Ψ gave it; none while serving
+    (prefill and decode take the plain scan, which returns the state);
+    then the gates of 13a on two waves. Returns (K5's launches while
+    routing, K5's errors on y and g_C)."""
     import torch
     from repro_torch import serve
     from repro_torch.launch import serve as launch_serve
@@ -3130,12 +3202,17 @@ def phase_serve_mamba(dev):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    st = launch_serve.build_server_state(cfg, model, SERVE_CLUSTERS, SERVE_TAU, 0, device=dev)
+    st = launch_serve.build_server_state(cfg, model, SERVE_CLUSTERS, SERVE_TAU, 0, device=dev,
+                                         cohort_chunk=launch_serve.ROUTE_CHUNK)
     max_len = SERVE_PROMPT + SERVE_GEN
     eng = serve.ServeEngine(model, st, serve.ServeConfig(slots=SERVE_SLOTS, max_len=max_len,
                                                          max_gen=SERVE_GEN))
     first = launch_serve.make_requests(cfg, SERVE_MAMBA, SERVE_PROMPT, SERVE_GEN, SERVE_CLUSTERS)
-    shape = (8, 256, cfg.d_inner, cfg.ssm_state)      # Psi's history batch: 8 x 256 tokens
+    # Psi's history batch is 8 x 256 tokens a client; a chunk of clients is
+    # folded into K5's B
+    folded = min(launch_serve.ROUTE_CHUNK, SERVE_MAMBA)
+    chunks = -(-SERVE_MAMBA // folded)
+    shape = (8 * folded, 256, cfg.d_inner, cfg.ssm_state)
     _zero_counts()
     with recording_first_scan(shape) as rec:
         torch.cuda.synchronize()
@@ -3144,14 +3221,15 @@ def phase_serve_mamba(dev):
         torch.cuda.synchronize()
         route_s = time.perf_counter() - t0
     routing = _launched()
-    # Ψ takes a gradient: K5 once a layer each way, and with cfg.remat its
-    # forward once more in the checkpoint's recompute
-    want = SERVE_MAMBA * cfg.n_layers
+    # the batched Ψ takes a gradient: K5 once a layer each way a chunk, and
+    # with cfg.remat its forward once more in the checkpoint's recompute
+    want = chunks * cfg.n_layers
     want_fwd = want * (2 if cfg.remat else 1)
     print(f"[serve3] {cfg.name} at full width, {cfg.n_layers} layers, use_pallas, fp32, "
-          f"remat {cfg.remat}: routing {SERVE_MAMBA} new clients took {route_s * 1e3:.1f} ms; "
-          f"launches while routing {routing} (K5 per Psi: forward {want_fwd // SERVE_MAMBA}, "
-          f"backward {want // SERVE_MAMBA})")
+          f"remat {cfg.remat}: routing {SERVE_MAMBA} new clients took {route_s * 1e3:.1f} ms "
+          f"in {chunks} batched Psi call(s) of {folded} clients (K5 at B = {8 * folded}); "
+          f"launches while routing {routing} (K5 per call: forward {want_fwd // chunks}, "
+          f"backward {want // chunks})")
     assert routing.get("ssm_scan.fwd_launches", 0) == want_fwd, routing
     assert routing.get("ssm_scan.bwd_launches", 0) == want, routing
     t0 = time.perf_counter()
@@ -3175,10 +3253,11 @@ def phase_serve_mamba(dev):
           f"{route2_s:.3f} s), tokens {n_tok}, tok_per_s {n_tok / wall:.2f}; peak device "
           f"memory {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB; K5 launches "
           f"in both waves' routing {launches}")
-    errs = check_scan_on_path(rec[0], "serve3", "the router's first Psi input")
+    errs = check_scan_on_path(rec[0], "serve3", "the router's first folded Psi input")
     del rec
-    for tag, reqs, routes, res in (("first", first, routes1, res1), ("warm", warm, routes2, res2)):
-        hold_wave(f"serve3 {tag}", eng, st, reqs, routes, res)
+    for tag, reqs, routes, res, rs in (("first", first, routes1, res1, route_s),
+                                       ("warm", warm, routes2, res2, route2_s)):
+        hold_wave(f"serve3 {tag}", eng, st, reqs, routes, res, rs)
     del eng, st
     torch.cuda.empty_cache()
     print(f"[serve3] phase 13b took {time.perf_counter() - t_phase:.1f} s")
@@ -3251,6 +3330,9 @@ TRAIN14 = ["--arch", "zamba2-1.2b", "--clients", "4", "--domains", "2", "--batch
            "--tau", "0.12", "--lr", "0.05", "--fused-step", "--device", "cuda"]
 ZAMBA_LAYERS = 6          # 38 -> 6: one full group of 6 and one shared-block application
 PHI_LAYERS = 2            # 32 -> 2
+PHI_ROUTE_CHUNK = 2       # 14c's clients a batched Psi call: its 3 models hold 34.4 GB and a
+                          # call ~10 GB a client; 4 (the serve CLI's) ran out of memory
+                          # beside the decode graph's pool
 DEEPSEEK_LAYERS = 2       # 60 -> 2, moe_layer_start 1 kept (a dense layer, an MoE layer)
 DEEPSEEK_ROWS, DEEPSEEK_STEPS = 4, 16
 DEEPSEEK_RTOL = 1e-3      # decode logits against forward_train, of the largest |logit|
@@ -3460,7 +3542,7 @@ def recording_moe_prefills(prompt_len):
         yield calls
 
 
-def phase_serve_family(dev, tag, arch, n_layers, first_n, warm_n, peaks):
+def phase_serve_family(dev, tag, arch, n_layers, first_n, warm_n, peaks, chunk=None):
     """14b / 14c: a family at full width cut to ``n_layers`` served as in
     13a (the serve CLI's state with 2 clusters, 4 slots a cluster, prompt
     32, gen 16, fp32, TF32 off): a first wave (the capture), ``reset``, a
@@ -3468,7 +3550,9 @@ def phase_serve_family(dev, tag, arch, n_layers, first_n, warm_n, peaks):
     "error" and the same graph; 13's gates on both waves. MoE: each
     prefill group's requests routed in groups of their own (the calls'
     group sizes asserted), multi-request prefill groups formed
-    (asserted), the assignments capacity dropped there printed."""
+    (asserted), the assignments capacity dropped there printed. The
+    router's batched Ψ takes ``chunk`` clients a call (the serve CLI's
+    ``ROUTE_CHUNK`` unless given)."""
     import numpy as np
     import torch
     from repro_torch import serve
@@ -3482,7 +3566,8 @@ def phase_serve_family(dev, tag, arch, n_layers, first_n, warm_n, peaks):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    st = launch_serve.build_server_state(cfg, model, SERVE_CLUSTERS, SERVE_TAU, 0, device=dev)
+    st = launch_serve.build_server_state(cfg, model, SERVE_CLUSTERS, SERVE_TAU, 0, device=dev,
+                                         cohort_chunk=chunk or launch_serve.ROUTE_CHUNK)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in trees.leaves(st.ctx.init_params))
@@ -3537,8 +3622,9 @@ def phase_serve_family(dev, tag, arch, n_layers, first_n, warm_n, peaks):
           f" GB of stacked cluster weights at {peaks[0] / 1e12:.2f} TB/s); prefill of a group "
           f"of {SERVE_SLOTS} x {SERVE_PROMPT} tokens {prefill_ms:.3f} ms; peak device memory "
           f"{peak / 1e9:.2f} GB (from {base / 1e9:.2f} GB)")
-    for wave, reqs, routes, res in (("first", first, routes1, res1), ("warm", warm, routes2, res2)):
-        hold_wave(f"{tag} {wave}", eng, st, reqs, routes, res)
+    for wave, reqs, routes, res, rs in (("first", first, routes1, res1, route1_s),
+                                        ("warm", warm, routes2, res2, route2_s)):
+        hold_wave(f"{tag} {wave}", eng, st, reqs, routes, res, rs)
     del eng, st
     torch.cuda.empty_cache()
     print(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s")
@@ -3645,7 +3731,7 @@ def phase_14(dev, peaks):
     phase_serve_family(dev, "serve14z", "zamba2-1.2b", ZAMBA_LAYERS, SERVE_FIRST, SERVE_WARM,
                        peaks)
     phase_serve_family(dev, "serve14m", "phi3.5-moe-42b-a6.6b", PHI_LAYERS, SERVE_FIRST,
-                       SERVE_WARM, peaks)
+                       SERVE_WARM, peaks, chunk=PHI_ROUTE_CHUNK)
     phase_deepseek_model(dev)
     phase_serve_smoke(dev, (("zamba2-1.2b", {}), ("phi3.5-moe-42b-a6.6b", {}),
                             ("deepseek-v2-236b", {})))
@@ -4479,6 +4565,9 @@ STEPS_DECODE = 4                # 17a: decode steps after the prefill (8 -> 4: t
 SERVE17_REQUESTS = 8            # 17b: one wave over 2 groups x 4 slots
 SERVE17_HISTORY = (64, 2)       # 17b: a client's routing batch (13a's 256 x 8 cut so
                                 # that two ranks' states and routing fit one card)
+SERVE17_CHUNK = 1               # 17b: clients a batched Psi call: one keeps a rank's routing
+                                # memory the one-client Psi's (two ranks share the card, their
+                                # states built within a few GB of its 80)
 
 
 @contextlib.contextmanager
@@ -4652,7 +4741,7 @@ def steps17b(mesh_size):
         if turn == specs.mesh_rank(mesh):
             with patched(launch_serve, "synthetic_lm_batch", small):
                 st = launch_serve.build_server_state(cfg, model, SERVE_CLUSTERS, SERVE_TAU, 0,
-                                                     device=dev)
+                                                     device=dev, cohort_chunk=SERVE17_CHUNK)
             torch.cuda.empty_cache()
         specs.barrier(mesh, dev)
     reqs = [dataclasses.replace(r, history=synthetic_lm_batch(

@@ -8,7 +8,7 @@ from repro_torch.core.clustering import (ClusterState, UnionFind,  # noqa: F401
 from repro_torch.core.device_clustering import (DeviceClusters,  # noqa: F401
                                                 DeviceClusterState,
                                                 make_cluster_state)
-from repro_torch.core.extractor import make_extractor  # noqa: F401
+from repro_torch.core.extractor import make_extractor, representation  # noqa: F401
 from repro_torch.core.stocfl import StoCFL, StoCFLConfig  # noqa: F401
 from repro_torch.core.baselines import (CFLSattler, Ditto, FLConfig,  # noqa: F401
                                         FedAvg, FedProx, IFCA)
@@ -16,7 +16,7 @@ from repro_torch.core.baselines import (CFLSattler, Ditto, FLConfig,  # noqa: F4
 __all__ = [
     "ClusterState", "UnionFind", "adjusted_rand_index",
     "DeviceClusters", "DeviceClusterState", "make_cluster_state",
-    "make_extractor",
+    "make_extractor", "representation",
     "StoCFL", "StoCFLConfig",
     "CFLSattler", "Ditto", "FLConfig", "FedAvg", "FedProx", "IFCA",
 ]

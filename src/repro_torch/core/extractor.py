@@ -13,12 +13,19 @@ Johnson-Lindenstrauss projection. The sketch's buckets and signs come from
 the JAX package draws them from ``jax.random``, which torch cannot
 reproduce, so the two sketches agree only when the same draws are fed to
 both (as the tests do).
+
+``make_extractor(..., batched=True)`` is the reference's vmapped Ψ over a
+stacked batch of clients, which the serving router's ``infer_batch``
+runs: a chunk of clients' losses under one ``torch.func.vmap`` and their
+kept gradients from one autograd call, then sketched and normalised row
+by row outside the vmap. The round keeps the one-client autograd Ψ.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
+from torch.func import vmap
 
 from repro_torch.utils import trees
 
@@ -58,7 +65,8 @@ class JLSketch:
     bucket lengths; a projection is then a gather, a sign flip and
     ``torch.segment_reduce``, which sums each bucket in order on one
     thread: deterministic on the card, unlike a scatter-add. The parts'
-    sums are added in part order."""
+    sums are added in part order. ``rows`` projects a stack of vectors,
+    each row summed in the same order as ``__call__`` sums it alone."""
 
     def __init__(self, sizes, dim: int, seed: int, device):
         buckets, signs = (x.to(device) for x in jl_draws(sum(sizes), dim, seed))
@@ -80,10 +88,101 @@ class JLSketch:
             out = s if out is None else out + s
         return out
 
+    def rows(self, parts) -> torch.Tensor:
+        """Parts with a leading axis of J vectors -> (J, dim): row j is
+        ``self([p[j] for p in parts])`` bit for bit (each bucket summed
+        in index order along the row)."""
+        out = None
+        for x, (order, sgn, lengths) in zip(parts, self.parts):
+            v = torch.index_select(x.reshape(x.shape[0], -1).to(torch.float32), 1, order)
+            v.mul_(sgn)
+            s = torch.segment_reduce(v, "sum", lengths=lengths.expand(v.shape[0], -1)
+                                     .contiguous(), axis=1)
+            out = s if out is None else out + s
+        return out
+
+
+def make_extractors(loss_fn: Callable, anchor_params,
+                    project_dim: Optional[int] = None,
+                    leaf_filter: Optional[Callable[[str], bool]] = None,
+                    chunk: int = 0) -> Tuple[Callable, Callable]:
+    """``(Ψ, batched Ψ)`` over one anchor, one leaf filter and one sketch
+    (built once, at the first call of either): ``make_extractor``'s two
+    forms, as the engine holds them."""
+    anchor = trees.tree_map(lambda x: x.detach(), anchor_params)
+    frozen = trees.leaves(anchor)
+    keep = [leaf_filter is None or leaf_filter(p) for p in leaf_paths(anchor)]
+    anchor_dt = next((x.dtype for x in frozen if x.is_floating_point()), torch.float32)
+    sketch: List[JLSketch] = []
+
+    def cast(batch):
+        return trees.tree_map(
+            lambda x: x.to(anchor_dt) if x.is_floating_point() else x, batch)
+
+    def with_kept(kept):
+        """The anchor's tree with its kept leaves replaced by ``kept``."""
+        it = iter(kept)
+        return trees.from_leaves(anchor, [next(it) if k else x for x, k in zip(frozen, keep)])
+
+    def project(grads, many: bool) -> torch.Tensor:
+        """The kept gradients (a leading client axis when ``many``) as
+        fp32 vectors, sketched with ``project_dim``."""
+        if project_dim:
+            if not sketch:
+                sizes = [x.numel() for x, k in zip(frozen, keep) if k]
+                sketch.append(JLSketch(sizes, project_dim, 0, grads[0].device))
+            return sketch[0].rows(grads) if many else sketch[0](grads)
+        if many:
+            return torch.cat([g.reshape(g.shape[0], -1).to(torch.float32) for g in grads],
+                             dim=1)
+        return torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
+
+    def psi(batch) -> torch.Tensor:
+        batch = cast(batch)
+        # the kept leaves become views of the anchor that take a gradient
+        kept = [x.detach().requires_grad_(True) for x, k in zip(frozen, keep) if k]
+        with torch.enable_grad():
+            loss = loss_fn(with_kept(kept), batch)
+            grads = torch.autograd.grad(loss, kept, allow_unused=True)
+        # a leaf the loss never reads has gradient 0, as under jax.grad
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(kept, grads)]
+        vec = project(grads, many=False)
+        norm = torch.linalg.vector_norm(vec)
+        return torch.where(norm > 0, vec / norm, vec)
+
+    # the cohort update's form: each client's loss under vmap reads its own
+    # row of the kept leaves, stride-0 expansions of the anchor, and one
+    # autograd call of the summed losses gives every client's gradient
+    dims = trees.from_leaves(anchor, [0 if k else None for k in keep])
+    per_client = vmap(loss_fn, in_dims=(dims, 0))
+    kept0 = [x for x, k in zip(frozen, keep) if k]
+
+    def psi_many(batches) -> torch.Tensor:
+        batches = cast(batches)
+        n = trees.leaves(batches)[0].shape[0]
+        step = chunk if chunk and chunk > 0 else n
+        rows = []
+        for lo in range(0, n, step):
+            part = trees.tree_map(lambda x: x[lo:lo + step], batches)
+            c = trees.leaves(part)[0].shape[0]
+            kept = [x.expand(c, *x.shape).requires_grad_(True) for x in kept0]
+            with torch.enable_grad():
+                loss = per_client(with_kept(kept), part).sum()
+                grads = torch.autograd.grad(loss, kept, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(kept, grads)]
+            vec = project(grads, many=True)                     # (c, dim)
+            norm = torch.linalg.vector_norm(vec, dim=1, keepdim=True)
+            rows.append(torch.where(norm > 0, vec / norm, vec))
+        return rows[0] if len(rows) == 1 else torch.cat(rows)
+
+    return psi, psi_many
+
 
 def make_extractor(loss_fn: Callable, anchor_params,
                    project_dim: Optional[int] = None,
-                   leaf_filter: Optional[Callable[[str], bool]] = None) -> Callable:
+                   batched: bool = False,
+                   leaf_filter: Optional[Callable[[str], bool]] = None,
+                   chunk: int = 0) -> Callable:
     """Returns Ψ: batch -> normalised fp32 representation vector, on the
     anchor's device, in sorted-leaf order.
 
@@ -92,40 +191,26 @@ def make_extractor(loss_fn: Callable, anchor_params,
     gradients are sketched by ``JLSketch`` (seed 0, the reference's), built
     at the first call.
 
+    With ``batched`` the returned function maps a stacked batch (a leading
+    client axis) to (J, dim) rows, at most ``chunk`` clients a call (0:
+    all in one): the clients' losses under one ``torch.func.vmap``, the
+    kept leaves expanded along the client axis, and one autograd call of
+    their sum, as the cohort update takes its gradients; then every row
+    of the call sketched and normalised in one pass. Row j equals the
+    unbatched Ψ of client j to rounding. (``vmap`` over ``torch.func.grad``
+    held 4.6× the one-client Ψ's memory at one client on qwen2-1.5b on an
+    H100 and did not fit two: ``scripts/torch_psi_forms.py``.) Without
+    ``batched`` Ψ is one autograd call, the round's Ψ.
+
     A batch whose floating leaves have another dtype than the anchor's
     (bf16 batches of ``EngineConfig.dtype="bfloat16"`` under the fp32
     anchor) is cast to the anchor's dtype first: JAX promotes the mixed
     product to fp32 at its first operation, which torch's matmul does not
     do, and the cast is exact."""
-    anchor = trees.tree_map(lambda x: x.detach(), anchor_params)
-    keep = [leaf_filter is None or leaf_filter(p) for p in leaf_paths(anchor)]
-    anchor_dt = next((x.dtype for x in trees.leaves(anchor) if x.is_floating_point()),
-                     torch.float32)
-    sketch: List[JLSketch] = []
+    return make_extractors(loss_fn, anchor_params, project_dim, leaf_filter,
+                           chunk)[bool(batched)]
 
-    def psi(batch) -> torch.Tensor:
-        batch = trees.tree_map(
-            lambda x: x.to(anchor_dt) if x.is_floating_point() else x, batch)
-        # the kept leaves become views of the anchor that take a gradient
-        kept = [x.detach().requires_grad_(True)
-                for x, k in zip(trees.leaves(anchor), keep) if k]
-        it = iter(kept)
-        params = trees.from_leaves(anchor, [next(it) if k else x
-                                            for x, k in zip(trees.leaves(anchor), keep)])
-        with torch.enable_grad():
-            loss = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, kept, allow_unused=True)
-        # a leaf the loss never reads has gradient 0, as under jax.grad
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(kept, grads)]
-        if project_dim:
-            if not sketch:
-                sketch.append(JLSketch([g.numel() for g in grads], project_dim, 0,
-                                       grads[0].device))
-            vec = sketch[0](grads)
-        else:
-            vec = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
-        norm = torch.linalg.vector_norm(vec)
-        return torch.where(norm > 0, vec / norm, vec)
 
-    return psi
-
+def representation(loss_fn, anchor_params, batch, project_dim=None) -> torch.Tensor:
+    """One-shot Ψ(D) of one batch."""
+    return make_extractor(loss_fn, anchor_params, project_dim)(batch)

@@ -36,7 +36,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.extractor import make_extractor
+from repro_torch.core.extractor import make_extractors
 from repro_torch.data.arena import ClientArena
 from repro_torch.engine import sampler
 from repro_torch.engine.async_agg import AsyncConfig, run_round_async  # noqa: F401
@@ -111,8 +111,11 @@ def init(strategy: str, loss_fn, init_params, clients,
                                              device=dev).place(mesh)
     strat = get_strategy(strategy)
     if strat.needs_extractor:
-        ctx.extractor = make_extractor(loss_fn, psi_anchor, cfg.project_dim,
-                                       leaf_filter=leaf_filter)
+        # Ψ of one client (the round's) and of a stacked wave (infer_batch's),
+        # over one anchor and one sketch
+        ctx.extractor, ctx.batched_extractor = make_extractors(
+            loss_fn, psi_anchor, cfg.project_dim, leaf_filter=leaf_filter,
+            chunk=cfg.cohort_chunk)
     return strat.init_state(ctx)
 
 
@@ -518,9 +521,13 @@ def infer(state: ServerState, batch) -> dict:
 
 
 def infer_batch(state: ServerState, batches) -> list:
-    """Batched §4.4 cluster inference: Ψ of each unseen-client batch, then
-    one nearest pass for all of them. Returns one ``infer``-shaped dict per
-    batch, in order."""
+    """Batched §4.4 cluster inference for many unseen-client batches of one
+    tree structure and leaf shapes: StoCFL stacks them on a new leading
+    axis, takes their Ψ under one ``vmap`` a ``cfg.cohort_chunk`` chunk
+    (all at once with 0), and scores every (rep, cluster) pair from one
+    cluster-means snapshot; other strategies loop ``infer``. Returns one
+    ``infer``-shaped dict per batch, in order. The serving router's path
+    (``serve.Router.route_many``)."""
     dev = state.ctx.device
     return get_strategy(state.strategy).infer_many(
         state.ctx, state, [on_device(b, dev) for b in batches])

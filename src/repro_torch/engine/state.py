@@ -91,6 +91,7 @@ class EngineContext:
     eval_fn: Optional[Callable] = None
     leaf_filter: Optional[Callable] = None
     extractor: Optional[Callable] = None
+    batched_extractor: Optional[Callable] = None   # Ψ of a stacked batch: (J, dim)
     arena: Optional[Any] = None       # ClientArena: device-resident shards
     mesh: Optional[Any] = None        # DeviceMesh: cohort rows split over its ranks
     cache: Dict[str, Any] = dataclasses.field(default_factory=dict)

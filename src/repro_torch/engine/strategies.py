@@ -51,6 +51,7 @@ from torch.func import vmap
 from repro_torch.core import bilevel
 from repro_torch.core import device_clustering as devclust
 from repro_torch.core.aggregators import aggregate_omega
+from repro_torch.core.extractor import leaf_paths
 from repro_torch.data.arena import take_rows
 from repro_torch.engine import sampler
 from repro_torch.engine.bank import ClusterBank, _pow2 as bank_pow2
@@ -117,6 +118,25 @@ def _psi(ctx: EngineContext, cid: int):
     if ctx.arena is not None:
         return ctx.extractor(trees.tree_map(lambda x: x[0], ctx.arena.gather([cid])))
     return ctx.extractor(ctx.clients[cid])
+
+
+def stack_batches(batches):
+    """Batches of one tree structure stacked on a new leading axis; raises
+    ``ValueError`` naming the first leaf that a batch lacks, adds or holds
+    in another shape than the first batch."""
+    paths0 = leaf_paths(batches[0])
+    shapes0 = [tuple(x.shape) for x in trees.leaves(batches[0])]
+    for j, b in enumerate(batches[1:], 1):
+        paths = leaf_paths(b)
+        if paths != paths0:
+            odd = sorted(set(paths) ^ set(paths0)) or paths
+            raise ValueError(f"batch {j} has another tree structure than batch 0: "
+                             f"leaf {odd[0]!r} differs ({paths} against {paths0})")
+        for p, x, want in zip(paths, trees.leaves(b), shapes0):
+            if tuple(x.shape) != want:
+                raise ValueError(f"leaf {p!r} of batch {j} has shape {tuple(x.shape)}, "
+                                 f"batch 0's {want}")
+    return trees.tree_map(lambda *xs: torch.stack(xs), *batches)
 
 
 def eval_model(ctx: EngineContext, model, batch) -> float:
@@ -688,14 +708,16 @@ class StoCFLStrategy(Strategy):
         return {"cluster": root, "seed_from": src, "similarity": sim, "model": model}
 
     def infer_many(self, ctx, state, batches):
-        """§4.4 for many unseen batches in one pass: Ψ of each batch by the
-        engine's one extractor (the reference vmaps it; here one autograd
-        call each, the round's own Ψ), then one cluster-means snapshot and
-        every (rep, cluster) pair scored as one (J, K̃) cosine matrix.
-        Routing decisions match per-batch ``infer``."""
+        """§4.4 for many unseen batches in one pass: stack the batches on
+        a new leading axis, take their Ψ with the engine's batched
+        extractor (one ``vmap`` a ``cfg.cohort_chunk`` chunk), pull one
+        cluster-means snapshot, and score every (rep, cluster) pair as
+        one (J, K̃) cosine matrix. Routing decisions match per-batch
+        ``infer``. Raises ``ValueError`` naming the leaf where the
+        batches' structures or shapes differ."""
         if not batches:
             return []
-        reps = torch.stack([ctx.extractor(b) for b in batches])
+        reps = ctx.batched_extractor(stack_batches(batches))
         if state.clusters is None or state.clusters.n_clusters() == 0:
             return [{"cluster": None, "seed_from": None, "similarity": 0.0,
                      "model": state.omega} for _ in batches]

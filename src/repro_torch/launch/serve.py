@@ -72,16 +72,28 @@ def _generator(device, seed: int, k: int = -1) -> torch.Generator:
         int(np.random.SeedSequence(words).generate_state(1)[0]))
 
 
-def build_server_state(cfg, model, clusters: int, tau: float, seed: int, device=None):
+# Clients whose routing Ψ one call of the batched extractor takes
+# (``EngineConfig.cohort_chunk``). Beside the serving state's three fp32
+# qwen2-1.5b models (23.8 GB), a call holds about 8.4 GB a client (8 x 256
+# tokens, fp32, remat, the vocab leaves sketched to 8192: 33.8 GB for 4 on
+# an H100, chip_smoke.py phase 13a), so 4 clients put the phase's peak at
+# 57.6 GB of the card's 80 and 8 would not fit.
+ROUTE_CHUNK = 4
+
+
+def build_server_state(cfg, model, clusters: int, tau: float, seed: int, device=None,
+                       cohort_chunk: int = 0):
     """A serving ``ServerState`` on ``device``: K cluster models
     (stand-ins for a trained checkpoint — a real deployment would
     ``checkpoint.load_server_state`` here), each cluster's reference Ψ
     registered via the ``join`` transition so routing has real cluster
-    means to cosine against."""
+    means to cosine against. ``cohort_chunk`` bounds the clients of one
+    batched Ψ call when a wave is routed (0: the whole wave at once)."""
     dev = engine.resolve_device(device)
     params0 = model.init(_generator(dev, seed), dev)
     st = engine.init("stocfl", model.loss_fn, params0, [],
-                     engine.EngineConfig(tau=tau, seed=seed, project_dim=8192),
+                     engine.EngineConfig(tau=tau, seed=seed, project_dim=8192,
+                                         cohort_chunk=cohort_chunk),
                      device=dev, leaf_filter=llm_leaf_filter)
     cluster_models = {}
     for k in range(clusters):
@@ -117,7 +129,8 @@ def main(argv=None):
     dev = device_of(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build(cfg)
-    st = build_server_state(cfg, model, args.clusters, args.tau, args.seed, device=dev)
+    st = build_server_state(cfg, model, args.clusters, args.tau, args.seed, device=dev,
+                            cohort_chunk=ROUTE_CHUNK)
     max_len = args.prompt_len + args.gen
 
     if args.sequential:
