@@ -154,7 +154,8 @@ prints no result.
    wave of 8 requests (it pays the CUDA graph capture of the decode step),
    ``reset``, then a warm wave of 8 new clients (16 before the script's
    time was cut) with every decode burst
-   under sync-debug mode "error" and no new capture, then its requests
+   under ``sanitize.no_transfer()`` and no new program
+   (``compile_budget(0)``), then its requests
    again with their routes cached under the profiler: first_compile_s,
    wall_s, tok_per_s, the routing Ψ's share, the device's busy share while
    serving, the decode step eager and as a graph replay and a prefill
@@ -284,13 +285,24 @@ prints no result.
    from it; each library load's seconds. Then here: (b)
    ``clip_by_global_norm`` with ``sgd_momentum`` (Nesterov) and with
    ``adam`` (weight decay), 3 steps over path 1's MLP on the card under
-   sync-debug "error", within 1e-6 of the largest magnitude of the same
-   steps on the CPU; (c) one ``adam`` step plus ``apply_updates`` over
-   qwen2-1.5b's full-width fp32 tree under sync-debug "error": its ms (a
-   first and a second step), the peak, the bytes bound; (d)
+   ``sanitize.no_transfer()``, within 1e-6 of the largest magnitude of the
+   same steps on the CPU; (c) one ``adam`` step plus ``apply_updates`` over
+   qwen2-1.5b's full-width fp32 tree: its ms (a first step under
+   ``no_transfer()`` and a second), the peak, the bytes bound; (d)
    ``byzantine_distance_screen`` over path 1's 400 Ψ rows against its last
-   round's cluster means on the card, its masks equal to the CPU's. The
-   children's launches are added to the kernels line.
+   round's cluster means on the card, its masks equal to the CPU's; (e)
+   ``sanitize.nan_guard``: K1 fed a NaN gradient raises naming
+   ``prox_update``, one clean path-1 round raises nothing. The children's
+   launches are added to the kernels line.
+
+``[sanitize]`` lines (``repro_torch.analysis.sanitize``, no phase of their
+own): 11c-d's replays-only ``run_rounds`` span under ``no_transfer()`` and
+``compile_budget(0)`` (count 0, captures 0); 12a's runs under
+``compile_budget()`` (the scanned run's programs and captures equal the
+round programs cached and the graphs captured, each program named); the
+warm waves of 13a, 13b, 14b and 14c under ``compile_budget(0)`` with their
+bursts under ``no_transfer()``; 19a's children under ``compile_budget()``
+(cold: count 1, the library build; warm: count 0, cache_hits 1); 19e.
 
 The line before the last is one JSON object describing every kernel of the
 paths; the last line is ``{"ok": true, "device": {...}}``.
@@ -2446,6 +2458,7 @@ def compare_captured(dev, name, clients, params, loss, cfg, rounds, tag, expect_
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import engine
+    from repro_torch.analysis import sanitize
     from repro_torch.engine.api import RoundProgram
     from repro_torch.kernels import _build
 
@@ -2467,9 +2480,19 @@ def compare_captured(dev, name, clients, params, loss, cfg, rounds, tag, expect_
     launched = {k: v for k, v in _build.launch_counts().items() if v}
     program = next(v for v in start.ctx.cache.values() if isinstance(v, RoundProgram))
     t0 = time.perf_counter()
-    second = engine.run_rounds(start, rounds)
+    # the replays-only call as run_rounds makes it, its span under the guards
+    # (finalize, the host hand-off, outside them)
+    with sanitize.compile_budget(0) as budget:
+        fn, carry0, consts, finalize = engine.scan_program(start, rounds)
+        with sanitize.no_transfer():
+            carry, ys = fn(carry0, consts)
+            torch.cuda.synchronize()
+    second = finalize(start, carry, ys, rounds)
     torch.cuda.synchronize()
     second_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[sanitize] {tag} {name}: the replays-only call under no_transfer() and "
+          f"compile_budget(0): count {budget.count}, captures {budget.captures}")
+    assert (budget.count, budget.captures) == (0, 0), budget.describe()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.run_rounds(start, rounds)
@@ -2484,7 +2507,7 @@ def compare_captured(dev, name, clients, params, loss, cfg, rounds, tag, expect_
     print(f"[{tag}] {name}: eager walls " + ", ".join(f"{w:.1f}" for w in walls)
           + f" ms; run_rounds({rounds}): first call {first_ms:.1f} ms (round 0 eager on the "
           f"capture stream, capture {program.capture_s * 1e3:.1f} ms, {rounds - 1} replays), "
-          f"replays only {second_ms:.1f} ms = {second_ms / rounds:.2f} ms a round; under the "
+          f"replays only {second_ms:.1f} ms = {second_ms / rounds:.2f} ms a round (its span under the sanitizers); under the "
           f"profiler {third_ms:.1f} ms, {busy_txt}")
     for kname, ms in top:
         print(f"[{tag}] {name}: device {ms:8.3f} ms in {rounds} replays  {kname[:80]}")
@@ -2632,9 +2655,11 @@ def _launched():
 def churn_run(dev, setting, timeline, cfg, scan, records):
     """One ``simulate`` over ``timeline`` from a fresh card engine:
     returns (state, log, launches, wall s, CUDA graphs captured,
-    reserved bytes before and after)."""
+    reserved bytes before and after). The run is made under
+    ``sanitize.compile_budget``, whose programs and captures it prints."""
     import torch
     from repro_torch import engine
+    from repro_torch.analysis import sanitize
     from repro_torch.engine.api import RoundProgram
     from repro_torch.sim import simulate
 
@@ -2644,7 +2669,8 @@ def churn_run(dev, setting, timeline, cfg, scan, records):
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_reserved(dev)
     _zero_counts()
-    with (recording_merge_inputs() if records is not None else contextlib.nullcontext()) as recs:
+    with (recording_merge_inputs() if records is not None else contextlib.nullcontext()) as recs, \
+            sanitize.compile_budget(log_names=True) as budget:
         t0 = time.perf_counter()
         state, log = simulate(start, timeline, rounds=CHURN_ROUNDS, client_factory=factory,
                               seed=0, eval_every=5, test_sets=tests, true_cluster=tc,
@@ -2652,8 +2678,15 @@ def churn_run(dev, setting, timeline, cfg, scan, records):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launched = _launched()
-    graphs = sum(isinstance(v, RoundProgram) and v.graph is not None
-                 for v in state.ctx.cache.values())
+    programs = [v for v in state.ctx.cache.values() if isinstance(v, RoundProgram)]
+    graphs = sum(v.graph is not None for v in programs)
+    tag = "scan" if scan else "eager"
+    print(f"[sanitize] 12a {tag}: compile_budget() count {budget.count} (round programs "
+          f"in the cache {len(programs)}), captures {budget.captures} (CUDA graphs "
+          f"captured {graphs})")
+    for pname in budget.names:
+        print(f"[sanitize] 12a {tag}: program {pname}")
+    assert budget.count == len(programs) and budget.captures == graphs, budget.describe()
     mem1 = torch.cuda.memory_reserved(dev)
     if records is not None:
         records.extend(recs)
@@ -2959,12 +2992,13 @@ def serve_setting(arch, smoke=False, **kw):
 @contextlib.contextmanager
 def sync_free_bursts(eng):
     """Within the block every decode burst of ``eng`` runs under
-    ``torch.cuda.set_sync_debug_mode("error")``: a host sync there raises."""
-    from repro_torch.engine.api import _sync_errors
+    ``sanitize.no_transfer()`` (sync-debug mode "error" on the card): a
+    host read there raises."""
+    from repro_torch.analysis import sanitize
     real = eng._decode_burst
 
     def guarded(n):
-        with _sync_errors():
+        with sanitize.no_transfer():
             real(n)
 
     eng._decode_burst = guarded
@@ -3079,12 +3113,14 @@ def phase_serve_qwen(dev, peaks):
     """13a: qwen2-1.5b at its full config served through the port's
     engine: the serve CLI's state, a first wave of 8 requests (the capture),
     a warm wave of ``SERVE_WARM`` new clients with every burst under
-    sync-debug mode "error", the same requests again (routes cached) under
+    ``sanitize.no_transfer()`` and no new program, the same requests again
+    (routes cached) under
     the profiler;
     timings, the peak memory, the gates."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis import sanitize
     from repro_torch import serve
     from repro_torch.launch import serve as launch_serve
     from repro_torch.utils import trees
@@ -3120,14 +3156,17 @@ def phase_serve_qwen(dev, peaks):
     eng.reset()
     warm = launch_serve.make_requests(cfg, SERVE_WARM, SERVE_PROMPT, SERVE_GEN, SERVE_CLUSTERS,
                                 seed_base=SERVE_FIRST)
-    with sync_free_bursts(eng):
+    with sanitize.compile_budget(0) as budget, sync_free_bursts(eng):
         res2, routes2, route2_s, wall = serve_wave(eng, warm)
+    print(f"[sanitize] 13a warm wave under compile_budget(0), bursts under no_transfer(): "
+          f"count {budget.count}, captures {budget.captures}")
+    assert (budget.count, budget.captures) == (0, 0), budget.describe()
     assert eng.captures == 1 and eng._graph().graph is graph, "the warm wave captured a graph"
     stats = eng.stats()
     n_tok = sum(len(r.tokens) for r in res2.values())
     print(f"[serve] first wave ({SERVE_FIRST} requests, capture included): first_compile_s "
           f"{first_s:.3f} (routing {route1_s:.3f} s, the capture {capture_s:.3f} s); warm wave "
-          f"({SERVE_WARM} new clients, every burst under sync-debug mode 'error', no new "
+          f"({SERVE_WARM} new clients, every burst under no_transfer(), no new "
           f"graph): wall_s {wall:.4f}, tokens {n_tok}, tok_per_s {n_tok / wall:.2f}; Psi "
           f"routing {route2_s * 1e3:.1f} ms for the wave ({route2_s * 1e3 / SERVE_WARM:.1f} ms "
           f"a client, one infer_batch: {-(-SERVE_WARM // launch_serve.ROUTE_CHUNK)} batched Psi "
@@ -3194,6 +3233,7 @@ def phase_serve_mamba(dev):
     then the gates of 13a on two waves. Returns (K5's launches while
     routing, K5's errors on y and g_C)."""
     import torch
+    from repro_torch.analysis import sanitize
     from repro_torch import serve
     from repro_torch.launch import serve as launch_serve
 
@@ -3242,14 +3282,17 @@ def phase_serve_mamba(dev):
     eng.reset()
     warm = launch_serve.make_requests(cfg, SERVE_MAMBA, SERVE_PROMPT, SERVE_GEN, SERVE_CLUSTERS,
                                 seed_base=SERVE_MAMBA)
-    with sync_free_bursts(eng):
+    with sanitize.compile_budget(0) as budget, sync_free_bursts(eng):
         res2, routes2, route2_s, wall = serve_wave(eng, warm)
+    print(f"[sanitize] 13b warm wave under compile_budget(0), bursts under no_transfer(): "
+          f"count {budget.count}, captures {budget.captures}")
+    assert (budget.count, budget.captures) == (0, 0), budget.describe()
     assert eng.captures == 1 and eng._graph().graph is graph, "the warm wave captured a graph"
     n_tok = sum(len(r.tokens) for r in res2.values())
     launches = {k: v for k, v in _launched().items() if k.startswith("ssm_scan.")}
     print(f"[serve3] first wave served in {first_s:.3f} s (the capture "
           f"{eng._graph().capture_s:.3f} s); warm wave ({SERVE_MAMBA} new clients, bursts "
-          f"under sync-debug mode 'error', no new graph): wall_s {wall:.4f} (routing "
+          f"under no_transfer(), no new graph): wall_s {wall:.4f} (routing "
           f"{route2_s:.3f} s), tokens {n_tok}, tok_per_s {n_tok / wall:.2f}; peak device "
           f"memory {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB; K5 launches "
           f"in both waves' routing {launches}")
@@ -3546,8 +3589,8 @@ def phase_serve_family(dev, tag, arch, n_layers, first_n, warm_n, peaks, chunk=N
     """14b / 14c: a family at full width cut to ``n_layers`` served as in
     13a (the serve CLI's state with 2 clusters, 4 slots a cluster, prompt
     32, gen 16, fp32, TF32 off): a first wave (the capture), ``reset``, a
-    warm wave of new clients with every burst under sync-debug mode
-    "error" and the same graph; 13's gates on both waves. MoE: each
+    warm wave of new clients with every burst under ``no_transfer()`` and
+    the same graph, no new program; 13's gates on both waves. MoE: each
     prefill group's requests routed in groups of their own (the calls'
     group sizes asserted), multi-request prefill groups formed
     (asserted), the assignments capacity dropped there printed. The
@@ -3555,6 +3598,7 @@ def phase_serve_family(dev, tag, arch, n_layers, first_n, warm_n, peaks, chunk=N
     ``ROUTE_CHUNK`` unless given)."""
     import numpy as np
     import torch
+    from repro_torch.analysis import sanitize
     from repro_torch import serve
     from repro_torch.launch import serve as launch_serve
     from repro_torch.utils import trees
@@ -3597,13 +3641,16 @@ def phase_serve_family(dev, tag, arch, n_layers, first_n, warm_n, peaks, chunk=N
     eng.reset()
     warm = launch_serve.make_requests(cfg, warm_n, SERVE_PROMPT, SERVE_GEN, SERVE_CLUSTERS,
                                       seed_base=first_n)
-    with sync_free_bursts(eng):
+    with sanitize.compile_budget(0) as budget, sync_free_bursts(eng):
         res2, routes2, route2_s, wall = serve_wave(eng, warm)
+    print(f"[sanitize] {tag} warm wave under compile_budget(0), bursts under no_transfer(): "
+          f"count {budget.count}, captures {budget.captures}")
+    assert (budget.count, budget.captures) == (0, 0), budget.describe()
     assert eng.captures == 1 and eng._graph().graph is graph, "the warm wave captured a graph"
     n_tok = sum(len(r.tokens) for r in res2.values())
     print(f"[{tag}] first wave ({first_n} requests): first_compile_s {first_s:.3f} (routing "
           f"{route1_s:.3f} s, the capture {eng._graph().capture_s:.3f} s); warm wave "
-          f"({warm_n} new clients, bursts under sync-debug mode 'error', no new graph): "
+          f"({warm_n} new clients, bursts under no_transfer(), no new graph): "
           f"wall_s {wall:.4f}, tokens {n_tok}, tok_per_s {n_tok / wall:.2f}; Psi routing "
           f"{route2_s * 1e3:.1f} ms ({route2_s * 1e3 / warm_n:.1f} ms a client), serving "
           f"after routing {(wall - route2_s) * 1e3:.1f} ms ({n_tok / (wall - route2_s):.2f} "
@@ -5439,8 +5486,11 @@ def warm_start_main(spec) -> int:
     """19a's child (``chip_smoke.py --warm-start SPEC``): once ``spec["go"]``
     exists, ``launch.train.main`` runs one classification round on the card
     with ``--compile-cache spec["dir"]``, the kernel library's first load
-    timed; writes the builds this process ran, that load's seconds, the
-    library's path, the launches and the driver's JSON to ``spec["out"]``."""
+    timed, under ``sanitize.compile_budget``; writes the builds this
+    process ran, that load's seconds, the budget's programs and cache hits,
+    the library's path, the launches and ``launch.train``'s JSON to
+    ``spec["out"]``."""
+    from repro_torch.analysis import sanitize
     from repro_torch.kernels import _build
     from repro_torch.launch import train
     deadline = time.perf_counter() + WARM_TIMEOUT_S
@@ -5458,11 +5508,12 @@ def warm_start_main(spec) -> int:
         return lib
 
     _zero_counts()
-    with patched(_build, "load", timed_load):
+    with patched(_build, "load", timed_load), sanitize.compile_budget() as budget:
         out = train.main(WARM_ARGV + ["--compile-cache", spec["dir"]])
     with open(spec["out"], "w") as f:
         json.dump({"builds": _build.builds, "load_s": load_s, "lib": str(_build.library_path()),
-                   "launches": _launched(), "out": out}, f)
+                   "programs": budget.count, "cache_hits": budget.cache_hits,
+                   "captures": budget.captures, "launches": _launched(), "out": out}, f)
     return 0
 
 
@@ -5514,14 +5565,14 @@ def finish_warm(run):
 def check_optimisers(dev):
     """19b: ``clip_by_global_norm`` then ``sgd_momentum`` (Nesterov) or
     ``adam`` (weight decay) and ``apply_updates``, ``OPTIM_STEPS`` steps
-    over path 1's MLP tree on the card (under sync-debug "error") and on
+    over path 1's MLP tree on the card (under ``sanitize.no_transfer()``) and on
     the CPU from the same parameters and gradients; returns the largest
     |card - CPU| over parameters, norms and moments, each relative to the
     largest magnitude of the CPU's tensor (the norms, ~392, are sums in
     another order)."""
     import torch
     from repro_torch import optim
-    from repro_torch.engine.api import _sync_errors
+    from repro_torch.analysis import sanitize
     from repro_torch.optim.sgd import apply_updates, clip_by_global_norm
     from repro_torch.utils import trees
     params = main_setting()[2]
@@ -5536,7 +5587,7 @@ def check_optimisers(dev):
             p = trees.tree_map(lambda x: x.to(where), params)
             placed = [trees.tree_map(lambda x: x.to(where), gr) for gr in grads]
             state, norms = opt.init(p), []
-            with _sync_errors() if where == dev else contextlib.nullcontext():
+            with sanitize.no_transfer() if where == dev else contextlib.nullcontext():
                 for gr in placed:
                     clipped, norm = clip_by_global_norm(gr, 1.0)
                     updates, state = opt.update(clipped, state, p)
@@ -5549,7 +5600,7 @@ def check_optimisers(dev):
                           for a, b in zip(runs["cpu"], runs[str(dev)]))
     print(f"[optim19b] {OPTIM_STEPS} steps of clip_by_global_norm(1.0) + optimiser + "
           f"apply_updates over path 1's MLP ({sum(p.numel() for p in params.values())} "
-          f"parameters), the card's steps under sync-debug 'error': largest |card - CPU| / "
+          f"parameters), the card's steps under no_transfer(): largest |card - CPU| / "
           f"max |CPU| over parameters, norms and moments {worst} (gate {OPTIM_RTOL})")
     assert max(worst.values()) <= OPTIM_RTOL, worst
     return worst
@@ -5557,13 +5608,15 @@ def check_optimisers(dev):
 
 def adam_full_width(dev, bw, smi):
     """19c: one ``adam`` step with weight decay plus ``apply_updates`` over
-    qwen2-1.5b's full-width fp32 parameter tree, under sync-debug "error":
-    the first and a second step's ms (CUDA events), the peak, and the bytes
+    qwen2-1.5b's full-width fp32 parameter tree: the first step under
+    ``sanitize.no_transfer()`` (no host read), a second unguarded (the
+    guard's Python dispatch would be timed too); each step's ms (CUDA
+    events), the peak, and the bytes
     bound (parameters, gradients, m and v read once; parameters, m and v
     written once: 28 B a value)."""
     import torch
     from repro_torch import optim
-    from repro_torch.engine.api import _sync_errors
+    from repro_torch.analysis import sanitize
     from repro_torch.optim.sgd import apply_updates
     from repro_torch.utils import trees
     torch.cuda.empty_cache()
@@ -5579,9 +5632,9 @@ def adam_full_width(dev, bw, smi):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(2):
+    for guard in (sanitize.no_transfer, contextlib.nullcontext):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with _sync_errors():
+        with guard():
             start.record()
             updates, state = opt.update(grads, state, params)
             params = apply_updates(params, updates)
@@ -5593,8 +5646,8 @@ def adam_full_width(dev, bw, smi):
     bound_ms = 28 * n / bw * 1e3
     finite = bool(torch.stack([torch.isfinite(x).all() for x in trees.leaves(params)]).all())
     print(f"[adam19c] {cfg.name} full width fp32: {n} parameters ({len(trees.leaves(params))} "
-          f"leaves); adam(1e-4, weight_decay=0.01) + apply_updates under sync-debug 'error': "
-          f"first step {times[0]:.3f} ms, second {times[1]:.3f} ms (CUDA events; {smi}); "
+          f"leaves); adam(1e-4, weight_decay=0.01) + apply_updates: first step (under "
+          f"no_transfer()) {times[0]:.3f} ms, second {times[1]:.3f} ms (CUDA events; {smi}); "
           f"bytes bound {bound_ms:.3f} ms (28 B a value at {bw / 1e12:.2f} TB/s; the plain "
           f"per-leaf chain takes {times[1] / bound_ms:.1f}x it); peak "
           f"{peak / 1e9:.2f} GB (held before the step {base / 1e9:.2f} GB); count "
@@ -5633,6 +5686,48 @@ def check_screen(dev, reps, means):
     del rd, md
 
 
+def check_nan_guard(dev):
+    """19e: ``sanitize.nan_guard`` on the card. K1 fed a NaN gradient raises
+    ``FloatingPointError`` naming ``prox_update`` (the wrapper's output
+    check: a ctypes launch passes no dispatcher), and one clean path-1
+    round (``main_setting``, eager, host backend) raises nothing."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.analysis import sanitize
+    from repro_torch.kernels import _build, prox_update
+
+    before = _build.launch_counts()
+    n = 153610
+    th, om = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+    g = torch.zeros(n, device=dev)
+    g[n // 2] = float("nan")
+    t0 = time.perf_counter()
+    try:
+        with sanitize.nan_guard():
+            prox_update.prox_update_flat(th, om, g, torch.zeros_like(g), 0.1, 0.05)
+        raised = ""
+    except FloatingPointError as e:
+        raised = str(e)
+    assert raised.startswith("prox_update produced a NaN"), raised
+    clients, _, params, loss, cfg = main_setting()
+    state = engine.init("stocfl", loss, params, clients, cfg, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with sanitize.nan_guard():
+        state, rec = engine.run_round(state)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    print(f"[sanitize] 19e nan_guard: K1 fed a NaN gradient raised FloatingPointError "
+          f"({raised!r}); one clean path-1 round under the guard raised nothing "
+          f"({rec['sampled']} sampled, {rec['n_clusters']} clusters, {secs:.2f} s with every "
+          f"op checked; {time.perf_counter() - t0:.2f} s in all)")
+    # these launches check the guard, not a path: off the counters again
+    after = _build.launch_counts()
+    _build.add_launches({k: after[k] - before[k] for k in after}, -1)
+    del state
+    torch.cuda.empty_cache()
+
+
 def phase_19(dev, smi, bw, screen, warm_runs):
     """Phase 19: the optimisers, the Byzantine screen and the kernel
     library's warm start. ``warm_runs`` are ``start_warm_pair``'s two
@@ -5648,6 +5743,7 @@ def phase_19(dev, smi, bw, screen, warm_runs):
         check_optimisers(dev)
         adam_full_width(dev, bw, smi)
         check_screen(dev, *screen)
+        check_nan_guard(dev)
         first, second = (finish_warm(run) for run in warm_runs)
     finally:
         stop_warm(warm_runs)
@@ -5658,6 +5754,11 @@ def phase_19(dev, smi, bw, screen, warm_runs):
               f"only), launches {r['launches']}; driver JSON {r['out']}")
     lib = os.path.join(cache_dir, os.path.basename(first["lib"]))
     assert first["builds"] == 1 and second["builds"] == 0, (first["builds"], second["builds"])
+    for tag, r in (("cold", first), ("warm", second)):
+        print(f"[sanitize] 19a {tag} child under compile_budget(): count {r['programs']}, "
+              f"cache_hits {r['cache_hits']}, captures {r['captures']}")
+    assert (first["programs"], first["cache_hits"]) == (1, 0), first
+    assert (second["programs"], second["cache_hits"]) == (0, 1), second
     assert len(first["load_s"]) == len(second["load_s"]) == 1
     assert first["lib"] == second["lib"] == lib and os.path.exists(lib)
     for r in (first, second):

@@ -78,11 +78,12 @@ class ClusterState:
     def _as_rep(self, rep) -> torch.Tensor:
         """A Ψ vector (tensor or array) as an fp32 tensor on the device."""
         if not isinstance(rep, torch.Tensor):
+            # torchlint: disable=R2 — rep is a host array in this branch: no device read
             rep = torch.from_numpy(np.array(rep, dtype=np.float32))
         return rep.to(device=self.device, dtype=torch.float32)
 
     # ------------------------------------------------------------- observe
-    def observe(self, client_ids: Sequence[int], reps) -> List[int]:
+    def observe(self, client_ids: Sequence[int], reps) -> List[int]:  # torchlint: hot-path
         """Record Ψ for newly-seen clients. Returns the new ids."""
         new = []
         for cid, rep in zip(client_ids, reps):
@@ -150,6 +151,7 @@ class ClusterState:
         kernel makes exactly 0, are sliced off before return."""
         roots, means = self.padded_means(pad_to)
         k = len(roots)
+        # torchlint: disable=R2 — the host backend reads the cosines by design
         M = ops.pairwise_cosine(means).cpu().numpy()
         if M.shape[0] > k and (M[k:, :].any() or M[:k, k:].any()):
             # pad rows are zero-Ψ ghosts whose similarities must be exact
@@ -160,7 +162,7 @@ class ClusterState:
             M[:, k:] = 0.0
         return roots, M[:k, :k]
 
-    def merge_round(self) -> List[Tuple[int, int]]:
+    def merge_round(self) -> List[Tuple[int, int]]:  # torchlint: hot-path
         """One greedy merge pass (Algorithm 1, lines 10-13).
 
         Returns the (root_kept, root_absorbed) merges performed, in the

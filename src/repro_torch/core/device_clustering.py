@@ -281,7 +281,8 @@ def objective_impl(state: DeviceClusterState, k_max: int) -> torch.Tensor:
     mc = means_ext[rows]
     live_c = counts_ext[rows] > 0
     norms = torch.linalg.vector_norm(mc, dim=1, keepdim=True)
-    mn = torch.where(norms > 0, mc / norms, torch.zeros_like(mc))
+    # a zero row divides by 1, not 0: no masked-out NaN (nan_guard checks every op)
+    mn = torch.where(norms > 0, mc / torch.where(norms > 0, norms, 1.0), torch.zeros_like(mc))
     m = mn @ mn.T
     k_ids = torch.arange(k_max, device=mc.device)
     pairs = live_c[:, None] & live_c[None, :] & (k_ids[:, None] < k_ids[None, :])
@@ -296,7 +297,7 @@ def objective_closed_impl(state: DeviceClusterState) -> torch.Tensor:
     _, means, counts = _cluster_means(state)
     norms = torch.linalg.vector_norm(means, dim=1, keepdim=True)
     keep = (counts[:, None] > 0) & (norms > 0)
-    mn = torch.where(keep, means / norms, torch.zeros_like(means))
+    mn = torch.where(keep, means / torch.where(norms > 0, norms, 1.0), torch.zeros_like(means))
     s = mn.sum(dim=0)
     return ((s * s).sum() - (mn * mn).sum()) / 2.0
 

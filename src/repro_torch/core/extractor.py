@@ -148,7 +148,7 @@ def make_extractors(loss_fn: Callable, anchor_params,
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(kept, grads)]
         vec = project(grads, many=False)
         norm = torch.linalg.vector_norm(vec)
-        return torch.where(norm > 0, vec / norm, vec)
+        return torch.where(norm > 0, vec / torch.where(norm > 0, norm, 1.0), vec)
 
     # the cohort update's form: each client's loss under vmap reads its own
     # row of the kept leaves, stride-0 expansions of the anchor, and one
@@ -172,7 +172,7 @@ def make_extractors(loss_fn: Callable, anchor_params,
             grads = [torch.zeros_like(p) if g is None else g for p, g in zip(kept, grads)]
             vec = project(grads, many=True)                     # (c, dim)
             norm = torch.linalg.vector_norm(vec, dim=1, keepdim=True)
-            rows.append(torch.where(norm > 0, vec / norm, vec))
+            rows.append(torch.where(norm > 0, vec / torch.where(norm > 0, norm, 1.0), vec))
         return rows[0] if len(rows) == 1 else torch.cat(rows)
 
     return psi, psi_many

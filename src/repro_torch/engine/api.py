@@ -29,13 +29,13 @@ CPU the same step runs as a plain loop. It matches the eager
 """
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core.extractor import make_extractors
 from repro_torch.data.arena import ClientArena
 from repro_torch.engine import sampler
@@ -46,6 +46,7 @@ from repro_torch.engine.state import (EngineConfig, EngineContext, ServerState,
                                       resolve_device)
 from repro_torch.kernels import _build
 from repro_torch.sharding import specs as shard_specs
+from repro_torch.utils import events
 
 
 def init(strategy: str, loss_fn, init_params, clients,
@@ -313,7 +314,8 @@ def scan_program(state: ServerState, rounds: int, unavailable=frozenset()):
     shapes = tuple((tuple(x.shape), str(x.dtype)) for x in _leaves((carry0, consts)))
     cache_key = (f"scan:{state.strategy}:{m}:"
                  f"{hash((_structure((carry0, consts)), shapes, statics))}")
-    program = ctx.cached(cache_key, lambda: RoundProgram(step, ctx.device, ctx.mesh))
+    program = ctx.cached(cache_key,
+                         lambda: RoundProgram(step, ctx.device, ctx.mesh, name=cache_key))
     return (lambda c0, cs: program(c0, cs, rounds)), carry0, consts, finalize
 
 
@@ -363,34 +365,25 @@ def _rebuild(tree, leaves):
     return walk(tree)
 
 
-@contextlib.contextmanager
-def _sync_errors():
-    """``torch.cuda.set_sync_debug_mode("error")`` for the block: any host
-    sync raises."""
-    was = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(was)
-
-
 def capture_graph(stream, fn):
-    """Capture ``fn()`` into a new CUDA graph on ``stream`` under sync-debug
-    mode "error". The kernels' launch counters count at capture, so the
-    launches the capture recorded are taken back off and returned for the
-    caller to add once per replay. Returns (graph, ``fn``'s result, the
-    launches of one replay, the capture's host seconds)."""
+    """Capture ``fn()`` into a new CUDA graph on ``stream`` under
+    ``sanitize.no_transfer()``, so a host read in ``fn`` raises. The
+    kernels' launch counters count at capture, so the launches the capture
+    recorded are taken back off and returned for the caller to add once
+    per replay. The capture is reported to ``sanitize.compile_budget``.
+    Returns (graph, ``fn``'s result, the launches of one replay, the
+    capture's host seconds)."""
     before = _build.launch_counts()
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=stream):
-        with _sync_errors():
+        with sanitize.no_transfer():
             out = fn()
     seconds = time.perf_counter() - t0
     after = _build.launch_counts()
     per_replay = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     _build.add_launches(per_replay, -1)
+    events.report("capture")
     return graph, out, per_replay, seconds
 
 
@@ -406,18 +399,23 @@ class RoundProgram:
     that stream, the step writing its new carry into the static carry with
     ``copy_``; every later round is one replay, followed by a queued
     device-to-device copy of its record into a (rounds, ...) buffer. Both
-    the warm-up and the capture run under sync-debug mode "error", so a
-    host sync left in the step raises, and a capture that fails raises:
-    there is no eager fallback. The kernels' launch counters are kept
+    the warm-up and the capture run under ``sanitize.no_transfer()``, so a
+    host read left in the step raises, and a capture that fails raises:
+    there is no eager fallback. Under ``sanitize.nan_guard()`` each
+    replay's carry and record are checked after the replay (the capture
+    cannot check op by op). The kernels' launch counters are kept
     true under capture (``_build.add_launches``): ``per_round`` holds the
     launches one replay makes. The returned carry is a copy, so the
     states it goes into never alias the program's buffers. Under a
     ``mesh`` (an NCCL group on the card) the step's all-reduces are
     captured too; one all-reduce before the warm-up makes the
-    communicator, which must exist before a capture."""
+    communicator, which must exist before a capture. Making one is
+    reported to ``sanitize.compile_budget`` as a program called ``name``
+    (``scan_program`` passes its cache key)."""
 
-    def __init__(self, step, device: torch.device, mesh=None):
+    def __init__(self, step, device: torch.device, mesh=None, name: str = "RoundProgram"):
         self.step = step
+        self.name = name
         self.device = torch.device(device)
         self.mesh = mesh
         self.graph = None
@@ -425,6 +423,7 @@ class RoundProgram:
         self.carry = self.consts = self.record = None
         self.per_round: dict = {}
         self.capture_s: Optional[float] = None   # host seconds of the capture
+        events.report("program", name)
 
     def __call__(self, carry0, consts, rounds: int):
         if rounds < 1:
@@ -458,7 +457,7 @@ class RoundProgram:
         done = 0
         with torch.cuda.stream(self.stream):
             if self.graph is None:
-                with _sync_errors():
+                with sanitize.no_transfer():
                     new, rec = self.step(self.carry, self.consts)
                     self._copy_into(self.carry, new)
                 ys = {k: v.new_empty((rounds,) + tuple(v.shape)) for k, v in rec.items()}
@@ -476,6 +475,7 @@ class RoundProgram:
             y.record_stream(main)
         for t in range(done, rounds):
             self.graph.replay()
+            events.check_nan(self.name, _leaves(self.carry), list(self.record.values()))
             for k, v in self.record.items():
                 ys[k][t].copy_(v)
             _build.add_launches(self.per_round)

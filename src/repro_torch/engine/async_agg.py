@@ -116,6 +116,10 @@ def staleness_weights(weight, staleness, decay) -> np.ndarray:
 
 # ------------------------------------------------------------ row movement
 def _slots(slots, like: torch.Tensor) -> torch.Tensor:
+    """Row indices on ``like``'s device: a device tensor as it is (no host
+    read), host ints uploaded."""
+    if isinstance(slots, torch.Tensor):
+        return slots.to(device=like.device, dtype=torch.int64)
     return torch.as_tensor(np.asarray(slots, np.int64), device=like.device)
 
 

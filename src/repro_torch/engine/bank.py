@@ -115,9 +115,10 @@ class ClusterBank(Mapping):
         return f"ClusterBank(roots={self.roots})"
 
     # ------------------------------------------------------------ gathers
-    def take(self, roots, default):
+    def take(self, roots, default):  # torchlint: hot-path
         """Batched model gather: the row of each requested root, ``default``
         for roots with no model yet (lazy θ_k = ω₀)."""
+        # torchlint: disable=R2 — roots are host ints by contract (union-find roots)
         roots = np.atleast_1d(np.asarray(roots)).astype(np.int64)
         cap = self.capacity
         idx = np.fromiter((self._index.get(int(r), cap) for r in roots),
@@ -135,11 +136,12 @@ class ClusterBank(Mapping):
         return trees.tree_map(lambda x: torch.index_select(x, 0, j), ext)
 
     # ------------------------------------------------------------ scatters
-    def put(self, roots, updates) -> "ClusterBank":
+    def put(self, roots, updates) -> "ClusterBank":  # torchlint: hot-path
         """Scatter stacked ``updates`` (leading axis ↔ ``roots``) into a
         new bank; unknown roots grow new rows (capacity doubles when
         full). ``updates`` may carry more rows than ``len(roots)``: the
         rest are discarded."""
+        # torchlint: disable=R2 — roots are host ints by contract (union-find roots)
         roots = [int(r) for r in np.atleast_1d(np.asarray(roots))]
         n = len(roots)
         assert len(set(roots)) == len(roots), "put() roots must be unique"
@@ -172,7 +174,7 @@ class ClusterBank(Mapping):
         nb = self.set(int(root), model)
         self.stacked, self.roots, self._index = nb.stacked, nb.roots, nb._index
 
-    def drop(self, roots) -> "ClusterBank":
+    def drop(self, roots) -> "ClusterBank":  # torchlint: hot-path
         """Remove rows for ``roots`` (one keep-gather per leaf, re-padded
         to a power-of-two capacity)."""
         rm = {int(r) for r in roots} & set(self.roots)
@@ -198,7 +200,7 @@ class ClusterBank(Mapping):
                            [int(remap.get(r, r)) for r in self.roots])
 
     # ------------------------------------------------------------ merging
-    def merge(self, merges, counts, init_params, mesh=None) -> "ClusterBank":
+    def merge(self, merges, counts, init_params, mesh=None) -> "ClusterBank":  # torchlint: hot-path
         """Batched Algorithm-1 model merge: θ of each merged group is the
         member-count-weighted mean of its pre-merge models (one gather and
         one weighted segment sum per leaf). ``merges`` is the (keep,
@@ -208,7 +210,7 @@ class ClusterBank(Mapping):
         rank gathers its slice of the merged rows and the segment sums are
         partial sums plus an ``all_reduce``
         (``sharding.row_split``)."""
-        if not merges:
+        if not merges:  # torchlint: disable=R3 — merges is the host (keep, absorb) list
             return self
         parent: Dict[int, int] = {}
 

@@ -124,7 +124,7 @@ def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
-def draw(key: torch.Tensor, pool_mask: torch.Tensor, m: int):
+def draw(key: torch.Tensor, pool_mask: torch.Tensor, m: int):  # torchlint: hot-path
     """One without-replacement draw: ``(key, (n,) bool mask, static m) ->
     (key', (m,) int64 cohort)``. Off-pool ids get +inf sort keys; ties
     break by id (a stable sort, as ``jnp.argsort``), so callers that clip

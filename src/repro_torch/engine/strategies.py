@@ -154,14 +154,15 @@ def eval_model(ctx: EngineContext, model, batch) -> float:
     return float(ctx.eval_fn(model, batch))
 
 
-def _weights(state: ServerState, ids) -> torch.Tensor:
+def _weights(state: ServerState, ids) -> torch.Tensor:  # torchlint: hot-path
     """Per-client sample counts of the cohort, f32 on the engine device."""
+    # torchlint: disable=R2 — the eager round's weights are host-side by design
     w = np.asarray(state.sizes, np.float32)[np.asarray(ids)]
     return torch.as_tensor(w, device=state.ctx.device)
 
 
 # ------------------------------------------------------- scan scaffolding
-def _arena_consts(ctx: EngineContext) -> dict:
+def _arena_consts(ctx: EngineContext) -> dict:  # torchlint: hot-path
     """The arena's device operands for a round step: packed shards, the
     row mask and the cid -> row map. Passed to the step as consts, so a
     captured step is fed the arena as it stands at each call."""
@@ -176,7 +177,7 @@ def _gather_scan(consts: dict, ids: torch.Tensor, ragged: bool):
     return take_rows(consts["packed"], consts["amask"], consts["rowmap"], ids, ragged)
 
 
-def _sizes_f32(state: ServerState) -> torch.Tensor:
+def _sizes_f32(state: ServerState) -> torch.Tensor:  # torchlint: hot-path
     """Per-client sample counts as a device f32 vector padded to the pool's
     power-of-two capacity (``sampler.pool_capacity``; pad slots weigh 0
     and are never drawn): the step's counterpart of ``_weights``, uploaded
@@ -248,7 +249,8 @@ def row_bank_merge(rows, has, init, ids, rows_live, new_roots, counts, ordered=F
     add = shard_specs.ordered_index_add_ if ordered else (
         lambda out, idx, src: out.index_add_(0, idx, src))
     denom = add(torch.zeros((cap,), dtype=torch.float32, device=dev), mapped, w_full)[mapped]
-    wn = torch.where(denom > 0, w_full / denom, torch.zeros_like(w_full))
+    wn = torch.where(denom > 0, w_full / torch.where(denom > 0, denom, 1.0),
+                     torch.zeros_like(w_full))
 
     def leaf(r, i):
         full = torch.where(_row_mask(has, r), r, i[None].to(r.dtype))

@@ -6,7 +6,9 @@ library with a plain C interface, cached under ``BUILD_DIR`` by a hash of
 the sources and flags: ``kernels/_build/`` (listed in ``.gitignore``), or
 the directory ``utils.cache.enable_compilation_cache`` points it at. No
 PyTorch header is compiled, which keeps a build to seconds. A failed
-build raises; ``builds`` counts the builds this process ran.
+build raises; ``builds`` counts the builds this process ran. A build is
+reported to ``analysis.sanitize.compile_budget`` as a program, and a
+first ``load`` that finds the library already built as a cache hit.
 
 The wrappers call the exported C functions with raw pointers from
 ``tensor.data_ptr()`` and the stream from
@@ -31,6 +33,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Optional
+
+from repro_torch.utils import events
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -68,6 +72,7 @@ LAUNCH_COUNTERS = (("prox_update", "launches"), ("prox_update", "theta_launches"
 _lib: Optional[ctypes.CDLL] = None
 last_build_log = ""
 builds = 0       # libraries this process compiled (a cached one found is not counted)
+_built = set()   # their paths
 _counters = {}   # (device index, stream) -> int32 arrival counters, all 0 between launches
 
 
@@ -138,6 +143,8 @@ def build(verbose: bool = False) -> Path:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(tmp_so, out)
     builds += 1
+    _built.add(out)
+    events.report("program", out.name)
     return out
 
 
@@ -145,6 +152,9 @@ def load() -> ctypes.CDLL:
     """The bound kernel library (built on first call)."""
     global _lib
     if _lib is None:
+        path = library_path()
+        if path.exists() and path not in _built:
+            events.report("cache_hit", path.name)
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

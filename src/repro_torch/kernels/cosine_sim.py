@@ -8,7 +8,8 @@ split over the contraction and reduced in the same launch in a fixed order
 scale; K3 replaces ``_candidates_kernel`` (``merge_candidates``) and ends in
 the threshold, writing only the 0/1 adjacency. On a CUDA tensor a wrapper
 launches its kernel (one launch a call) or raises; on a CPU tensor it runs
-the plain version in ``ref``.
+the plain version in ``ref``. Under ``analysis.sanitize.nan_guard`` K2's
+output is checked (a ctypes launch passes no dispatcher; K3's is 0/1).
 
 The kernel reads x through a TMA tensor map, which needs a row stride that
 is a multiple of 16 bytes. The callers build their matrices with
@@ -25,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.utils import events
 
 launches = 0              # K2 launches so far (reset by callers that count)
 candidate_launches = 0    # K3 launches so far
@@ -136,6 +138,7 @@ def cosine_sim(x: torch.Tensor) -> torch.Tensor:
                                  work.data_ptr(), cnt.data_ptr(), out.data_ptr(), stream)
     _build.check(err, "cosine_sim_f32")
     launches += 1
+    events.check_nan("cosine_sim", out)
     return out
 
 

@@ -5,13 +5,15 @@ The CUDA kernels are ``csrc/prox_update.cu`` (they replace the JAX
 package's ``kernels/prox_update.py`` ``_prox_kernel``). On a CUDA tensor a
 wrapper launches its kernel or raises; on a CPU tensor it runs the plain
 version in place (``ref.prox_update_ref_``, ``ref.prox_theta_ref_``), so
-both devices give the same contract.
+both devices give the same contract. Under ``analysis.sanitize.nan_guard``
+a launch's outputs are checked (a ctypes launch passes no dispatcher).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.utils import events
 
 launches = 0        # kernel launches so far (reset by callers that count)
 theta_launches = 0  # ... of the local-SGD form (prox_theta_flat)
@@ -55,6 +57,7 @@ def prox_update_flat(theta, omega, g_theta, g_omega, eta: float, lam: float):
                                  theta.numel(), float(eta), float(lam), stream)
     _build.check(err, name)
     launches += 1
+    events.check_nan("prox_update", theta, omega)
     return theta, omega
 
 
@@ -105,4 +108,5 @@ def prox_theta_flat(theta, anchor, grad, eta: float, lam: float):
                                  float(lam), stream)
     _build.check(err, name)
     theta_launches += 1
+    events.check_nan("prox_theta", theta)
     return theta

@@ -2,18 +2,26 @@
 
 Each mirrors its counterpart in the JAX package's ``kernels/ref.py``; the
 wrappers run these on CPU tensors, and ``chip_smoke.py`` holds every CUDA
-kernel against them on the card.
+kernel against them on the card. A plain version that reads the host
+(``component_labels_ref``'s pass loop) is marked ``events.plain_version``:
+on CPU tensors ``analysis.sanitize.no_transfer`` lets its reads through,
+since on the card the kernel runs in its place.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.utils import events
 
 
 def cosine_sim_ref(x: torch.Tensor) -> torch.Tensor:
     """x: (N, D) -> (N, N) fp32 cosine similarity (zero rows give 0)."""
     x32 = x.to(torch.float32)
     norms = torch.linalg.vector_norm(x32, dim=1, keepdim=True)
-    xn = torch.where(norms > 0, x32 / norms, torch.zeros_like(x32))
+    # a zero row divides by 1, not 0: no masked-out NaN (``nan_guard`` checks
+    # every op's values)
+    xn = torch.where(norms > 0, x32 / torch.where(norms > 0, norms, 1.0),
+                     torch.zeros_like(x32))
     return xn @ xn.T
 
 
@@ -37,6 +45,7 @@ def resolve_roots_ref(parent: torch.Tensor) -> torch.Tensor:
     return p
 
 
+@events.plain_version
 def component_labels_ref(adj: torch.Tensor) -> torch.Tensor:
     """Connected-component labels of a 0/1 adjacency matrix: each node's
     label converges to the smallest node id in its component (the JAX

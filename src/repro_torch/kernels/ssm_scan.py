@@ -16,13 +16,16 @@ unwrapped tensors, the batch folded into B.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version in ``ref`` (``ssm_scan_states_ref``,
-``ssm_scan_bwd_ref``), with the same contract.
+``ssm_scan_bwd_ref``), with the same contract. Under
+``analysis.sanitize.nan_guard`` a launch's outputs are checked (a ctypes
+launch passes no dispatcher).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.utils import events
 
 fwd_launches = 0      # forward kernel launches so far (reset by callers that count)
 bwd_launches = 0      # backward kernel launches so far
@@ -85,6 +88,7 @@ def scan_fwd(dA, dBx, C):
                                    stream)
     _build.check(err, "ssm_scan_fwd_f32")
     fwd_launches += 1
+    events.check_nan("ssm_scan_fwd", y, hs)
     return y, hs
 
 
@@ -115,6 +119,7 @@ def scan_bwd(dA, dBx, C, hs, g_y):
                                    B, S, D, N, CHUNK, stream)
     _build.check(err, "ssm_scan_bwd_f32")
     bwd_launches += 1
+    events.check_nan("ssm_scan_bwd", g_dA, g_dBx, g_C)
     return g_dA, g_dBx, g_C
 
 

@@ -216,7 +216,10 @@ class ServeEngine:
         """The decode step over this engine's buffers (its one shape:
         K, slots, max_len), captured at the first burst on the card."""
         if self._decode_graph is None:
-            self._decode_graph = DecodeGraph(self._step, self._stacked, self.sl)
+            k, slots = self.sl.token.shape
+            self._decode_graph = DecodeGraph(
+                self._step, self._stacked, self.sl,
+                name=f"DecodeGraph ({k}, {slots}, {self.cfg.max_len})")
         return self._decode_graph
 
     def _decode_burst(self, n: int) -> None:

@@ -40,11 +40,12 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.engine.api import _sync_errors, capture_graph
+from repro_torch.analysis import sanitize
+from repro_torch.engine.api import capture_graph
 from repro_torch.kernels import _build
 from repro_torch.models import moe
 from repro_torch.models.registry import build, embed_prefix_, serve_cache_specs
-from repro_torch.utils import trees
+from repro_torch.utils import events, trees
 
 __all__ = ["DecodeSlots", "DecodeGraph", "alloc_slots", "clear_slots", "make_decode_step",
            "make_insert", "make_prefill", "harvest", "request_grouped"]
@@ -198,18 +199,24 @@ class DecodeGraph:
     The first ``run`` makes its first step eagerly on a side stream (the
     warm-up: ``vmap``, cuBLAS and the allocator are set up there), then
     captures one step on that stream and replays it for the rest. Both
-    the warm-up and the capture run under sync-debug mode "error", so a
-    host sync in the step raises, and a capture that fails raises: there
+    the warm-up and the capture run under ``sanitize.no_transfer()``, so a
+    host read in the step raises, and a capture that fails raises: there
     is no eager fallback. The kernels' launch counters stay true: a
     capture's counts are taken back off and added once per replay
-    (``per_step``; ``engine.api.capture_graph``, as ``RoundProgram``)."""
+    (``per_step``; ``engine.api.capture_graph``, as ``RoundProgram``).
+    Making one is reported to ``sanitize.compile_budget`` as a program,
+    ``name`` (the engine passes ``DecodeGraph (K, slots, max_len)``);
+    under ``sanitize.nan_guard()`` the lanes' floating buffers are checked
+    after each replay."""
 
-    def __init__(self, step, stacked, sl: DecodeSlots):
+    def __init__(self, step, stacked, sl: DecodeSlots, name: Optional[str] = None):
         self.step, self.stacked, self.sl = step, stacked, sl
+        self.name = name or f"DecodeGraph {tuple(sl.token.shape)}"
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.stream: Optional[torch.cuda.Stream] = None
         self.per_step: dict = {}
         self.capture_s: Optional[float] = None     # host seconds of the capture
+        events.report("program", self.name)
 
     def run(self, n: int) -> None:
         if n < 1:
@@ -220,7 +227,7 @@ class DecodeGraph:
             self.stream = torch.cuda.Stream()
             self.stream.wait_stream(main)
             with torch.cuda.stream(self.stream):
-                with _sync_errors():
+                with sanitize.no_transfer():
                     self.step(self.stacked, self.sl)
                 self.graph, _, self.per_step, self.capture_s = capture_graph(
                     self.stream, lambda: self.step(self.stacked, self.sl))
@@ -228,6 +235,7 @@ class DecodeGraph:
             done = 1
         for _ in range(done, n):
             self.graph.replay()
+            events.check_nan(self.name, _buffers(self.sl))
             _build.add_launches(self.per_step)
 
 

@@ -64,6 +64,9 @@ SLICE13 = ("repro_torch.launch.steps",)
 # the optimisers and the kernel library's persistent cache
 SLICE15 = ("repro_torch.optim", "repro_torch.optim.sgd", "repro_torch.optim.adam",
            "repro_torch.optim.schedules", "repro_torch.utils.cache")
+# the analysis package: the sanitizers, the lint and the runtime's events
+SLICE17 = ("repro_torch.analysis", "repro_torch.analysis.sanitize",
+           "repro_torch.analysis.torchlint", "repro_torch.utils.events")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -84,6 +87,7 @@ def test_importing_every_module_loads_no_jax():
     assert set(SLICE12) <= set(names), sorted(set(SLICE12) - set(names))
     assert set(SLICE13) <= set(names), sorted(set(SLICE13) - set(names))
     assert set(SLICE15) <= set(names), sorted(set(SLICE15) - set(names))
+    assert set(SLICE17) <= set(names), sorted(set(SLICE17) - set(names))
     assert bad == "", f"port imports pulled in {bad}"
 
 
