@@ -4197,9 +4197,33 @@ def recording_k1_sizes():
         yield rows
 
 
+def arena_info(state) -> dict:
+    """What a rank holds of the engine's world: its arena rows and bytes
+    (``ClientArena.held`` / ``nbytes``) against the capacity, and the
+    devices of the client list's leaves."""
+    from repro_torch.utils import trees
+    ar = state.ctx.arena
+    return {"held": ar.held, "capacity": ar.capacity, "nbytes": ar.nbytes,
+            "clients_on": sorted({x.device.type for c in state.ctx.clients
+                                  for x in trees.leaves(c)})}
+
+
+def counting_psi(state):
+    """The context's Ψ counting its calls: returns the counter list."""
+    calls, real = [0], state.ctx.extractor
+
+    def psi(batch):
+        calls[0] += 1
+        return real(batch)
+
+    state.ctx.extractor = psi
+    return calls
+
+
 def _mesh_eager(mesh, cfg, rounds):
     """``rounds`` eager rounds of the main setting under ``cfg`` on
-    ``mesh`` (None: no mesh): (snapshots, round walls in ms, launches)."""
+    ``mesh`` (None: no mesh): (snapshots, round walls in ms, launches,
+    ``arena_info`` with the Ψ calls of each round)."""
     import torch
     from repro_torch import engine
     from repro_torch.kernels import _build
@@ -4207,16 +4231,20 @@ def _mesh_eager(mesh, cfg, rounds):
     dev = torch.device("cuda", torch.cuda.current_device())
     state = engine.init("stocfl", loss, params, clients, cfg, device=dev, arena=True,
                         mesh=mesh)
+    info, calls, psi = arena_info(state), counting_psi(state), []
     _zero_counts()
     snaps, walls = [], []
     for _ in range(rounds):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        before = calls[0]
         state, _ = engine.run_round(state)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+        psi.append(calls[0] - before)
         snaps.append(mesh_snapshot(state))
-    return snaps, walls, {k: v for k, v in _build.launch_counts().items() if v}
+    info["psi_calls"] = psi
+    return snaps, walls, {k: v for k, v in _build.launch_counts().items() if v}, info
 
 
 def _mesh_span(mesh, cfg):
@@ -4411,11 +4439,23 @@ def train16_main(spec) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.launch import train
+    from repro_torch.engine import api
     pallas = lambda arch, smoke=False: get_config(arch, smoke=smoke).with_(use_pallas=True)
-    with patched(train, "get_config", pallas):
+    calls, real = [0], api.make_extractors
+
+    def counted(*args, **kw):
+        psi, many = real(*args, **kw)
+
+        def one(batch):
+            calls[0] += 1
+            return psi(batch)
+
+        return one, many
+
+    with patched(train, "get_config", pallas), patched(api, "make_extractors", counted):
         train.main(spec["argv"] + ["--mesh"])
     with open(f"{spec['counts']}.rank{os.environ['RANK']}.json", "w") as f:
-        json.dump(_build.launch_counts(), f)
+        json.dump(dict(_build.launch_counts(), psi_calls=calls[0]), f)
     return 0
 
 
@@ -4458,6 +4498,7 @@ def finish_train16(run):
     out = json.loads(stdout[stdout.index("{\n"):])
     with open(counts + ".rank0.json") as f:
         launches = json.load(f)
+    out["psi_calls"] = launches.pop("psi_calls")
     return out, launches, wall
 
 
@@ -4521,9 +4562,18 @@ def phase_mesh(smi):
                 assert launched["resolve_roots.label_launches"] == MESH_ROUNDS, launched
             _add(total, launched, names)
         (f,) = a[name]
+        whole, one = f["nomesh"][3], f["mesh"][3]
+        assert one["held"] == one["capacity"] == whole["held"], (one, whole)
+        assert one["nbytes"] == whole["nbytes"] and one["clients_on"] == ["cpu"], one
+        assert whole["clients_on"] == ["cuda"] and one["psi_calls"] == whole["psi_calls"]
         print(f"[mesh16a] {name}: {MESH_ROUNDS} eager rounds without and with the mesh, "
               f"bitwise equal; round walls ms: no mesh {fmt(f['nomesh'][1])}, mesh "
               f"{fmt(f['mesh'][1])} ({smi}); launches a mesh run {launched}")
+        print(f"[mesh16a] {name}: the rank's arena {one['held']} of {one['capacity']} rows, "
+              f"{one['nbytes'] / 1e6:.2f} MB (no mesh {whole['held']} rows, "
+              f"{whole['nbytes'] / 1e6:.2f} MB); client list's leaves on {one['clients_on']} "
+              f"(no mesh {whole['clients_on']}); Psi calls a round {one['psi_calls']} (no mesh "
+              f"{whole['psi_calls']})")
     ref = a["span"][0]["nomesh"][0]
     for runs in a["span"]:
         for tag in ("nomesh", "mesh"):
@@ -4552,8 +4602,19 @@ def phase_mesh(smi):
     for name in ("path1", "path2"):
         ref = a[name][0]["nomesh"][0]
         worst = 0.0
+        whole = a[name][0]["nomesh"][3]
+        psi = [res[name][3]["psi_calls"] for res in ranks]
+        assert [sum(c) for c in zip(*psi)] == whole["psi_calls"], (psi, whole)
         for r, res in enumerate(ranks):
-            snaps, walls, launched = res[name]
+            snaps, walls, launched, info = res[name]
+            assert 2 * info["held"] == info["capacity"] == whole["capacity"], (info, whole)
+            assert 2 * info["nbytes"] == whole["nbytes"], (info, whole)
+            assert info["clients_on"] == ["cpu"], info
+            print(f"[mesh16b] {name} rank {r}: arena {info['held']} of {info['capacity']} "
+                  f"rows, {info['nbytes'] / 1e6:.2f} MB (16a without a mesh: "
+                  f"{whole['held']} rows, {whole['nbytes'] / 1e6:.2f} MB); client list's "
+                  f"leaves on {info['clients_on']}; Psi calls a round {info['psi_calls']} "
+                  f"(16a without a mesh {whole['psi_calls']}: the two ranks' sum)")
             for x, y in zip(ref, snaps, strict=True):
                 worst = max(worst, mesh_match(x, y, exact=False))
             for x, y in zip(ranks[0][name][0], snaps, strict=True):
@@ -4585,16 +4646,19 @@ def phase_mesh(smi):
             stop_train16(run)
     out, launched, wall = results[0]
     print(f"[mesh16c] torchrun --standalone --nproc_per_node 1 chip_smoke.py --train16: "
-          f"repro_torch.launch.train --mesh {' '.join(TRAIN16)}: {wall:.1f} s (beside the next run and 16b), n_clusters {out['n_clusters']}, ARI "
-          f"{out['ari']:.4f}, cluster_avg_acc {out['cluster_avg_acc']:.4f}; launches "
-          f"{ {k: v for k, v in launched.items() if v} }")
+          f"repro_torch.launch.train --mesh {' '.join(TRAIN16)}: {wall:.1f} s (beside the next "
+          f"run and 16b), n_clusters {out['n_clusters']}, ARI "
+          f"{out['ari']:.4f}, cluster_avg_acc {out['cluster_avg_acc']:.4f}; the rank's Psi "
+          f"calls {out['psi_calls']}; launches { {k: v for k, v in launched.items() if v} }")
+    assert 0 < out["psi_calls"] <= 24, out
     assert out["n_clusters"] == 4 and out["ari"] >= 0.99, out
     assert launched["cosine_sim.launches"] > 0, launched
     _add(total, launched, names)
     out, launched, wall = results[1]
     print(f"[mesh16c] ... --mesh {' '.join(TRAIN16_SSM)} (use_pallas): {wall:.1f} s, n_clusters "
-          f"{out['n_clusters']}, ARI {out['ari']:.4f}; launches "
-          f"{ {k: v for k, v in launched.items() if v} }")
+          f"{out['n_clusters']}, ARI {out['ari']:.4f}; the rank's Psi calls "
+          f"{out['psi_calls']}; launches { {k: v for k, v in launched.items() if v} }")
+    assert 0 < out["psi_calls"] <= 4, out
     assert launched["ssm_scan.fwd_launches"] > 0 and launched["ssm_scan.bwd_launches"] > 0
     assert np.isfinite(out["ari"])
     _add(total, launched, names)
@@ -4781,16 +4845,18 @@ def steps17b(mesh_size):
     # caches the draws) on every rank at once, before the turns below
     extractor.jl_draws(2 * cfg.vocab_size * cfg.d_model, 8192, 0)
     # the ranks build their states in turn, each joining its clusters'
-    # reference clients on SERVE17_HISTORY tokens and then returning the
-    # allocator's cache (the layer-by-layer inits leave ~2 models of it),
-    # so that two ranks' states and their routing fit the one card
+    # reference clients on SERVE17_HISTORY tokens and making its own
+    # groups' models alone (the bank placed on the mesh), then returning the
+    # allocator's cache (the layer-by-layer inits leave ~2 models of it)
     for turn in range(mesh_size):
         if turn == specs.mesh_rank(mesh):
             with patched(launch_serve, "synthetic_lm_batch", small):
                 st = launch_serve.build_server_state(cfg, model, SERVE_CLUSTERS, SERVE_TAU, 0,
-                                                     device=dev, cohort_chunk=SERVE17_CHUNK)
+                                                     device=dev, cohort_chunk=SERVE17_CHUNK,
+                                                     mesh=mesh)
             torch.cuda.empty_cache()
         specs.barrier(mesh, dev)
+    nbytes = lambda tree: sum(x.numel() * x.element_size() for x in trees.leaves(tree))
     reqs = [dataclasses.replace(r, history=synthetic_lm_batch(
                 cfg, seq, rows, seed=1000 + r.rid, domain=r.rid % SERVE_CLUSTERS))
             for r in launch_serve.make_requests(cfg, SERVE17_REQUESTS, SERVE_PROMPT, SERVE_GEN,
@@ -4804,14 +4870,24 @@ def steps17b(mesh_size):
     eng = serve.ServeEngine(model, st, scfg, mesh=mesh)
     res, routes, route_s, wall = serve_wave(eng, reqs)
     launches = {k: v for k, v in _build.launch_counts().items() if v}
-    nbytes = lambda tree: sum(x.numel() * x.element_size() for x in trees.leaves(tree))
     out = {"backend": specs.mesh_backend(mesh), "ranks": mesh_size, "base": base,
            "peak": torch.cuda.max_memory_allocated(), "route_s": route_s, "wall": wall,
            "held": int(trees.leaves(eng._stacked)[0].shape[0]),
+           "bank_bytes": nbytes(st.models.stacked), "model_bytes": nbytes(st.ctx.init_params),
+           "stacked_is_bank": all(a.data_ptr() == b.data_ptr() for a, b in zip(
+               trees.leaves(eng._stacked), trees.leaves(st.models.stacked))),
            "lane_bytes": sum(nbytes(x) for x in eng.sl),
            "stats": eng.stats(), "launches": launches, "captures": eng.captures,
            "routes": [(rt.root, rt.similarity, rt.accepted) for rt in routes],
            "tokens": {r.rid: [int(t) for t in res[r.rid].tokens] for r in reqs}}
+    # the reference below serves every group without a mesh: the other
+    # ranks' groups' models are made again from their seeds (in turn, as
+    # above), after the placed state's peak was read
+    for turn in range(mesh_size):
+        if turn == specs.mesh_rank(mesh):
+            st = whole_server_state(st, model, dev)
+            torch.cuda.empty_cache()
+        specs.barrier(mesh, dev)
     ref_eng = serve.ServeEngine(model, st, scfg)
     ref_eng.router = eng.router
     ref_res, _, _, out["wall_nomesh"] = serve_wave(ref_eng, reqs)
@@ -4828,6 +4904,22 @@ def steps17b(mesh_size):
     out["stops"] = stops
     out["equal_nomesh"] = not stops
     return out
+
+
+def whole_server_state(st, model, dev):
+    """A placed serving state (``build_server_state(..., mesh=...)``) with
+    every group's model: the rank's own rows, and the others' made again
+    as ``build_server_state`` makes them (cluster k, joined k-th, from its
+    seed)."""
+    from repro_torch.engine.bank import ClusterBank
+    from repro_torch.launch import serve as launch_serve
+    bank = st.models
+    models = {}
+    for k in range(len(bank.roots)):
+        root = st.client_root(k)
+        models[root] = (bank[root] if bank.holds(root)
+                        else model.init(launch_serve._generator(dev, 0, k), dev))
+    return st.replace(models=ClusterBank.from_dict(models))
 
 
 def steps_rank_main(spec) -> int:
@@ -4919,11 +5011,15 @@ def phase_steps_mesh(smi):
             assert x["stats"] == res[0]["stats"], (n, r, x["stats"])
             assert loop_stats(x["stats"]) == loop_stats(x["stats_nomesh"]), (n, r, x["stats"])
             assert x["held"] == SERVE_CLUSTERS // n, (n, r, x["held"])
+            assert x["bank_bytes"] == x["held"] * x["model_bytes"], (n, r, x["bank_bytes"])
+            assert x["stacked_is_bank"], (n, r)
             assert len(x["stops"]) <= SERVE_MAX_STOPS, (n, r, x["stops"])
             assert x["captures"] == 1, x["captures"]
             print(f"[serve17b] {n} rank(s) ({x['backend']}), rank {r}: holds {x['held']} of "
-                  f"{SERVE_CLUSTERS} groups (their weights views of the state's bank, which "
-                  f"every rank holds whole; lanes {x['lane_bytes'] / 1e6:.1f} MB); wave of "
+                  f"{SERVE_CLUSTERS} groups; its bank (build_server_state(mesh=...), placed) "
+                  f"holds {x['bank_bytes'] / 1e9:.3f} GB = {x['held']} x "
+                  f"{x['model_bytes'] / 1e9:.3f} GB models, the engine's weights views of it; "
+                  f"lanes {x['lane_bytes'] / 1e6:.1f} MB); wave of "
                   f"{SERVE17_REQUESTS}: routing {x['route_s']:.2f} s, wall {x['wall']:.2f} s "
                   f"(no mesh, routes cached: {x['wall_nomesh']:.2f} s); tokens equal the "
                   f"engine without a mesh {x['equal_nomesh']} (near-tie stops {x['stops']}); "

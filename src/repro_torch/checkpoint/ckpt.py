@@ -236,26 +236,32 @@ def save_server_state(dirpath: str, state, block: bool = True) -> Optional[Futur
     return _submit(write)
 
 
-def load_server_state(dirpath: str, state):
+def load_server_state(dirpath: str, state, mesh=None):
     """Restore a checkpoint onto a freshly initialised ``ServerState``,
     which supplies the context (functions, clients, device) and the
     parameter templates; the returned state carries the checkpoint's
     tensors (on the engine's device, in its dtypes), partition (on the
     engine's device too), history, rng position and async buffer. A
     checkpoint without an async buffer loads with ``buffer=None``. Under a
-    mesh every rank loads the same files onto its own context."""
+    mesh every rank loads the same files onto its own context. With a
+    client-axis ``mesh`` given here (serving's: ``ServeEngine(mesh=...)``)
+    the bank comes back placed (``ClusterBank.placed``): only the rows of
+    this rank's ``row_split`` of the sorted roots reach the device."""
     from repro_torch.core.clustering import ClusterState
     from repro_torch.core.device_clustering import DeviceClusters
     from repro_torch.engine.async_agg import AsyncBuffer, _Entry
     from repro_torch.engine.bank import ClusterBank
+    from repro_torch.sharding import specs
 
     dev = state.ctx.device
     with open(os.path.join(dirpath, "manifest.json")) as f:
         man = json.load(f)
     tmpl = state.ctx.init_params
+    keys = sorted(int(k) for k in man["model_keys"])
+    held = specs.row_split(len(keys), mesh).take(keys)
     arrays = load_pytree(os.path.join(dirpath, "arrays.npz"), {
         "omega": tmpl,
-        "models": {str(k): tmpl for k in man["model_keys"]},
+        "models": {str(k): tmpl for k in held},
         "personal": {str(k): tmpl for k in man["personal_keys"]}})
     clusters = None
     cman = man["clusters"]
@@ -299,7 +305,8 @@ def load_server_state(dirpath: str, state):
         rng_state=man["rng_state"], rng_key=rng_key,
         sizes=tuple(man["sizes"]), left=frozenset(man["left"]),
         omega=arrays["omega"],
-        models=ClusterBank.from_dict({int(k): v for k, v in arrays["models"].items()}),
+        models=ClusterBank.placed({int(k): v for k, v in arrays["models"].items()}, keys,
+                                  mesh),
         personal={int(k): v for k, v in arrays["personal"].items()},
         clusters=clusters,
         members=(tuple(tuple(m) for m in man["members"])

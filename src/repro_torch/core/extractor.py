@@ -102,6 +102,17 @@ class JLSketch:
         return out
 
 
+def psi_dim(anchor_params, project_dim: Optional[int] = None,
+            leaf_filter: Optional[Callable[[str], bool]] = None) -> int:
+    """The width of a Ψ row: ``project_dim`` with a sketch, else the
+    element count of the leaves ``leaf_filter`` keeps (all without one)."""
+    if project_dim:
+        return int(project_dim)
+    return sum(x.numel() for p, x in zip(leaf_paths(anchor_params),
+                                         trees.leaves(anchor_params))
+               if leaf_filter is None or leaf_filter(p))
+
+
 def make_extractors(loss_fn: Callable, anchor_params,
                     project_dim: Optional[int] = None,
                     leaf_filter: Optional[Callable[[str], bool]] = None,

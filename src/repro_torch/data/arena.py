@@ -30,6 +30,17 @@ their ``n_rows``. ``update`` rewrites a resident row in place, as the
 reference does, whose row writer donates its buffer: the arena it was
 called on must not be used afterwards (rebind: ``arena = arena.update(...)``).
 Every other method builds new tensors or none.
+
+Under a client-axis mesh (``place``) each rank keeps only the rows it owns
+(``sharding.RowOwners``: row i on rank i mod N, a stride), so N ranks hold
+the federation once between them, as the reference's devices hold its
+row-split arena. The host bookkeeping (``sizes``, ``rows``, ``dead``,
+``ragged``) stays whole on every rank. Every rank makes every call with
+the same arguments: a gather is a collective that gives every rank the
+whole cohort batch bit for bit, a write (``append``, ``update``) lands on
+the row's owner alone, growth zero-extends each rank's rows in place (a
+stride keeps every row with its owner across a doubling), and ``compact``
+moves the live rows to their new owners a rank's share at a time.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.sharding.specs import RowOwners, mesh_device, row_owners
 from repro_torch.utils import trees
 
 
@@ -55,11 +67,15 @@ class ClientArena:
     ``sizes[cid]`` is the true shard length, ``rows[cid]`` the physical row
     (−1 once ``compact`` reclaimed it), ``dead`` the tombstoned cids whose
     rows are still resident. ``ragged`` is true when any live shard is
-    shorter than ``n_max`` (gathers then carry the ``"mask"`` leaf)."""
+    shorter than ``n_max`` (gathers then carry the ``"mask"`` leaf).
+    ``owners`` says which rows this rank holds: all of them, or under a
+    mesh the stride ``place`` chose, with ``packed`` and ``mask`` holding
+    only those rows (``capacity / N`` of them)."""
 
     def __init__(self, packed, mask, sizes: np.ndarray, ragged: bool,
                  rows: Optional[np.ndarray] = None, n_rows: Optional[int] = None,
-                 dead: frozenset = frozenset(), mesh=None):
+                 dead: frozenset = frozenset(), mesh=None,
+                 owners: RowOwners = RowOwners()):
         self.packed = packed
         self.mask = mask
         self.sizes = np.asarray(sizes)
@@ -69,6 +85,7 @@ class ClientArena:
         self.n_rows = int(len(self.sizes) if n_rows is None else n_rows)
         self.dead = frozenset(int(c) for c in dead)
         self.mesh = mesh
+        self.owners = owners
         self._device_rows = None
 
     # ------------------------------------------------------------- builders
@@ -115,9 +132,15 @@ class ClientArena:
         return int(trees.leaves(self.packed)[0].shape[1])
 
     @property
+    def held(self) -> int:
+        """Rows this rank holds (``capacity`` without a split)."""
+        return int(self.mask.shape[0])
+
+    @property
     def capacity(self) -> int:
-        """Allocated rows (``n_rows`` occupied, the rest spare)."""
-        return int(trees.leaves(self.packed)[0].shape[0])
+        """Allocated rows (``n_rows`` occupied, the rest spare), over all
+        ranks."""
+        return self.held * self.owners.size
 
     @property
     def device(self) -> torch.device:
@@ -154,7 +177,7 @@ class ClientArena:
     def _with(self, **kw) -> "ClientArena":
         args = dict(packed=self.packed, mask=self.mask, sizes=self.sizes,
                     ragged=self.ragged, rows=self.rows, n_rows=self.n_rows,
-                    dead=self.dead, mesh=self.mesh)
+                    dead=self.dead, mesh=self.mesh, owners=self.owners)
         args.update(kw)
         return ClientArena(**args)
 
@@ -162,16 +185,19 @@ class ClientArena:
     def grow(self, min_capacity: int) -> "ClientArena":
         """New arena with row capacity >= ``min_capacity``: capacity
         doubles and the new rows are zeroed spare space (one concat per
-        leaf, paid O(log N) times over N joins)."""
+        leaf, paid O(log N) times over N joins). Split over ranks, each
+        rank zero-extends its own rows: a doubling keeps every row with its
+        owner."""
         cap = self.capacity
         if min_capacity <= cap:
             return self
         new_cap = cap
         while new_cap < min_capacity:
             new_cap *= 2
+        extra = self.owners.held(new_cap) - self.held
 
         def one(x):
-            return torch.cat([x, x.new_zeros((new_cap - cap,) + tuple(x.shape[1:]))])
+            return torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))])
 
         return self._with(packed=trees.tree_map(one, self.packed), mask=one(self.mask))
 
@@ -193,7 +219,11 @@ class ClientArena:
 
     def _write_row(self, row: int, batch, n: int) -> None:
         """Write one shard (padded to ``n_max``) and its mask into ``row``
-        of the shared tensors."""
+        of the shared tensors: on the row's owner alone under a split."""
+        if not self.owners.mine(row):
+            return
+        row = self.owners.local(row)
+
         def one(x, b):
             x[row].zero_()
             x[row, :n] = torch.as_tensor(b).to(device=x.device, dtype=x.dtype)
@@ -253,61 +283,103 @@ class ClientArena:
     def compact(self) -> "ClientArena":
         """Reclaim tombstoned rows: one gather per leaf keeps the live rows
         (registered order kept), dead cids' rows become −1 and capacity
-        shrinks to the live count."""
+        shrinks to the live count (under a split, rounded up to a multiple
+        of the ranks, so that it stays split; the live rows change owners
+        and move through ``RowOwners.gather``, one rank's share of rows a
+        collective)."""
         live = self._live()
         if not live.size:
             raise ValueError("compact would empty the arena")
-        src = torch.as_tensor(self.rows[live], device=self.device)
-        packed = trees.tree_map(lambda x: torch.index_select(x, 0, src), self.packed)
-        mask = torch.index_select(self.mask, 0, src)
+        if self.owners.sharded:
+            packed, mask = self._moved(self.rows[live])
+        else:
+            src = torch.as_tensor(self.rows[live], device=self.device)
+            packed = trees.tree_map(lambda x: torch.index_select(x, 0, src), self.packed)
+            mask = torch.index_select(self.mask, 0, src)
         rows = np.full(len(self.sizes), -1, np.int64)
         rows[live] = np.arange(live.size)
         return self._with(packed=packed, mask=mask,
                           ragged=self._recompute_ragged(self.sizes, rows, self.dead),
                           rows=rows, n_rows=int(live.size))
 
+    def _moved(self, src: np.ndarray):
+        """The rows ``src`` (global rows, in order) as the new rows ``0 ..
+        len(src) - 1`` of a split arena whose capacity is ``len(src)``
+        rounded up to a multiple of the ranks: ``(packed, mask)`` of this
+        rank's new rows. One ``RowOwners.gather`` a leaf for each run of
+        ``held`` new rows, so each collective carries one rank's share."""
+        own = self.owners
+        n = len(src)
+        held = own.held(-(-n // own.size) * own.size)
+        mine = np.arange(own.rank, n, own.size)
+        out_p = trees.tree_map(lambda x: x.new_zeros((held,) + tuple(x.shape[1:])),
+                               self.packed)
+        out_m = self.mask.new_zeros((held,) + tuple(self.mask.shape[1:]))
+        for lo in range(0, n, held):
+            hi = min(lo + held, n)
+            idx = torch.as_tensor(src[lo:hi], device=self.device)
+            got_p, got_m = own.gather(self.packed, idx), own.gather(self.mask, idx)
+            keep = mine[(mine >= lo) & (mine < hi)]
+            if keep.size:
+                at = torch.as_tensor(keep // own.size, device=self.device)
+                pick = torch.as_tensor(keep - lo, device=self.device)
+                trees.tree_map(lambda o, g: o.index_copy_(0, at, g.index_select(0, pick)),
+                               out_p, got_p)
+                out_m.index_copy_(0, at, got_m.index_select(0, pick))
+        return out_p, out_m
+
     # ------------------------------------------------------------- gather
     def gather(self, client_ids) -> Any:
         """Stacked cohort batch for ``client_ids``: one ``index_select``
         per leaf, cids translated to physical rows. Ragged arenas add a
-        ``"mask"`` leaf."""
+        ``"mask"`` leaf. Split over ranks it is a collective: every rank
+        calls it with the same cids and gets the whole batch."""
         cids = np.asarray(client_ids, np.int64)
         rows = self.rows[cids]
         if (rows < 0).any():
             bad = cids[rows < 0].tolist()
             raise KeyError(f"clients {bad} were compacted out of the arena")
         idx = torch.as_tensor(rows, device=self.device)
-        batch = trees.tree_map(lambda x: torch.index_select(x, 0, idx), self.packed)
-        if self.ragged:
-            batch = dict(batch)
-            batch["mask"] = torch.index_select(self.mask, 0, idx)
-        return batch
+        return _rows_of(self.packed, self.mask, idx, self.ragged, self.owners)
 
     def take(self, ids: torch.Tensor) -> Any:
         """``gather`` for a device tensor of cids, with no host read (the
         rows must be resident)."""
-        return take_rows(self.packed, self.mask, self.device_rows, ids, self.ragged)
+        return take_rows(self.packed, self.mask, self.device_rows, ids, self.ragged,
+                         self.owners)
 
     def client(self, cid: int) -> Any:
-        """One client's unpadded shard (views into the packed tensors)."""
+        """One client's unpadded shard (views into the packed tensors).
+        Split over ranks, only the row's owner holds it; another rank
+        raises ``LookupError`` naming the owner (``gather`` reads any row
+        on every rank)."""
         row = int(self.rows[cid])
         if row < 0:
             raise KeyError(f"client {cid} was compacted away")
+        if not self.owners.mine(row):
+            raise LookupError(f"client {cid}'s row {row} is held by rank "
+                              f"{self.owners.owner(row)}, not this rank "
+                              f"{self.owners.rank}: gather([{cid}]) reads it on every rank")
         n = int(self.sizes[cid])
+        row = self.owners.local(row)
         return trees.tree_map(lambda x: x[row, :n], self.packed)
 
     # ----------------------------------------------------------- sharding
     def place(self, mesh) -> "ClientArena":
-        """This arena attached to a client-axis mesh (``engine.init``
-        calls it once). Every rank keeps every row, so a cohort gather
-        stays local; the rows a rank trains are its slice of the cohort
-        (``sharding.place_cohort``). The reference splits the rows over
-        its devices instead; per GPU this arena costs what the arena
-        without a mesh costs. The mesh rides every arena derived from
-        this one."""
+        """This arena on a client-axis mesh (``engine.init`` calls it
+        once): each rank keeps only the rows it owns
+        (``sharding.row_owners`` of the capacity: row i on rank i mod N),
+        copied to the rank's device, and the rest are freed. Where the
+        capacity does not divide the ranks, or there is one, every rank
+        keeps every row and no gather runs a collective. The mesh and
+        the owners ride every arena derived from this one."""
         if mesh is None:
             return self
-        return self._with(mesh=mesh)
+        owners = row_owners(self.capacity, mesh)
+        dev = mesh_device(mesh)
+        one = lambda x: owners.take(x).to(dev).contiguous()
+        return self._with(packed=trees.tree_map(one, self.packed), mask=one(self.mask),
+                          mesh=mesh, owners=owners)
 
     # ------------------------------------------------------------- stats
     @property
@@ -322,6 +394,8 @@ class ClientArena:
 
     @property
     def nbytes(self) -> int:
+        """Bytes of the packed rows this rank holds (every row without a
+        split; the mask not counted)."""
         return sum(x.numel() * x.element_size() for x in trees.leaves(self.packed))
 
     def __repr__(self) -> str:
@@ -330,14 +404,18 @@ class ClientArena:
                 f"ragged={self.ragged}, mb={self.nbytes / 2**20:.1f})")
 
 
-def take_rows(packed, mask, rowmap: torch.Tensor, ids: torch.Tensor, ragged: bool):
+def _rows_of(packed, mask, idx: torch.Tensor, ragged: bool, owners: RowOwners):
+    """Rows ``idx`` of every packed leaf (and of ``mask`` as the
+    ``"mask"`` leaf when ``ragged``), through ``owners``."""
+    batch = owners.gather(packed, idx)
+    return dict(batch, mask=owners.gather(mask, idx)) if ragged else batch
+
+
+def take_rows(packed, mask, rowmap: torch.Tensor, ids: torch.Tensor, ragged: bool,
+              owners: RowOwners = RowOwners()):
     """The cohort batch of the cids in device tensor ``ids``: rows
     ``rowmap[ids]`` of every packed leaf, plus the ``"mask"`` leaf when
     ``ragged``; the same gathers as ``ClientArena.gather``, so the batch is
-    bitwise the same."""
-    idx = torch.index_select(rowmap, 0, ids)
-    batch = trees.tree_map(lambda x: torch.index_select(x, 0, idx), packed)
-    if ragged:
-        batch = dict(batch)
-        batch["mask"] = torch.index_select(mask, 0, idx)
-    return batch
+    bitwise the same. ``packed`` and ``mask`` hold the rows ``owners``
+    gives this rank."""
+    return _rows_of(packed, mask, torch.index_select(rowmap, 0, ids), ragged, owners)

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import sanitize
-from repro_torch.core.extractor import make_extractors
+from repro_torch.core.extractor import make_extractors, psi_dim
 from repro_torch.data.arena import ClientArena
 from repro_torch.engine import sampler
 from repro_torch.engine.async_agg import AsyncConfig, run_round_async  # noqa: F401
@@ -64,7 +64,8 @@ def init(strategy: str, loss_fn, init_params, clients,
       init_params: ω₀ — also the frozen Ψ anchor (§3.1) and the lazy
         cluster-model default θ_k. A tree of arrays or tensors.
       clients: list of client datasets (trees with a shared leading
-        example axis), numpy or tensors; copied onto the device.
+        example axis), numpy or tensors; copied onto the device (kept on
+        the host under a mesh with an arena, whose rows hold them).
       cfg: ``EngineConfig`` hyperparameters.
       eval_fn: optional ``(params, batch) -> accuracy`` for ``evaluate``.
       device: where the engine runs; ``None`` means ``cuda`` and raises
@@ -85,9 +86,12 @@ def init(strategy: str, loss_fn, init_params, clients,
         computed on every rank, so after every round the state is the
         same on every rank. The engine runs on the mesh's device
         (``sharding.mesh_device``); the arena's row capacity is aligned
-        to the mesh. Every rank must make the same calls with the same
-        arguments. A mesh of one rank gives the results of no mesh, bit
-        for bit.
+        to the mesh, and each rank holds only the arena rows it owns
+        (``ClientArena.place``) while the client list stays on the host.
+        Each new client's Ψ is computed by the rank whose slice of the
+        cohort holds it and sent to every rank. Every rank must make the
+        same calls with the same arguments. A mesh of one rank gives the
+        results of no mesh, bit for bit.
 
     With ``cfg.dtype`` other than "float32" the floating leaves of the
     parameters and of every client batch are cast to it; Ψ stays anchored
@@ -101,15 +105,20 @@ def init(strategy: str, loss_fn, init_params, clients,
         params = cast_floating(params, compute_dtype(cfg.dtype))
     ctx = EngineContext(loss_fn=loss_fn, init_params=params, clients=[],
                         cfg=cfg, device=dev, eval_fn=eval_fn,
-                        leaf_filter=leaf_filter, mesh=mesh)
+                        leaf_filter=leaf_filter, mesh=mesh,
+                        host_clients=arena and mesh is not None,
+                        psi_dim=psi_dim(psi_anchor, cfg.project_dim, leaf_filter))
     ctx.clients = [ctx.client_batch(c) for c in clients]
     if arena:
         # the row capacity aligned to the mesh, as the reference aligns it
-        # for its row-split arena; pow2 growth keeps the alignment
+        # for its row-split arena; pow2 growth keeps the alignment. Under a
+        # mesh the arena is packed on the host and each rank moves only its
+        # own rows to its device
         cap = (shard_specs.align_cohort_chunk(len(ctx.clients), mesh)
                if mesh is not None else None)
-        ctx.arena = ClientArena.from_clients(ctx.clients, capacity=cap,
-                                             device=dev).place(mesh)
+        ctx.arena = ClientArena.from_clients(
+            ctx.clients, capacity=cap, device="cpu" if ctx.host_clients else dev
+        ).place(mesh)
     strat = get_strategy(strategy)
     if strat.needs_extractor:
         # Ψ of one client (the round's) and of a stacked wave (infer_batch's),

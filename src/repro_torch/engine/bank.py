@@ -16,16 +16,30 @@ is built at its final capacity in one copy, which matters at LLM width).
 Every update returns a NEW bank; the tensors of the old one are never
 written (``__setitem__``, for the legacy checkpoint surface, re-points the
 bank itself).
+
+Serving over a client-axis mesh places the bank (``place``, ``placed``):
+each rank keeps the rows of its ``row_split`` of the sorted roots, the
+reference's ``place_decode_state`` of the stacked models, while ``roots``
+stays whole, so routing still sees every cluster. A row another rank
+holds raises ``RemoteRowError`` naming that rank. Training keeps its
+banks whole on every rank, as the reference's scan does; a placed bank
+takes no update.
 """
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.sharding.specs import RowSplit, row_split
 from repro_torch.utils import trees
+
+
+class RemoteRowError(LookupError):
+    """A placed bank's row that another rank holds (not a ``KeyError``, so
+    ``Mapping.get`` does not take it for a missing root)."""
 
 
 def _pow2(n: int) -> int:
@@ -38,11 +52,15 @@ class ClusterBank(Mapping):
 
     ``stacked``: tree whose leaves are ``(capacity, ...)`` tensors with the
     K occupied rows first and zero rows after (``None`` when empty);
-    ``roots``: tuple of int keys, position i ↔ row i."""
+    ``roots``: tuple of int keys, position i ↔ row i. A placed bank
+    (``split``, a ``RowSplit`` over the sorted ``roots``) holds only the
+    rows ``[split.lo, split.hi)`` of them, as ``stacked``'s rows 0 ..
+    hi - lo - 1, with no spare rows."""
 
-    def __init__(self, stacked, roots: Sequence[int] = ()):
+    def __init__(self, stacked, roots: Sequence[int] = (), split: Optional[RowSplit] = None):
         self.roots: Tuple[int, ...] = tuple(int(r) for r in roots)
         self.stacked = stacked if self.roots else None
+        self.split = split
         self._index = {r: i for i, r in enumerate(self.roots)}
         assert len(self._index) == len(self.roots), "duplicate bank roots"
 
@@ -66,6 +84,63 @@ class ClusterBank(Mapping):
 
         return cls(trees.tree_map(leaf, *[models[r] for r in roots]), roots)
 
+    @classmethod
+    def placed(cls, models, roots: Sequence[int], mesh) -> "ClusterBank":
+        """A bank of ``roots`` placed on ``mesh`` from ``models``, which
+        holds (at least) this rank's roots: those of its ``row_split`` of
+        the sorted roots, or every root where the split does not divide."""
+        roots = sorted({int(r) for r in roots})
+        split = row_split(len(roots), mesh)
+        if not split.sharded or not roots:
+            return cls.from_dict({r: models[r] for r in roots})
+        mine = roots[split.lo:split.hi]
+        stacked = trees.tree_map(lambda *xs: torch.stack(xs), *[models[r] for r in mine])
+        return cls(stacked, roots, split)
+
+    def place(self, mesh) -> "ClusterBank":
+        """This bank on a client-axis mesh: the rows of this rank's
+        ``row_split`` of the sorted roots (views of this bank's rows when
+        they lie in order, else a copy of them), every root still listed.
+        The bank itself where it is placed already, has no mesh, or its
+        roots do not divide the ranks."""
+        if self.split is not None or not self.roots:
+            return self
+        split = row_split(len(self.roots), mesh)
+        if not split.sharded:
+            return self
+        order = sorted(self.roots)
+        if tuple(order) == self.roots:
+            stacked = split.take(self.stacked)
+        else:
+            idx = [self._index[r] for r in order[split.lo:split.hi]]
+            j = torch.as_tensor(idx, device=trees.leaves(self.stacked)[0].device)
+            stacked = trees.tree_map(lambda x: torch.index_select(x, 0, j), self.stacked)
+        return ClusterBank(stacked, order, split)
+
+    def holds(self, root) -> bool:
+        """False only where a placed bank's row of ``root`` is another
+        rank's."""
+        i = self._index.get(int(root))
+        return self.split is None or i is None or self.split.lo <= i < self.split.hi
+
+    def _row(self, root) -> int:
+        """``root``'s row of ``stacked`` (``KeyError`` for an unknown root,
+        ``RemoteRowError`` for another rank's)."""
+        i = self._index[int(root)]
+        if self.split is None:
+            return i
+        if not self.split.lo <= i < self.split.hi:
+            share = self.split.hi - self.split.lo
+            raise RemoteRowError(
+                f"cluster {int(root)}'s model is held by rank {i // share} of the mesh, "
+                f"not by this rank {self.split.lo // share}")
+        return i - self.split.lo
+
+    def _whole(self, what: str) -> None:
+        if self.split is not None:
+            raise RuntimeError(f"ClusterBank.{what} on a bank placed over a mesh: a "
+                               "placed bank serves; training keeps its bank whole")
+
     def to_dict(self) -> Dict[int, object]:
         """The bank as a plain ``{root: tree}`` dict (views of its rows)."""
         return {r: self[r] for r in self.roots}
@@ -79,7 +154,7 @@ class ClusterBank(Mapping):
 
     # ------------------------------------------------------------ mapping
     def __getitem__(self, root):
-        i = self._index[int(root)]
+        i = self._row(root)
         return trees.tree_map(lambda x: x[i], self.stacked)
 
     def __iter__(self):
@@ -112,6 +187,9 @@ class ClusterBank(Mapping):
     __hash__ = None
 
     def __repr__(self) -> str:
+        if self.split is not None:
+            return (f"ClusterBank(roots={self.roots}, rows "
+                    f"[{self.split.lo}, {self.split.hi}) on this rank)")
         return f"ClusterBank(roots={self.roots})"
 
     # ------------------------------------------------------------ gathers
@@ -120,6 +198,7 @@ class ClusterBank(Mapping):
         for roots with no model yet (lazy θ_k = ω₀)."""
         # torchlint: disable=R2 — roots are host ints by contract (union-find roots)
         roots = np.atleast_1d(np.asarray(roots)).astype(np.int64)
+        self._whole("take")
         cap = self.capacity
         idx = np.fromiter((self._index.get(int(r), cap) for r in roots),
                           np.int64, len(roots))
@@ -143,6 +222,7 @@ class ClusterBank(Mapping):
         rest are discarded."""
         # torchlint: disable=R2 — roots are host ints by contract (union-find roots)
         roots = [int(r) for r in np.atleast_1d(np.asarray(roots))]
+        self._whole("put")
         n = len(roots)
         assert len(set(roots)) == len(roots), "put() roots must be unique"
         n_rows = int(trees.leaves(updates)[0].shape[0])
@@ -180,6 +260,7 @@ class ClusterBank(Mapping):
         rm = {int(r) for r in roots} & set(self.roots)
         if not rm:
             return self
+        self._whole("drop")
         keep = [r for r in self.roots if r not in rm]
         if not keep:
             return ClusterBank.empty()
@@ -196,6 +277,7 @@ class ClusterBank(Mapping):
 
     def rename(self, remap: Dict[int, int]) -> "ClusterBank":
         """Re-key rows (after a departure re-roots a cluster) — host only."""
+        self._whole("rename")
         return ClusterBank(self.stacked,
                            [int(remap.get(r, r)) for r in self.roots])
 
@@ -212,6 +294,7 @@ class ClusterBank(Mapping):
         (``sharding.row_split``)."""
         if not merges:  # torchlint: disable=R3 — merges is the host (keep, absorb) list
             return self
+        self._whole("merge")
         parent: Dict[int, int] = {}
 
         def find(r: int) -> int:

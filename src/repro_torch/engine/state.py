@@ -82,7 +82,11 @@ class EngineContext:
     the optional Ψ leaf filter, the optional device-resident
     ``ClientArena`` of every shard and the optional client-axis ``mesh``
     (a ``torch.distributed`` ``DeviceMesh``, ``launch.mesh``) whose ranks
-    split each cohort's rows."""
+    split each cohort's rows. With ``host_clients`` (a mesh and an arena:
+    the arena's rows live on their owners) the client list stays on the
+    host, as the reference keeps the list it was given, and a reader that
+    needs one client on the device moves it (``device_batch``).
+    ``psi_dim`` is the width of a Ψ row."""
     loss_fn: Callable
     init_params: Any
     clients: List[dict]
@@ -94,6 +98,8 @@ class EngineContext:
     batched_extractor: Optional[Callable] = None   # Ψ of a stacked batch: (J, dim)
     arena: Optional[Any] = None       # ClientArena: device-resident shards
     mesh: Optional[Any] = None        # DeviceMesh: cohort rows split over its ranks
+    host_clients: bool = False        # clients kept on the host (mesh + arena)
+    psi_dim: int = 0
     cache: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def mesh_devices(self) -> int:
@@ -107,11 +113,16 @@ class EngineContext:
 
     def client_batch(self, batch):
         """A client batch as the engine holds its world: tensors on the
-        engine's device, floating leaves in the compute dtype."""
-        batch = on_device(batch, self.device)
+        engine's device (on the host with ``host_clients``), floating
+        leaves in the compute dtype."""
+        batch = on_device(batch, "cpu" if self.host_clients else self.device)
         if self.cfg.dtype != "float32":
             batch = cast_floating(batch, compute_dtype(self.cfg.dtype))
         return batch
+
+    def device_batch(self, cid: int):
+        """Client ``cid``'s batch on the engine's device."""
+        return on_device(self.clients[int(cid)], self.device)
 
     def cached(self, key: str, builder: Callable) -> Callable:
         """Memoise a built update or round program under ``key``

@@ -30,17 +30,22 @@ work changes nothing.
 Under a client-axis mesh (``EngineContext.mesh``, one process per rank)
 each rank trains its contiguous slice of the cohort (``_split``: a
 ``sharding.RowSplit``, the whole cohort when its size does not divide the
-ranks), gathering only its own rows' data; ω's mean, the per-cluster
-``aggregate_segments`` and the eager bank merge are local partial sums
-plus one ``all_reduce``; rows every rank needs (Ditto's personal rows,
-IFCA's losses, CFL's update vectors) come back whole through
-``RowSplit.gather``; the rest (Ψ, the partition, the bank) is computed on
-every rank from the same inputs, so the state stays the same on every
-rank. The float segment sums every rank makes on its own (the row-keyed
-bank merge, CFL's mean update, a cohort that is not split) run in one
-fixed order (``sharding.ordered_index_add_``): the card's ``index_add_``
-would sum them in another order on each rank. Without a mesh no split is
-made and the code is the single-process path.
+ranks). With an arena, whose rows live on their owners
+(``ClientArena.place``), every rank gathers the whole cohort's data in
+one collective and keeps its slice (``_cohort_data``); without one it
+stacks its own rows. Each new client's Ψ is taken by the rank whose slice
+holds it, and the rows go to every rank bit for bit before ``observe``
+(``_new_reps``; the scanned step likewise, over its slice). ω's mean, the
+per-cluster ``aggregate_segments`` and the eager bank merge are local
+partial sums plus one ``all_reduce``; rows every rank needs (Ditto's
+personal rows, IFCA's losses, CFL's update vectors) come back whole
+through ``RowSplit.gather``; the rest (the partition, the bank) is
+computed on every rank from the same inputs, so the state stays the
+same on every rank. The float segment sums every rank makes on its own
+(the row-keyed bank merge, CFL's mean update, a cohort that is not
+split) run in one fixed order (``sharding.ordered_index_add_``): the
+card's ``index_add_`` would sum them in another order on each rank.
+Without a mesh no split is made and the code is the single-process path.
 """
 from __future__ import annotations
 
@@ -83,6 +88,29 @@ def _batches(ctx: EngineContext, ids):
     return _stack(ctx, ids)
 
 
+def _split_arena(ctx: EngineContext) -> bool:
+    """Whether the arena's rows live on their owners (a collective gather)."""
+    return ctx.arena is not None and ctx.arena.owners.sharded
+
+
+def _cohort_data(ctx: EngineContext, split, ids, whole=None):
+    """This rank's rows of the cohort ``ids``' data. From a split arena
+    every rank gathers the whole cohort (``whole``, if the caller has it
+    already) and narrows; otherwise the rank gathers or stacks its own
+    rows."""
+    if _split_arena(ctx):
+        return _local(split, ctx.arena.gather(ids) if whole is None else whole)
+    return _batches(ctx, _local(split, ids))
+
+
+def _scan_data(cs: dict, split, ids: torch.Tensor, ragged: bool, owners):
+    """``_cohort_data`` in a round step: this rank's rows of the cohort
+    of the device ids ``ids``, from ``_arena_consts`` operands."""
+    if owners.sharded:  # torchlint: disable=R3 — the arena's host-side row layout
+        return _local(split, _gather_scan(cs, ids, ragged, owners))
+    return _gather_scan(cs, _local(split, ids), ragged, owners)
+
+
 def _split(ctx: EngineContext, n: int):
     """This rank's share of an ``n``-row cohort under the context's mesh
     (``sharding.row_split``); None without a mesh."""
@@ -118,6 +146,51 @@ def _psi(ctx: EngineContext, cid: int):
     if ctx.arena is not None:
         return ctx.extractor(trees.tree_map(lambda x: x[0], ctx.arena.gather([cid])))
     return ctx.extractor(ctx.clients[cid])
+
+
+def _new_reps(ctx: EngineContext, client_ids, new_ids, split, whole=None):
+    """Ψ of the cohort's new clients ``new_ids``, in order, the same bits
+    on every rank. Split over the ranks, each rank takes the Ψ of the new
+    clients in its slice of the cohort (from ``whole``, the cohort's data
+    gathered from a split arena, or from the client's own row), writes
+    them at their cohort positions and one ``RowSplit.gather`` sends them
+    to every rank; otherwise every rank takes them all."""
+    pos = {int(c): i for i, c in enumerate(client_ids)}
+
+    def psi(c):
+        if whole is None:
+            return _psi(ctx, c)
+        return ctx.extractor(trees.tree_map(lambda x: x[pos[c]].clone(), whole))
+
+    if split is None or not split.sharded:
+        return [psi(c) for c in new_ids]
+    rows = torch.zeros((split.hi - split.lo, ctx.psi_dim), dtype=torch.float32,
+                       device=ctx.device)
+    for c in new_ids:
+        if split.lo <= pos[c] < split.hi:
+            rows[pos[c] - split.lo] = psi(c)
+    full = split.gather(rows)
+    return [full[pos[c]] for c in new_ids]
+
+
+def _join_rep(ctx: EngineContext, cid: int, batch):
+    """Ψ of a newcomer's ``batch``: every rank takes it, or over a split
+    arena the owner of the newcomer's row alone, and the row reaches every
+    rank bit for bit (``RowOwners.send``)."""
+    if not _split_arena(ctx):
+        return ctx.extractor(batch)
+    owners = ctx.arena.owners
+    src = owners.owner(ctx.arena.rows[cid])
+    mine = ctx.extractor(batch) if owners.rank == src else None
+    return owners.send(mine, src, torch.empty((ctx.psi_dim,), dtype=torch.float32,
+                                              device=ctx.device))
+
+
+def _held_model(state: ServerState, root: int):
+    """θ of cluster ``root``, or None where a placed bank holds it on
+    another rank."""
+    holds = getattr(state.models, "holds", None)
+    return state.cluster_model(root) if holds is None or holds(root) else None
 
 
 def stack_batches(batches):
@@ -170,11 +243,13 @@ def _arena_consts(ctx: EngineContext) -> dict:  # torchlint: hot-path
     return {"packed": ar.packed, "amask": ar.mask, "rowmap": ar.device_rows}
 
 
-def _gather_scan(consts: dict, ids: torch.Tensor, ragged: bool):
+def _gather_scan(consts: dict, ids: torch.Tensor, ragged: bool, owners):
     """Cohort batch of the device ids ``ids`` from ``_arena_consts``
-    operands: the same gathers (and ragged ``"mask"`` leaf) as
-    ``ClientArena.gather``, so the batch is bitwise the eager round's."""
-    return take_rows(consts["packed"], consts["amask"], consts["rowmap"], ids, ragged)
+    operands (the rows ``owners`` gives this rank): the same gathers (and
+    ragged ``"mask"`` leaf) as ``ClientArena.gather``, so the batch is
+    bitwise the eager round's."""
+    return take_rows(consts["packed"], consts["amask"], consts["rowmap"], ids, ragged,
+                     owners)
 
 
 def _sizes_f32(state: ServerState) -> torch.Tensor:  # torchlint: hot-path
@@ -408,12 +483,18 @@ class StoCFLStrategy(Strategy):
         rows under a mesh; ``state`` is not touched."""
         cfg = ctx.cfg
         clusters = state.clusters.copy()
+        split = _split(ctx, len(client_ids))
+        whole = None
+        if _split_arena(ctx):
+            # the cohort's data from the arena's owners, for Ψ and the step
+            with _span("stocfl.gather"):
+                whole = ctx.arena.gather(client_ids)
 
         # --- stochastic client clustering (Algorithm 1 lines 5-13)
         new_ids = [int(c) for c in client_ids if c not in clusters.seen]
         with _span("stocfl.psi_extract"):
             if new_ids:
-                reps = [_psi(ctx, c) for c in new_ids]
+                reps = _new_reps(ctx, client_ids, new_ids, split, whole)
                 if handshake is not None:
                     reps = handshake(new_ids, reps)
                 clusters.observe(new_ids, reps)
@@ -428,14 +509,13 @@ class StoCFLStrategy(Strategy):
         # rows of the cohort under a mesh
         roots = np.fromiter((clusters.uf.find(int(c)) for c in client_ids),
                             np.int64, len(client_ids))
-        split = _split(ctx, len(client_ids))
         with _span("stocfl.gather"):
             thetas = models.take(_local(split, roots), ctx.init_params)
             if cfg.fused_step:
                 # one (C, P) buffer, which the fused update takes over; the
                 # gathered tree is freed here
                 thetas = bilevel.flatten_tree(thetas, batch_dims=1)
-            batches = _batches(ctx, _local(split, client_ids))
+            batches = _cohort_data(ctx, split, client_ids, whole)
         with _span("stocfl.cohort_update"):
             thetas_i, omegas_i = self._cohort(ctx)(thetas, state.omega, batches)
         return clusters, models, merges, thetas_i, omegas_i
@@ -517,9 +597,8 @@ class StoCFLStrategy(Strategy):
         an untouched state."""
         dev = ctx.device
         if clusters.state is None:
-            dim = int(ctx.extractor(ctx.clients[0]).shape[0])
             dcs0 = devclust.init_state(max(clusters._capacity_hint, state.n_clients),
-                                       dim, dev)
+                                       ctx.psi_dim, dev)
         else:
             dcs0 = devclust.grow(clusters.state, state.n_clients)
         cap = dcs0.capacity
@@ -551,14 +630,17 @@ class StoCFLStrategy(Strategy):
         it has one (lazy θ_k = ω₀ otherwise); ``finalize`` rebuilds the
         ``DeviceClusters`` and the ``ClusterBank``. The reference's
         ``lax.cond`` skips run every round here, masked: Ψ of every
-        cohort member (one per-client call each, kept for the new ones), a
-        merge pass (a no-op on a settled partition), the bank merge (a
-        no-op without merges) and the objective. Segment sums run over
+        cohort member (one per-client call each, kept for the new ones;
+        under a mesh each rank takes its slice's, and one
+        ``RowSplit.gather`` sends the rows to every rank), a merge pass (a
+        no-op on a settled partition), the bank merge (a no-op without
+        merges) and the objective. Segment sums run over
         ascending rows and cohort positions, the eager round's order."""
         cfg = ctx.cfg
         dev = ctx.device
         tau = float(cfg.tau)
         ragged = ctx.arena.ragged
+        owners = ctx.arena.owners
         clusters = state.clusters
         # warm resume: finalize stashes the final carry under the exact
         # models / clusters objects it returned; any transition between
@@ -581,21 +663,22 @@ class StoCFLStrategy(Strategy):
         aggregator = cfg.aggregator
         fused = bool(cfg.fused_step)
         k_bound = merge_bound(state, cap)
-        # under a mesh: this rank's cohort rows; Ψ, the partition and the
-        # row-keyed bank (its masked merge included, its sums in a fixed
-        # order) run on every rank, as the reference's scan keeps them
+        # under a mesh: this rank's cohort rows and their Ψ; the partition
+        # and the row-keyed bank (its masked merge included, its sums in a
+        # fixed order) run on every rank, as the reference's scan keeps them
         # replicated
         split, mesh = _split(ctx, m), ctx.mesh
+        mine = range(m) if split is None else range(split.lo, split.hi)
 
         def step(carry, cs):
             key, omega, parent, live, rep, rows, has = carry
             ids_arr = cs["ids"]
             key, ids = sampler.draw(key, cs["pool"], m)
-            batches = _gather_scan(cs, ids, ragged)
+            batches = _gather_scan(cs, ids, ragged, owners)
             new = ~live[ids]
             with _span("stocfl.psi_extract"):
-                reps = torch.stack([psi(trees.tree_map(lambda x, i=i: x[i], batches))
-                                    for i in range(m)])
+                reps = _gather(split, torch.stack(
+                    [psi(trees.tree_map(lambda x, i=i: x[i], batches)) for i in mine]))
                 idx = torch.where(new, ids.to(torch.int32), cap)
                 dcs = devclust.observe(devclust.DeviceClusterState(parent, live, rep),
                                        idx, reps)
@@ -678,11 +761,12 @@ class StoCFLStrategy(Strategy):
     def join(self, ctx, state, batch):
         """Dynamic join (§5): register the client, infer its cluster via Ψ
         against the pre-existing clusters, or open a fresh cluster seeded
-        from the nearest one's model."""
+        from the nearest one's model. Over a split arena the owner of the
+        newcomer's row takes its Ψ and sends it to every rank."""
         state, cid = super().join(ctx, state, batch)
         clusters = state.clusters.copy()
         models = state.models
-        rep = ctx.extractor(batch)
+        rep = _join_rep(ctx, cid, batch)
         root, near, _sim = clusters.nearest(rep)
         clusters.observe([cid], [rep])
         if root is not None:
@@ -702,11 +786,13 @@ class StoCFLStrategy(Strategy):
                              models=state.models.rename(remap))
 
     def infer(self, ctx, state, batch):
-        """Cluster inference for an unseen client (§4.4), without joining."""
+        """Cluster inference for an unseen client (§4.4), without joining.
+        ``model`` is None where a placed bank (``ClusterBank.place``) holds
+        the cluster's model on another rank."""
         rep = ctx.extractor(batch)
         root, near, sim = state.clusters.nearest(rep)
         src = root if root is not None else near
-        model = state.cluster_model(src) if src is not None else state.omega
+        model = _held_model(state, src) if src is not None else state.omega
         return {"cluster": root, "seed_from": src, "similarity": sim, "model": model}
 
     def infer_many(self, ctx, state, batches):
@@ -735,7 +821,7 @@ class StoCFLStrategy(Strategy):
             root = int(roots[best])
             out.append({"cluster": root if sim >= tau else None,
                         "seed_from": root, "similarity": sim,
-                        "model": state.cluster_model(root)})
+                        "model": _held_model(state, root)})
         return out
 
 
@@ -769,7 +855,7 @@ class FedAvgStrategy(Strategy):
     def round(self, ctx, state, client_ids):
         ids = np.asarray(client_ids)
         split = _split(ctx, len(ids))
-        outs = self._upd(ctx)(state.omega, _batches(ctx, _local(split, ids)))
+        outs = self._upd(ctx)(state.omega, _cohort_data(ctx, split, ids))
         omega = bilevel.aggregate_stacked(outs, _weights(state, ids), split)
         return state.replace(omega=omega), {"sampled": len(ids)}
 
@@ -779,7 +865,7 @@ class FedAvgStrategy(Strategy):
         rank's rows: each rank keeps the whole buffer)."""
         ids = np.asarray(client_ids)
         split = _split(ctx, len(ids))
-        outs = self._upd(ctx)(state.omega, _batches(ctx, _local(split, ids)))
+        outs = self._upd(ctx)(state.omega, _cohort_data(ctx, split, ids))
         return state, buf.write(slots, _gather(split, outs))
 
     def async_merge(self, ctx, state, batch, weights):
@@ -794,6 +880,7 @@ class FedAvgStrategy(Strategy):
         """FedAvg / FedProx as a step: draw, gather, the eager round's local
         SGD, weighted mean; the carry is ``(key, ω)``."""
         ragged = ctx.arena.ragged
+        owners = ctx.arena.owners
         upd = self._upd(ctx)
         dev = ctx.device
         consts = dict(_arena_consts(ctx), pool=torch.as_tensor(pool, device=dev),
@@ -804,7 +891,7 @@ class FedAvgStrategy(Strategy):
         def step(carry, cs):
             key, omega = carry
             key, ids = sampler.draw(key, cs["pool"], m)
-            outs = upd(omega, _gather_scan(cs, _local(split, ids), ragged))
+            outs = upd(omega, _scan_data(cs, split, ids, ragged, owners))
             omega = bilevel.aggregate_stacked(outs, cs["sizes"][ids], split)
             return (key, omega), {"sampled": _count(m, dev)}
 
@@ -855,7 +942,7 @@ class DittoStrategy(Strategy):
         gupd, pupd = self._upds(ctx)
         split = _split(ctx, len(ids))
         loc = _local(split, ids)
-        batches = _batches(ctx, loc)
+        batches = _cohort_data(ctx, split, ids)
         g_outs = gupd(state.omega, batches)
         v_stack = trees.tree_map(lambda *xs: torch.stack(xs),
                                  *[state.personal[int(c)] for c in loc])
@@ -873,6 +960,7 @@ class DittoStrategy(Strategy):
         the cohort's rows, proxes them to the broadcast ω and writes them
         back. ``finalize`` hands out the rows as the per-cid dict."""
         ragged = ctx.arena.ragged
+        owners = ctx.arena.owners
         gupd, pupd = self._upds(ctx)
         dev = ctx.device
         n = state.n_clients
@@ -888,7 +976,7 @@ class DittoStrategy(Strategy):
             key, omega, personal = carry
             key, ids = sampler.draw(key, cs["pool"], m)
             loc = _local(split, ids)
-            batches = _gather_scan(cs, loc, ragged)
+            batches = _scan_data(cs, split, ids, ragged, owners)
             g_outs = gupd(omega, batches)
             v = trees.tree_map(lambda p: torch.index_select(p, 0, loc), personal)
             v_outs = _gather(split, pupd(v, omega, batches))
@@ -972,7 +1060,7 @@ class IFCAStrategy(Strategy):
         losses are gathered to every rank."""
         split = _split(ctx, len(client_ids))
         if batches is None:
-            batches = _batches(ctx, _local(split, np.asarray(client_ids)))
+            batches = _cohort_data(ctx, split, np.asarray(client_ids))
         hyps = state.models.take(np.arange(ctx.cfg.n_models), ctx.init_params)
         losses = _gather(split, self._choice(ctx)(hyps, batches))
         return np.argmin(losses.cpu().numpy(), axis=1)
@@ -980,7 +1068,7 @@ class IFCAStrategy(Strategy):
     def round(self, ctx, state, client_ids):
         ids = np.asarray(client_ids)
         split = _split(ctx, len(ids))
-        batches = _batches(ctx, _local(split, ids))
+        batches = _cohort_data(ctx, split, ids)
         choices = self.choices(ctx, state, ids, batches)
         thetas = state.models.take(_local(split, choices), ctx.init_params)
         outs = self._upd(ctx)(thetas, batches)
@@ -997,6 +1085,7 @@ class IFCAStrategy(Strategy):
         hypothesis, the write-back a full-M̃ segment mean that keeps the
         hypotheses no client chose."""
         ragged = ctx.arena.ragged
+        owners = ctx.arena.owners
         n_models = int(ctx.cfg.n_models)
         choice, upd = self._choice(ctx), self._upd(ctx)
         dev = ctx.device
@@ -1008,7 +1097,7 @@ class IFCAStrategy(Strategy):
         def step(carry, cs):
             key, rows = carry
             key, ids = sampler.draw(key, cs["pool"], m)
-            batches = _gather_scan(cs, _local(split, ids), ragged)
+            batches = _scan_data(cs, split, ids, ragged, owners)
             choices = torch.argmin(_gather(split, choice(rows, batches)), dim=1)
             c_loc = _local(split, choices)
             thetas = trees.tree_map(lambda r: torch.index_select(r, 0, c_loc), rows)
@@ -1183,7 +1272,7 @@ class CFLStrategy(Strategy):
         split = _split(ctx, len(live))
         assign2, k2, rows2 = self._core(ctx)(
             torch.as_tensor(assign, device=ctx.device), k, rows,
-            _batches(ctx, _local(split, live)), sizes, split)
+            _cohort_data(ctx, split, live), sizes, split)
         members, models = self._untangle(live, assign2.cpu().numpy(), int(k2), rows2)
         state = state.replace(members=members, models=models)
         return state, {"n_clusters": len(members),
@@ -1195,6 +1284,7 @@ class CFLStrategy(Strategy):
         live population (availability does not apply to full
         participation, as in the eager loop)."""
         ragged = ctx.arena.ragged
+        owners = ctx.arena.owners
         live, assign, k, rows = self._matrix(ctx, state)
         L = len(live)
         core = self._core(ctx)
@@ -1208,7 +1298,7 @@ class CFLStrategy(Strategy):
 
         def step(carry, cs):
             assign, k, rows = carry
-            batches = _gather_scan(cs, _local(split, cs["live"]), ragged)
+            batches = _scan_data(cs, split, cs["live"], ragged, owners)
             assign, k, rows = core(assign, k, rows, batches, cs["sizes"], split)
             return (assign, k, rows), {"n_clusters": k.to(torch.int32),
                                        "sampled": _count(L, dev)}

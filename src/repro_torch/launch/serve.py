@@ -35,6 +35,7 @@ from repro_torch.data import synthetic_lm_batch
 from repro_torch.engine.bank import ClusterBank
 from repro_torch.launch import device_of
 from repro_torch.models.registry import build
+from repro_torch.sharding.specs import row_split
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,24 +83,31 @@ ROUTE_CHUNK = 4
 
 
 def build_server_state(cfg, model, clusters: int, tau: float, seed: int, device=None,
-                       cohort_chunk: int = 0):
+                       cohort_chunk: int = 0, mesh=None):
     """A serving ``ServerState`` on ``device``: K cluster models
     (stand-ins for a trained checkpoint — a real deployment would
     ``checkpoint.load_server_state`` here), each cluster's reference Ψ
     registered via the ``join`` transition so routing has real cluster
     means to cosine against. ``cohort_chunk`` bounds the clients of one
-    batched Ψ call when a wave is routed (0: the whole wave at once)."""
+    batched Ψ call when a wave is routed (0: the whole wave at once).
+    Under a client-axis ``mesh`` (``ServeEngine(mesh=...)``'s) the bank
+    is placed: the rank makes only the models of its ``row_split`` of the
+    sorted roots (``ClusterBank.placed``), while it still joins every
+    cluster's client, so its router has all K cluster means."""
     dev = engine.resolve_device(device)
     params0 = model.init(_generator(dev, seed), dev)
     st = engine.init("stocfl", model.loss_fn, params0, [],
                      engine.EngineConfig(tau=tau, seed=seed, project_dim=8192,
                                          cohort_chunk=cohort_chunk),
                      device=dev, leaf_filter=llm_leaf_filter)
-    cluster_models = {}
+    roots = []
     for k in range(clusters):
         st, cid = engine.join(st, synthetic_lm_batch(cfg, 256, 8, seed=100 + k, domain=k))
-        cluster_models[st.client_root(cid)] = model.init(_generator(dev, seed, k), dev)
-    return st.replace(models=ClusterBank.from_dict(cluster_models))
+        roots.append(st.client_root(cid))
+    mine = set(row_split(len(set(roots)), mesh).take(sorted(set(roots))))
+    cluster_models = {r: model.init(_generator(dev, seed, k), dev)
+                      for k, r in enumerate(roots) if r in mine}
+    return st.replace(models=ClusterBank.placed(cluster_models, roots, mesh))
 
 
 def make_requests(cfg, n: int, prompt_len: int, gen: int, clusters: int,

@@ -207,7 +207,7 @@ def run_llm(args) -> dict:
     for t in range(args.rounds):
         st, rec = engine.run_round(st)
         with torch.no_grad():
-            loss0 = float(model.loss_fn(st.omega, st.ctx.clients[0]))
+            loss0 = float(model.loss_fn(st.omega, st.ctx.device_batch(0)))
         _say(f"round {t}: clusters={rec['n_clusters']} omega_loss={loss0:.4f}")
     assign = st.clusters.assignment()
     ids = sorted(assign)

@@ -29,14 +29,18 @@ of the JAX package's ``serve/engine.py``.
 
 Under a client-axis mesh (``ServeEngine(mesh=make_client_mesh())``, one
 process per rank) each rank serves its ``row_split`` of the K cluster
-groups (``sharding.place_decode_state``): its decode lanes are those
+groups (the reference's ``place_decode_state``): its decode lanes are those
 groups' alone, and its decode step runs over their stacked parameters
-alone. Those parameters are views of the ``ServerState``'s bank, which
-every rank builds and holds whole, so the lanes' memory a rank falls as
-ranks are added and the weights' does not. The router, the scheduler
-and the routes stay replicated: every rank routes the same requests to
-the same groups and keeps the same bookkeeping, but prefills and inserts
-only the requests of its own groups. At each harvest (and at ``evict``)
+alone. Those parameters are the rows of the ``ServerState``'s bank
+placed on the mesh (``ClusterBank.place``), with no copy: a state built
+placed (``launch.serve.build_server_state(..., mesh=...)``,
+``checkpoint.load_server_state(..., mesh=...)``) holds only the rank's
+groups' weights, so both the lanes' memory and the weights' a rank holds
+fall as ranks are added; a whole bank is placed here as views of its
+rows. The router, the scheduler and the routes stay replicated: every
+rank routes the same requests to the same groups and keeps the same
+bookkeeping, but prefills and inserts only the requests of its own
+groups. At each harvest (and at ``evict``)
 the lanes' output tokens are gathered to every rank in one collective
 (``RowSplit.gather``), so ``run`` returns the same results on every
 rank. Where K does not divide the ranks,
@@ -55,7 +59,7 @@ from repro_torch.serve.router import Route, Router
 from repro_torch.serve.scheduler import Request, SlotScheduler
 from repro_torch.serve.slots import (DecodeGraph, alloc_slots, clear_slots, harvest,
                                      make_decode_step, make_insert, make_prefill)
-from repro_torch.sharding.specs import place_decode_state, row_split
+from repro_torch.sharding.specs import row_split
 from repro_torch.utils import trees
 
 __all__ = ["ServeConfig", "RequestResult", "ServeEngine"]
@@ -95,11 +99,15 @@ class RequestResult:
 def stack_cluster_models(state, roots):
     """The cluster models of ``roots`` stacked on a leading axis, in that
     order: views of the bank's rows when the bank holds exactly those
-    roots first (no copy: a bank's tensors are never written), else a
-    stack of ``state.cluster_model``."""
+    roots first (a placed bank: first among the rows it holds; no copy: a
+    bank's tensors are never written), else a stack of
+    ``state.cluster_model`` (which raises ``RemoteRowError`` for a root
+    whose row another rank holds)."""
     bank = state.models
-    if isinstance(bank, ClusterBank) and bank.roots[:len(roots)] == tuple(roots):
-        return trees.tree_map(lambda x: x[:len(roots)], bank.stacked)
+    if isinstance(bank, ClusterBank) and all(bank.holds(r) for r in roots):
+        lo = 0 if bank.split is None else bank.split.lo
+        if bank.roots[lo:lo + len(roots)] == tuple(roots):
+            return trees.tree_map(lambda x: x[:len(roots)], bank.stacked)
     return trees.tree_map(lambda *xs: torch.stack(xs),
                           *[state.cluster_model(r) for r in roots])
 
@@ -134,14 +142,18 @@ class ServeEngine:
         self.model = model
         self.cfg = cfg
         self.device = state.ctx.device
-        self.router = Router(state)
         self.roots = sorted(state.models.keys())
         self._root_to_k = {r: k for k, r in enumerate(self.roots)}
         self.mesh = mesh
         self.split = row_split(len(self.roots), mesh)
         local = self.split.take(self.roots)
+        if isinstance(state.models, ClusterBank) and self.split.sharded:
+            # this rank's groups' rows: views where the bank is placed or
+            # holds its roots in order
+            state = state.replace(models=state.models.place(mesh))
+        self._stacked = stack_cluster_models(state, local)
+        self.router = Router(state)
         self._params_list = [state.cluster_model(r) for r in local]
-        self._stacked = place_decode_state(stack_cluster_models(state, self.roots), mesh)
         self._prefill = make_prefill(model)
         self._insert = make_insert(model)
         self._step = make_decode_step(model)

@@ -18,6 +18,7 @@ from repro_torch.sharding.specs import (  # noqa: F401
     PARAM_RULES,
     CollectiveLog,
     NamedSharding,
+    RowOwners,
     RowSplit,
     ShardCtx,
     align_cohort_chunk,
@@ -48,6 +49,7 @@ from repro_torch.sharding.specs import (  # noqa: F401
     psum_segments,
     relax,
     replicated,
+    row_owners,
     row_split,
     segment_sum,
     shard,
@@ -58,12 +60,13 @@ from repro_torch.sharding.specs import (  # noqa: F401
     wrap_like,
 )
 
-__all__ = ["PARAM_RULES", "CollectiveLog", "NamedSharding", "RowSplit", "ShardCtx",
-           "align_cohort_chunk", "all_reduce_", "barrier", "client_axes", "cohort_spec",
-           "constrain_cohort", "current_ctx", "local_channels", "local_experts",
-           "merge_heads", "mesh_backend", "mesh_client_count", "mesh_device",
-           "mesh_fingerprint", "mesh_group", "mesh_rank", "model_axis_blocker",
-           "ordered_index_add_", "param_shardings", "place_buffer_rows", "place_cohort",
-           "place_decode_state", "place_params", "place_replicated", "placements",
-           "psum_segments", "relax", "replicated", "row_split", "segment_sum", "shard",
-           "spec_for_path", "split_heads", "to_local", "unshard_fsdp", "wrap_like"]
+__all__ = ["PARAM_RULES", "CollectiveLog", "NamedSharding", "RowOwners", "RowSplit",
+           "ShardCtx", "align_cohort_chunk", "all_reduce_", "barrier", "client_axes",
+           "cohort_spec", "constrain_cohort", "current_ctx", "local_channels",
+           "local_experts", "merge_heads", "mesh_backend", "mesh_client_count",
+           "mesh_device", "mesh_fingerprint", "mesh_group", "mesh_rank",
+           "model_axis_blocker", "ordered_index_add_", "param_shardings",
+           "place_buffer_rows", "place_cohort", "place_decode_state", "place_params",
+           "place_replicated", "placements", "psum_segments", "relax", "replicated",
+           "row_owners", "row_split", "segment_sum", "shard", "spec_for_path",
+           "split_heads", "to_local", "unshard_fsdp", "wrap_like"]

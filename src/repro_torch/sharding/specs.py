@@ -19,6 +19,10 @@ all-reduce. The port runs one process per rank on a 1-D ``DeviceMesh``
   losses, CFL's split statistics, the async buffer's rows), the rows come
   back through an ``all_reduce`` of a zero-filled full stack, summed as
   bytes so the result is the rows bit for bit (``RowSplit.gather``);
+* a stack that lives only on the ranks that own its rows (the client
+  arena's rows, ``ClientArena.place``) is read through ``RowOwners``:
+  each row on one rank, by a stride, and a gather of any rows is the
+  same byte sum (``RowOwners.gather``);
 * everything else is replicated: every rank computes it from the same
   inputs. The card's ``index_add_`` sums floats with atomics, in an
   order that differs from run to run and so from rank to rank; under a
@@ -301,8 +305,7 @@ class RowSplit:
         def leaf(x):
             full = x.new_zeros((self.n,) + tuple(x.shape[1:]))
             full[self.lo:self.hi].copy_(x)
-            all_reduce_(full.view(torch.uint8), self.mesh)
-            return full
+            return _sum_bytes_(full, self.mesh)
 
         return trees.tree_map(leaf, tree)
 
@@ -316,6 +319,94 @@ def row_split(n: int, mesh) -> RowSplit:
     k = n // mesh_client_count(mesh)
     r = mesh_rank(mesh)
     return RowSplit(n, r * k, (r + 1) * k, mesh, True)
+
+
+def _sum_bytes_(full: torch.Tensor, mesh) -> torch.Tensor:
+    """``all_reduce`` of ``full``'s bytes, in place: where one rank holds
+    each byte and every other rank zeros, the sum is that rank's bits."""
+    all_reduce_(full.view(torch.uint8), mesh)
+    return full
+
+
+@dataclasses.dataclass(frozen=True)
+class RowOwners:
+    """Rows of a stack held by their owners: row ``i`` lives on rank ``i %
+    size`` only, as its local row ``i // size`` (a stride). ``sharded`` is
+    False with one rank or no mesh: the rank then holds every row and no
+    collective runs.
+
+    A stride and not contiguous blocks, because a stack whose row count
+    doubles (``ClientArena.grow``) keeps every row on its owner at the same
+    local row: growth is a local zero-extension on every rank, where
+    contiguous blocks would move most rows at each doubling, and
+    consecutive new rows (joins) land on the ranks in turn."""
+    rank: int = 0
+    size: int = 1
+    mesh: Any = None
+
+    @property
+    def sharded(self) -> bool:
+        return self.size > 1
+
+    def held(self, n: int) -> int:
+        """The rows of an ``n``-row stack this rank holds."""
+        return n // self.size if self.sharded else n
+
+    def owner(self, row: int) -> int:
+        return int(row) % self.size
+
+    def mine(self, row: int) -> bool:
+        return self.owner(row) == self.rank
+
+    def local(self, row: int) -> int:
+        """The local row at which this rank holds ``row`` (its owner's)."""
+        return int(row) // self.size
+
+    def take(self, x):
+        """This rank's rows of a full-length tensor or tree of tensors."""
+        if not self.sharded:
+            return x
+        return trees.tree_map(lambda t: t[self.rank::self.size], x)
+
+    def gather(self, held, rows: torch.Tensor):
+        """Rows ``rows`` (a device int64 vector of global rows) of the stack
+        whose rows this rank holds in ``held`` (a tree of ``(n / size,
+        ...)`` tensors), as a full ``(len(rows), ...)`` stack on every rank,
+        bit for bit: each rank writes the rows it owns into a zero-filled
+        stack and one byte sum a leaf combines them (``RowSplit.gather``'s
+        pattern). Fixed shapes and no host read, so a CUDA graph captures
+        it; every rank must call it with the same ``rows``."""
+        if not self.sharded:
+            return trees.tree_map(lambda x: torch.index_select(x, 0, rows), held)
+        mine = torch.remainder(rows, self.size) == self.rank
+        at = torch.div(rows, self.size, rounding_mode="floor")
+
+        def leaf(x):
+            got = torch.index_select(x, 0, at)
+            got.masked_fill_(~mine.reshape((-1,) + (1,) * (got.dim() - 1)), 0)
+            return _sum_bytes_(got, self.mesh)
+
+        return trees.tree_map(leaf, held)
+
+    def send(self, x: Optional[torch.Tensor], src: int, like: torch.Tensor) -> torch.Tensor:
+        """Rank ``src``'s ``x`` on every rank, bit for bit (the other
+        ranks pass None; ``like`` gives the shape, dtype and device)."""
+        if not self.sharded:
+            return x
+        full = x.clone() if self.rank == src else torch.zeros_like(like)
+        return _sum_bytes_(full.contiguous(), self.mesh)
+
+
+def row_owners(n: int, mesh) -> RowOwners:
+    """The owners of an ``n``-row stack: a stride over the client-axis
+    ranks when ``n`` divides them and there are two or more, else every
+    row on every rank (the reference's relaxation)."""
+    if mesh is None or not client_axes(mesh) or not _divides(int(n), mesh):
+        return RowOwners()
+    size = mesh_client_count(mesh)
+    if size <= 1:
+        return RowOwners()
+    return RowOwners(mesh_rank(mesh), size, mesh)
 
 
 def segment_sum(stacked, weights, segment_ids, num_segments: int, split=None):

@@ -79,7 +79,7 @@ def routed_model(state, cid: int):
     if cid in state.personal:
         return state.personal[cid]
     if len(state.models):                    # IFCA: hypotheses, no partition
-        batch = state.ctx.clients[int(cid)]
+        batch = state.ctx.device_batch(cid)
         losses = {m: float(state.ctx.loss_fn(state.models[m], batch))
                   for m in state.models}
         return state.models[min(losses, key=losses.get)]
@@ -265,7 +265,7 @@ def simulate(state, timeline: Timeline, rounds: Optional[int] = None,
                     nb = ctx.client_batch(drift_fn(convert.to_numpy(ctx.clients[c]), rng,
                                                     ev.strength))
                     ctx.clients[c] = nb
-                    if ctx.arena is not None:
+                    if ctx.arena is not None:     # the row's owner rewrites it
                         ctx.arena = ctx.arena.update(c, nb)
                 labels.append(f"drift:{len(cids)}")
             else:

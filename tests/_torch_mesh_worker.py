@@ -6,9 +6,12 @@ Joins the world through a ``FileStore`` under ``ROOT``, builds
 ``make_client_mesh(device="cpu")`` and drives the port's engine through
 every case the test holds (each strategy's eager rounds and
 ``run_rounds`` spans, churn, a checkpoint resumed across world sizes, a
-cohort that does not divide, a ragged arena, async rounds,
-``psum_segments``), writing a snapshot of the state after every round or
-span, and the number of ``all_reduce`` calls of the main cases, to
+cohort that does not divide, a ragged arena, async rounds, a churn cycle
+that grows and compacts the arena, ``psum_segments``), writing a snapshot
+of the state after every round or span, the number of ``all_reduce``
+calls of the main cases (those that move the arena's rows between their
+owners counted apart), StoCFL's Ψ calls beside the new clients of the
+rank's slice of each cohort, and which arena rows the rank holds, to
 ``ROOT/w{WORLD}_r{RANK}.pkl``. The world of one also runs every
 case without a mesh, the reference the test holds the meshes to. The
 inputs (federations, ω₀, IFCA's hypotheses) come as numpy arrays from
@@ -33,6 +36,8 @@ from repro_torch.sharding import specs
 ALL = ("stocfl", "fedavg", "fedprox", "ditto", "ifca", "cfl")
 TASK = simple.TaskConfig("synth_mlp", "mlp", (64,), 10, hidden=32)
 CHURN = ("stocfl", "fedavg", "ditto")
+CYCLE = ("stocfl", "fedavg")
+CYCLE_LEAVES = (0, 2, 4, 6, 8, 10, 12, 14, 1, 3)   # the 10th compacts 18 rows
 CKPT = ("stocfl", "ditto", "cfl")
 NONDIV = ("fedavg", "stocfl")
 ASYNC = ("stocfl", "fedavg")
@@ -74,9 +79,37 @@ def snapshot(st) -> dict:
     return out
 
 
+def layout(arena) -> dict:
+    """The arena rows this rank holds: ``{cid: (global row, {leaf: data})}``
+    for the live clients whose rows it owns, with its row counts."""
+    own = arena.owners
+    live = {int(c) for c in arena._live()}
+    rows = {}
+    for cid in sorted(live):
+        row = int(arena.rows[cid])
+        if own.mine(row):
+            j = own.local(row)
+            rows[cid] = (row, {k: v[j].cpu().numpy() for k, v in arena.packed.items()})
+    return {"held": arena.held, "capacity": arena.capacity, "n_rows": arena.n_rows,
+            "live": sorted(live), "rows": rows, "mask_rows": int(arena.mask.shape[0])}
+
+
+def counting_psi(st):
+    """``st``'s context with its Ψ counting its calls in ``calls[0]``."""
+    calls, real = [0], st.ctx.extractor
+
+    def psi(batch):
+        calls[0] += 1
+        return real(batch)
+
+    st.ctx.extractor = psi
+    return calls
+
+
 class Runner:
     def __init__(self, inputs):
         self.inputs = inputs
+        self.psi = {}       # StoCFL's Ψ calls (and what they should be) by case
 
     def init(self, name, mesh, clients="clients", scan=True):
         params = {k: torch.as_tensor(v) for k, v in self.inputs["params"].items()}
@@ -89,17 +122,49 @@ class Runner:
         return st
 
     def eager(self, name, mesh):
-        st, snaps = self.init(name, mesh, scan=False), []
+        st, snaps, want = self.init(name, mesh, scan=False), [], []
+        calls = counting_psi(st) if name == "stocfl" else None
         for _ in range(3):
+            if name == "stocfl":
+                _, ids = engine.sample_clients(st)
+                split = specs.row_split(len(ids), mesh)
+                want.append(sum(int(c) not in st.clusters.seen
+                                for c in ids[split.lo:split.hi]))
             st, _ = engine.run_round(st)
             snaps.append(snapshot(st))
+        if name == "stocfl":
+            self.psi[f"eager/{mesh is not None}"] = (calls[0], sum(want))
         return snaps
 
     def scan(self, name, mesh):
-        st = engine.run_rounds(self.init(name, mesh), 2)
+        st = self.init(name, mesh)
+        calls = counting_psi(st) if name == "stocfl" else None
+        st = engine.run_rounds(st, 2)
         snaps = [snapshot(st)]
         st = engine.run_rounds(st, 3)
+        if name == "stocfl":
+            m = 8                                     # 16 clients at rate 0.5
+            split = specs.row_split(m, mesh)
+            self.psi[f"scan/{mesh is not None}"] = (calls[0], 5 * (split.hi - split.lo))
         return snaps + [snapshot(st)]
+
+    def cycle(self, name, mesh):
+        """Churn past the arena's capacity and past ``compact_frac``: 2
+        rounds, 3 joins (15 -> 18 rows: the capacity doubles), 2 rounds,
+        10 leaves (the 10th compacts the arena to the 8 live rows), 2
+        rounds; the arena's layout after the joins and after the leaves."""
+        st = engine.run_rounds(self.init(name, mesh, clients="churn"), 2)
+        snaps, layouts = [snapshot(st)], []
+        for extra in self.inputs["extras"]:
+            st, _ = engine.join(st, {k: torch.as_tensor(v) for k, v in extra.items()})
+        layouts.append(layout(st.ctx.arena))
+        st = engine.run_rounds(st, 2)
+        snaps.append(snapshot(st))
+        for cid in CYCLE_LEAVES:
+            st = engine.leave(st, cid)
+        layouts.append(layout(st.ctx.arena))
+        st = engine.run_rounds(st, 2)
+        return snaps + [snapshot(st)], layouts
 
     def churn(self, name, mesh):
         st = engine.run_rounds(self.init(name, mesh, clients="churn"), 2)
@@ -139,19 +204,32 @@ def main() -> int:
     run = Runner(inputs)
     out = {}
 
-    # every all_reduce the engine makes, counted per case
-    calls, real = [0], specs.all_reduce_
+    # every all_reduce the engine makes, counted per case; those that move
+    # the arena's rows from their owners (RowOwners) counted apart
+    calls, moves, inside, real = [0], [0], [0], specs.all_reduce_
 
     def counting(t, m):
-        calls[0] += 1
+        (moves if inside[0] else calls)[0] += 1
         return real(t, m)
 
+    def moving(fn):
+        def wrapped(*args, **kw):
+            inside[0] += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                inside[0] -= 1
+        return wrapped
+
     specs.all_reduce_ = counting
+    specs.RowOwners.gather = moving(specs.RowOwners.gather)
+    specs.RowOwners.send = moving(specs.RowOwners.send)
 
     def record(key, fn, *args):
-        before = calls[0]
+        before, moved = calls[0], moves[0]
         out[key] = fn(*args)
         out[key + "/collectives"] = calls[0] - before
+        out[key + "/row_moves"] = moves[0] - moved
 
     meshes = [("mesh", mesh)] + ([("nomesh", None)] if world == 1 else [])
     for tag, m in meshes:
@@ -165,6 +243,10 @@ def main() -> int:
         for name in ASYNC:
             out[f"async/{name}/{tag}"] = run.async_rounds(name, m)
         out[f"ragged/{tag}"] = run.ragged(m)
+        for name in CYCLE:
+            out[f"cycle/{name}/{tag}"], out[f"cycle/{name}/{tag}/layout"] = run.cycle(name, m)
+        out[f"layout/{tag}"] = layout(run.init("fedavg", m).ctx.arena)
+    out["psi"] = run.psi
 
     # a checkpoint saved after 2 rounds at the previous world size (this
     # one for a world of one), resumed here for 3 more

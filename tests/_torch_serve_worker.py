@@ -6,13 +6,17 @@ Joins the world through a ``FileStore`` under ``ROOT``, builds the same
 serving state on every rank from ``ROOT/reference_{K}.pkl``, the JAX
 package's state as the test wrote it (qwen2 smoke in fp32: ω₀, the Ψ
 sketch's draws, and a model per cluster root; K clients of K token
-domains joined, so K clusters), and serves it with
-``ServeEngine(mesh=make_client_mesh(device="cpu"))``: a wave of requests,
-an eviction mid-run, then ``reset`` and the first wave again under new
-request ids. Rank 0 also serves the waves with the engine without a mesh
-and with ``SequentialLoop`` (the gaps of the near-tie rule). Every rank
-writes its results, stats, routes and the number of cluster groups it
-holds to ``ROOT/serve_{WORLD}_{K}_r{RANK}.pkl``. Imports only torch and
+domains joined, so K clusters), its bank placed on the mesh as
+``launch.serve.build_server_state(..., mesh=...)`` places it (from the
+rank's own groups' models alone, ``ClusterBank.placed``), and serves it
+with ``ServeEngine(mesh=make_client_mesh(device="cpu"))``: a wave of
+requests, an eviction mid-run, then ``reset`` and the first wave again
+under new request ids. It also saves the whole state and serves the first
+wave again from ``checkpoint.load_server_state(..., mesh=...)``. Rank 0
+also serves the waves with the engine without a mesh and with
+``SequentialLoop`` (the gaps of the near-tie rule). Every rank writes its
+results, stats, routes, the number of cluster groups it holds and what
+its bank holds to ``ROOT/serve_{WORLD}_{K}_r{RANK}.pkl``. Imports only torch and
 the port; the test imports it for the inputs and the wave driver.
 """
 import datetime
@@ -25,12 +29,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import convert, engine, serve
+from repro_torch.checkpoint import load_server_state, save_server_state
 from repro_torch.configs import get_config
 from repro_torch.core import extractor
 from repro_torch.data import synthetic_lm_batch
-from repro_torch.engine.bank import ClusterBank
+from repro_torch.engine.bank import ClusterBank, RemoteRowError
 from repro_torch.launch.mesh import make_client_mesh
 from repro_torch.models.registry import build
+from repro_torch.sharding import specs
 from repro_torch.utils import trees
 
 P, G, HIST_S, HIST_B, N_REQ = 8, 5, 64, 2, 8
@@ -48,17 +54,23 @@ def joined(cfg, k):
     return synthetic_lm_batch(cfg, HIST_S, HIST_B, seed=100 + k, domain=k)
 
 
-def state_of(model, k_groups, ref):
-    """The port's state from the reference's pieces ``ref``: ω₀, the
-    sketch's draws (``extractor.jl_draws`` answers from them), K joined
-    clients (one per domain), and the reference's model per root."""
+def fresh_state(model, ref):
+    """``engine.init`` of the serving state, before any join, with the
+    sketch's draws of ``ref`` (``extractor.jl_draws`` answers from them)."""
     def jl_draws(n, dim, seed):
         buckets, signs = ref["draws"][(n, dim, seed)]
         return torch.as_tensor(buckets), torch.as_tensor(signs)
 
     extractor.jl_draws = jl_draws
-    st = engine.init("stocfl", model.loss_fn, convert.to_torch(ref["init"]), [],
-                     engine.EngineConfig(**ENGINE_CFG), device="cpu")
+    return engine.init("stocfl", model.loss_fn, convert.to_torch(ref["init"]), [],
+                       engine.EngineConfig(**ENGINE_CFG), device="cpu")
+
+
+def state_of(model, k_groups, ref):
+    """The port's state from the reference's pieces ``ref``: ω₀, the
+    sketch's draws, K joined clients (one per domain), and the reference's
+    model per root."""
+    st = fresh_state(model, ref)
     cids = []
     for k in range(k_groups):
         st, cid = engine.join(st, joined(model.cfg, k))
@@ -107,10 +119,38 @@ def waves(eng, reqs_of):
             "evicted": evicted, "rest": rest, "second": second, "stats2": eng.stats()}
 
 
+def placed_state(state, mesh):
+    """``state`` with its bank placed on ``mesh`` from this rank's groups'
+    models alone, as ``launch.serve.build_server_state`` builds it."""
+    roots = sorted(state.models.roots)
+    mine = specs.row_split(len(roots), mesh).take(roots)
+    return state.replace(models=ClusterBank.placed({r: state.models[r] for r in mine},
+                                                   roots, mesh))
+
+
+def bank_of(state) -> dict:
+    """What a (placed) bank holds: its rows, the roots it holds, and the
+    error ``cluster_model`` raises for each root another rank holds."""
+    bank, remote = state.models, {}
+    for r in bank.roots:
+        if not bank.holds(r):
+            try:
+                state.cluster_model(r)
+                remote[r] = None
+            except RemoteRowError as err:
+                remote[r] = str(err)
+    return {"rows": int(trees.leaves(bank.stacked)[0].shape[0]),
+            "holds": [r for r in bank.roots if bank.holds(r)], "remote": remote}
+
+
+def engine_of(model, state, mesh):
+    return serve.ServeEngine(model, state, serve.ServeConfig(slots=SLOTS, max_len=P + G,
+                                                             max_gen=G), mesh=mesh)
+
+
 def serve_waves(model, state, k_groups, mesh):
     """``waves`` on the port's engine, with the groups it holds."""
-    eng = serve.ServeEngine(model, state, serve.ServeConfig(slots=SLOTS, max_len=P + G,
-                                                            max_gen=G), mesh=mesh)
+    eng = engine_of(model, state, mesh)
     out = waves(eng, lambda base: requests(model.cfg, k_groups, base))
     out["held"] = [int(trees.leaves(eng._stacked)[0].shape[0]),
                    int(trees.leaves(eng.sl.caches)[0].shape[0]), int(eng.sl.out.shape[0])]
@@ -129,8 +169,19 @@ def main() -> int:
         ref = pickle.load(f)
     model = build(config())
     state = state_of(model, k_groups, ref)
-    out = {"mesh": serve_waves(model, state, k_groups, make_client_mesh(device="cpu")),
-           "groups": len(state.models.keys())}
+    mesh = make_client_mesh(device="cpu")
+    placed = placed_state(state, mesh)
+    out = {"mesh": serve_waves(model, placed, k_groups, mesh),
+           "groups": len(state.models.keys()), "bank": bank_of(placed)}
+    # the whole state saved, loaded back onto a fresh state with only this
+    # rank's rows, and its first wave served
+    ck = os.path.join(root, f"ck_{tag}_r{rank}")
+    save_server_state(ck, state)
+    loaded = load_server_state(ck, fresh_state(model, ref), mesh=mesh)
+    eng = engine_of(model, loaded, mesh)
+    routes = eng.submit_many(requests(model.cfg, k_groups))
+    out["loaded"] = {"first": flat(eng.run()), "bank": bank_of(loaded),
+                     "routes": [(rt.root, rt.similarity, rt.accepted) for rt in routes]}
     if rank == 0:
         out["nomesh"] = serve_waves(model, state, k_groups, None)
         loop = serve.SequentialLoop(model, state, max_len=P + G, max_gen=G)

@@ -14,11 +14,18 @@ contract.
   starts from 15 clients, so that its cohorts (8 of 15, 16 and 15 live
   clients) split too; 10 clients (cohorts of 5) hold the fallback.
 - The cases: all six strategies eager and through ``run_rounds``, churn
-  boundaries, a checkpoint saved at one world size and resumed at another
-  (and with no mesh), a cohort that does not divide the ranks, a ragged
-  arena, async rounds, ``psum_segments`` against the dense sum and its
-  fallback; and, for each strategy, the world of one against the JAX
-  engine under ``repro.launch.mesh.make_client_mesh(1)`` within 1e-5.
+  boundaries, a churn cycle that doubles the arena and compacts it, a
+  checkpoint saved at one world size and resumed at another (and with no
+  mesh), a cohort that does not divide the ranks, a ragged arena, async
+  rounds, ``psum_segments`` against the dense sum and its fallback; and,
+  for each strategy, the world of one against the JAX engine under
+  ``repro.launch.mesh.make_client_mesh(1)`` within 1e-5.
+- The arena's rows live on their owners: at 2 and 4 ranks each rank holds
+  capacity / N rows, the ranks together hold every live row once, bit for
+  bit the row of the arena without a mesh, before and after growth and
+  compaction; StoCFL's Ψ runs on each rank for its slice's new clients
+  only (eagerly) or its slice (in a span), and every rank observes the
+  same Ψ rows.
 
 Each world is a set of processes (``tests/_torch_mesh_worker.py``) that
 join through a ``FileStore`` under the test's temporary directory, run
@@ -90,6 +97,7 @@ def _inputs():
     return {"params": _numpy(params), "clients": clients, "ragged": ragged,
             "churn": clients[:15], "ten": _fed(n_clients=10),
             "extra": _fed(n_clients=14, seed=9)[12],
+            "extras": _fed(n_clients=14, seed=9)[9:12],
             "ifca": {int(m): _numpy(ifca.models[m]) for m in ifca.models.roots},
             "psum": {"stacked": {"w": rng.normal(size=(16, 5, 3)).astype(np.float32),
                                  "b": rng.normal(size=(16, 7)).astype(np.float32)},
@@ -239,11 +247,91 @@ def test_cohort_that_does_not_divide(worlds, name, world):
 def test_cohorts_split_over_the_ranks(worlds, name, world):
     """At 2 and 4 ranks every strategy's eager rounds and spans split their
     cohorts (8 rows; CFL's 16) and sum partials with ``all_reduce`` on
-    every rank; FedAvg's cohort of 5, which does not divide, makes none."""
+    every rank; FedAvg's cohort of 5, which does not divide, makes none.
+    (Every gather from the arena, whose rows live on their owners, is one
+    ``all_reduce`` a leaf: the worker counts those apart, as row moves.)"""
     for rank in worlds[world]:
         assert rank[f"eager/{name}/mesh/collectives"] > 0
         assert rank[f"scan/{name}/mesh/collectives"] > 0
         assert rank["nondiv/fedavg/mesh/collectives"] == 0
+        assert rank[f"eager/{name}/mesh/row_moves"] > 0
+        assert rank["nondiv/fedavg/mesh/row_moves"] > 0
+
+
+@pytest.mark.parametrize("name,world", [(n, w) for n in ("stocfl", "fedavg")
+                                        for w in WORLDS])
+def test_churn_cycle_grows_and_compacts(worlds, name, world):
+    """3 joins past the arena's capacity (it doubles) and 10 leaves past
+    ``compact_frac`` (it compacts, and its live rows change owners), with
+    spans between: the run without a mesh."""
+    _hold(worlds, f"cycle/{name}", world)
+    after = worlds[world][0][f"cycle/{name}/mesh/layout"][1]
+    assert after["n_rows"] == 8 and after["capacity"] == 8, after
+
+
+def _held_once(ranks, ref):
+    """The ranks' arena layouts against ``ref``, the arena without a mesh:
+    each rank holds capacity / N rows, every row it holds is its own
+    (global row mod N), and together they hold every live row once, bit
+    for bit the reference's."""
+    world = len(ranks)
+    held = {}
+    for r, lay in enumerate(ranks):
+        assert lay["live"] == ref["live"]
+        assert lay["capacity"] % world == 0
+        assert lay["held"] == lay["mask_rows"] == lay["capacity"] // world
+        for cid, (row, data) in lay["rows"].items():
+            assert row % world == r and cid not in held, (r, cid, row)
+            held[cid] = data
+    assert sorted(held) == ref["live"]
+    for cid, (_row, want) in ref["rows"].items():
+        for k in want:
+            assert np.array_equal(held[cid][k], want[k]), (cid, k)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_arena_rows_live_on_their_owners(worlds, world):
+    """At init (16 clients) and through the churn cycle (18 rows in 32
+    after the joins, 8 after compaction): each rank's rows are its stride
+    of the capacity, capacity / N of them, and the ranks hold every live
+    row once."""
+    ref = worlds[1][0]
+    _held_once([w["layout/mesh"] for w in worlds[world]], ref["layout/nomesh"])
+    for name in ("stocfl", "fedavg"):
+        for turn in (0, 1):
+            _held_once([w[f"cycle/{name}/mesh/layout"][turn] for w in worlds[world]],
+                       ref[f"cycle/{name}/nomesh/layout"][turn])
+    if world > 1:
+        assert worlds[world][0]["layout/mesh"]["held"] == 16 // world
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_psi_runs_on_the_rank_of_the_slice(worlds, world):
+    """StoCFL's Ψ calls on each rank: eagerly, the new clients of its slice
+    of each cohort (the world's ranks together: the run without a mesh's);
+    in a span, its slice of every cohort (8 / N of the 8 rows a round)."""
+    ranks = [w["psi"] for w in worlds[world]]
+    for psi in ranks:
+        calls, want = psi["eager/True"]
+        assert calls == want, psi
+        calls, want = psi["scan/True"]
+        assert calls == want == 5 * 8 // world, psi
+    nomesh = worlds[1][0]["psi"]["eager/False"][0]
+    assert sum(p["eager/True"][0] for p in ranks) == nomesh
+
+
+@pytest.mark.parametrize("case", ["eager/stocfl", "scan/stocfl", "churn/stocfl",
+                                  "cycle/stocfl"])
+@pytest.mark.parametrize("world", (2, 4))
+def test_every_rank_observes_the_same_reps(worlds, case, world):
+    """The Ψ rows each rank observed, from whichever rank took them, are the
+    same bits on every rank and the rows of the run without a mesh."""
+    ref = worlds[1][0][f"{case}/nomesh"]
+    for snaps in (w[f"{case}/mesh"] for w in worlds[world]):
+        for want, got in zip(ref, snaps, strict=True):
+            assert set(want["reps"]) == set(got["reps"])
+            for c in want["reps"]:
+                assert np.array_equal(want["reps"][c], got["reps"][c]), (case, c)
 
 
 @pytest.mark.parametrize("world", WORLDS)

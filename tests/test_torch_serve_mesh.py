@@ -24,7 +24,11 @@ client mesh. The test holds:
   ``stats()`` and the routes equal it exactly;
 - each rank holds the ``row_split`` of the groups: K / ranks stacked
   models, cache lanes and output rows where that divides, all K
-  otherwise;
+  otherwise; its bank, placed as ``build_server_state(mesh=...)`` places
+  it, holds those groups' models alone, and ``cluster_model`` of another
+  rank's group raises naming that rank;
+- a state loaded with ``load_server_state(..., mesh=...)`` holds the same
+  rows and serves the same routes and tokens;
 - after ``reset`` the second wave repeats the first wave's tokens.
 """
 import os
@@ -227,6 +231,37 @@ def test_each_rank_holds_its_share_of_the_groups(worlds, world, k):
     for r in worlds[(world, k)]:
         assert r["mesh"]["held"] == [share] * 3
     assert worlds[(world, k)][0]["nomesh"]["held"] == [k] * 3
+
+
+@pytest.mark.parametrize("world,k", WORLDS, ids=IDS)
+def test_each_rank_bank_holds_its_groups_only(worlds, world, k):
+    """The placed bank (built and loaded): K / ranks rows where K divides
+    the ranks, the rank's contiguous share of the sorted roots, and every
+    other root raising ``RemoteRowError`` that names its rank; the whole
+    bank on every rank otherwise."""
+    split = k % world == 0
+    share = k // world if split else k
+    for r, res in enumerate(worlds[(world, k)]):
+        for bank in (res["bank"], res["loaded"]["bank"]):
+            roots = [root for root, _, _ in res["mesh"]["routes"]]
+            order = sorted(set(roots))
+            mine = order[r * share:(r + 1) * share] if split else order
+            # a whole bank's rows are K and its spare rows up to a power of two
+            assert bank["holds"] == mine, bank
+            assert bank["rows"] == share if split else bank["rows"] >= k, bank
+            assert sorted(bank["remote"]) == sorted(set(order) - set(mine))
+            for root, msg in bank["remote"].items():
+                assert msg is not None and f"rank {order.index(root) // share} " in msg, msg
+
+
+@pytest.mark.parametrize("world,k", WORLDS, ids=IDS)
+def test_loaded_state_serves_the_same_tokens(worlds, world, k):
+    """``load_server_state(..., mesh=...)``'s state serves the first wave as
+    the built state does: the same routes, and the same tokens bit for
+    bit on every rank."""
+    for res in worlds[(world, k)]:
+        assert res["loaded"]["routes"] == res["mesh"]["routes"]
+        _same(res["mesh"]["first"], res["loaded"]["first"])
 
 
 @pytest.mark.parametrize("world,k", WORLDS, ids=IDS)
