@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nineteen phases, each printing its lines; any failure exits non-zero and
+Twenty phases, each printing its lines; any failure exits non-zero and
 prints no result.
 
 1. Build: compile the CUDA kernels of ``kernels/csrc`` with nvcc.
@@ -234,7 +234,14 @@ prints no result.
    for bit): paths 1 and 2 for 2 eager rounds, both ranks
    bitwise equal after every round, integers exact and floats within rtol
    2e-5, atol 1e-6 of (a)'s no-mesh rounds, each K1 launch on the rank's
-   20 of the 40 cohort rows; ``run_rounds`` refused. (c) Beside (b),
+   20 of the 40 cohort rows; ``run_rounds`` refused. (a) and (b) also run
+   4 ``run_round_async`` rounds of path 1 over a buffer of 64 rows that
+   round 1 doubles, with late reports and a flush every 2nd round: on (a)'s
+   rank bitwise equal to no mesh; on (b)'s each rank holds half the rows
+   and bytes (``AsyncBuffer.place``: slot s on rank s mod 2), both ranks'
+   states and gathered buffers bitwise equal, each write's rows bit for bit
+   at their slots, against (a)'s no-mesh rounds within the tolerance
+   above; their K1 launches are counted. (c) Beside (b),
    ``torchrun --nproc_per_node 1 chip_smoke.py --train16``: ``launch.train.main``
    with ``--mesh`` on the rotated setting (4 clusters, ARI 1) and on
    falcon-mamba smoke with ``use_pallas``. Every rank's launches are
@@ -294,6 +301,20 @@ prints no result.
    ``sanitize.nan_guard``: K1 fed a NaN gradient raises naming
    ``prox_update``, one clean path-1 round raises nothing. The children's
    launches are added to the kernels line.
+20. The dry run for H100 meshes (``repro_torch.launch.dryrun``), in a
+   ``chip_smoke.py --dryrun20`` child started after phase 8's child and
+   run beside phases 9-16 (phase 17 waits for it: its ranks fill the
+   card): on fake CUDA tensors over a fake process group of 512
+   ranks, qwen2-1.5b on the (32, 8) mesh at all four shapes and
+   falcon-mamba-7b train_4k on the (2, 32, 8) mesh with ``use_pallas``,
+   probes extrapolated; one line per record (a model of a 256- or 512-GPU
+   cluster, not a measurement), each ``ok``; K1 and K5 seen as one op each
+   on a 2-layer falcon-mamba trace; 17a's configuration on a 1 x 1 fake
+   mesh, its predicted peak (arguments + temp) beside the measured peak of
+   17a's first mesh train step alone, and its predicted temp beside that
+   of 17a's step on arguments placed beforehand; and qwen2-1.5b's and
+   falcon-mamba's smoke configs, a train step without a mesh traced and
+   then run on the card in the child, predicted peak beside measured.
 
 ``[sanitize]`` lines (``repro_torch.analysis.sanitize``, no phase of their
 own): 11c-d's replays-only ``run_rounds`` span under ``no_transfer()`` and
@@ -311,6 +332,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -4274,6 +4296,97 @@ def _mesh_span(mesh, cfg):
     return mesh_snapshot(final), walls, dict(program.per_round), launched
 
 
+MESH_ASYNC_CFG = dict(buffer_capacity=64, flush_every=2, staleness_cap=3)
+MESH_ASYNC_ROUNDS = 4           # 16a / 16b: async rounds; round 1 doubles the 64 rows
+
+
+def _async_delays(t: int, m: int):
+    """Round ``t``'s report-back delays for a cohort of ``m``: late
+    reports in rounds 0, 1 and 3, none in round 2."""
+    import numpy as np
+    return (np.arange(m) % (3, 2, 1, 3)[t % 4]).astype(np.int64)
+
+
+def _buffer_digest(buf) -> str:
+    """sha256 of the buffer's row banks gathered whole (a collective: every
+    rank calls it), leaves in sorted order."""
+    import hashlib
+
+    from repro_torch.utils import trees
+    whole, h = buf.gathered(), hashlib.sha256()
+    for c in ("payload", "aux", "psi"):
+        for x in ([] if getattr(whole, c) is None else trees.leaves(getattr(whole, c))):
+            h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def recording_buffer_writes():
+    """Within the block, each ``AsyncBuffer.write`` / ``write_psi`` call's
+    slots and its rows gathered whole from every rank's slice (a
+    collective) are appended to the yielded list, as (slots, {component:
+    tree})."""
+    from repro_torch.engine.async_agg import AsyncBuffer
+    real_write, real_psi, writes = AsyncBuffer.write, AsyncBuffer.write_psi, []
+
+    def write(self, slots, payload, aux=None, split=None):
+        whole = lambda t: t if split is None or not split.sharded else split.gather(t)
+        rows = {"payload": whole(payload)}
+        if aux is not None:
+            rows["aux"] = whole(aux)
+        writes.append((list(map(int, slots)), rows))
+        return real_write(self, slots, payload, aux, split)
+
+    def write_psi(self, slots, rows):
+        import torch
+        writes.append((list(map(int, slots)), {"psi": rows.to(torch.float32)}))
+        return real_psi(self, slots, rows)
+
+    AsyncBuffer.write, AsyncBuffer.write_psi = write, write_psi
+    try:
+        yield writes
+    finally:
+        AsyncBuffer.write, AsyncBuffer.write_psi = real_write, real_psi
+
+
+def _mesh_async(mesh, cfg):
+    """16a / 16b's async run: MESH_ASYNC_ROUNDS ``run_round_async`` rounds of
+    the main setting on ``mesh`` (None: no mesh) over a buffer of 64 rows
+    that round 1 doubles, flushes every 2nd round. After each round: the
+    snapshot, the buffer rows and bytes this rank holds, the entries, the
+    whole buffer's digest, and whether the whole buffer holds, at each of
+    the round's writes' slots, the row written there bit for bit. Returns
+    (rounds, launches)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import engine
+    from repro_torch.kernels import _build
+    from repro_torch.utils import trees
+    clients, _, params, loss, _cfg = main_setting()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    acfg = engine.AsyncConfig(**MESH_ASYNC_CFG)
+    state = engine.init("stocfl", loss, params, clients, dataclasses.replace(cfg, async_cfg=acfg),
+                        device=dev, arena=True, mesh=mesh)
+    _zero_counts()
+    rounds = []
+    for t in range(MESH_ASYNC_ROUNDS):
+        with recording_buffer_writes() as writes:
+            state, rec = engine.run_round_async(state, delays=_async_delays(t, 40))
+        buf, whole = state.buffer, state.buffer.gathered()
+        moved = all(torch.equal(torch.index_select(w, 0, torch.as_tensor(slots, device=dev)),
+                                r.to(w.dtype))
+                    for slots, rows in writes for c, tree in rows.items()
+                    for w, r in zip(trees.leaves(getattr(whole, c)), trees.leaves(tree)))
+        del whole, writes
+        rounds.append({"snap": mesh_snapshot(state), "held": buf.held,
+                       "capacity": buf.capacity, "nbytes": buf.nbytes,
+                       "entries": [tuple(e) for e in buf.entries],
+                       "digest": _buffer_digest(buf), "moved_bitwise": moved,
+                       "merged": rec.get("merged")})
+    return rounds, {k: v for k, v in _build.launch_counts().items() if v}
+
+
 def ordered_add_check(dev, deterministic):
     """The fixed-order segment add (``sharding.ordered_index_add_``)
     against ``index_add_`` at the cohort aggregate's shape (40 rows of
@@ -4358,7 +4471,10 @@ def mesh_rank_main(spec) -> int:
                                 ("span", _mesh_span, paths["path2"])):
             args = (pcfg, MESH_ROUNDS) if run is _mesh_eager else (pcfg,)
             out[name] = [{"nomesh": run(None, *args), "mesh": run(mesh, *args)}]
+        out["async"] = {"nomesh": _mesh_async(None, paths["path1"]),
+                        "mesh": _mesh_async(mesh, paths["path1"])}
     else:
+        out["async"] = _mesh_async(mesh, paths["path1"])
         for name, pcfg in paths.items():
             with recording_k1_sizes() as sizes:
                 out[name] = _mesh_eager(mesh, pcfg, MESH_ROUNDS)
@@ -4589,6 +4705,23 @@ def phase_mesh(smi):
           f"call ms: no mesh {span(f['nomesh'])}, mesh {span(f['mesh'])} ({smi}); launches a "
           f"mesh call {launched}")
 
+    # --- 16a's async rounds: the buffer on one rank's mesh against no mesh
+    an, (am, launched) = a["async"]["nomesh"][0], a["async"]["mesh"]
+    for x, y in zip(an, am, strict=True):
+        mesh_match(x["snap"], y["snap"], exact=True)
+        assert (x["digest"], x["entries"]) == (y["digest"], y["entries"])
+        assert y["held"] == y["capacity"] == x["capacity"] and y["nbytes"] == x["nbytes"], y
+        assert x["moved_bitwise"] and y["moved_bitwise"]
+    caps = [x["capacity"] for x in an]
+    assert caps[:2] == [64, 128] and sum(x["merged"] or 0 for x in an) > 0, an
+    assert launched["prox_update.launches"] == MESH_ASYNC_ROUNDS * 5, launched
+    _add(total, launched, names)
+    print(f"[mesh16a] async: {MESH_ASYNC_ROUNDS} run_round_async rounds of path 1 "
+          f"({MESH_ASYNC_CFG}, late reports in rounds 0, 1, 3), without and with the mesh, "
+          f"bitwise equal (states, entries, the buffer's rows); capacity by round {caps}, "
+          f"merged {[x['merged'] for x in an]}; the rank holds {am[-1]['held']} of "
+          f"{am[-1]['capacity']} rows, {am[-1]['nbytes'] / 1e6:.2f} MB; launches {launched}")
+
     # --- 16b: two ranks on the one card under gloo, while 16c's two
     # torchrun runs (the training driver) start up and run beside them
     runs = [start_train16(TRAIN16, "train16", root),
@@ -4630,6 +4763,28 @@ def phase_mesh(smi):
               f"deterministic algorithms; against "
               f"16a's no-mesh rounds integers exact, floats max |diff| {worst:.3e} "
               f"(rtol {MESH_RTOL:g}, atol {MESH_ATOL:g})")
+    worst = 0.0
+    for r, res in enumerate(ranks):
+        rounds, launched = res["async"]
+        for t, (x, y) in enumerate(zip(an, rounds, strict=True)):
+            worst = max(worst, mesh_match(x["snap"], y["snap"], exact=False))
+            mesh_match(ranks[0]["async"][0][t]["snap"], y["snap"], exact=True)
+            assert y["digest"] == ranks[0]["async"][0][t]["digest"], (r, t)
+            assert y["entries"] == x["entries"] and y["capacity"] == x["capacity"], (r, t)
+            assert 2 * y["held"] == y["capacity"] and 2 * y["nbytes"] == x["nbytes"], (r, y)
+            assert y["moved_bitwise"], (r, t)
+        assert launched["prox_update.launches"] == MESH_ASYNC_ROUNDS * 5, launched
+        _add(total, launched, names)
+        print(f"[mesh16b] async rank {r}: the buffer's rows on their owners, "
+              + ", ".join(f"round {t}: {y['held']} of {y['capacity']} rows, "
+                          f"{y['nbytes'] / 1e6:.2f} MB (16a {x['nbytes'] / 1e6:.2f} MB)"
+                          for t, (x, y) in enumerate(zip(an, rounds)))
+              + f"; launches {launched}")
+    print(f"[mesh16b] async: both ranks' states and gathered buffers bitwise equal after every "
+          f"round; each write's rows at their slots bit for bit; against 16a's no-mesh rounds "
+          f"entries and integers exact, floats max |diff| {worst:.3e} (rtol {MESH_RTOL:g}, "
+          f"atol {MESH_ATOL:g}: the cohort trains in slices of 20 and a flush sums partial "
+          f"sums)")
     for r, res in enumerate(ranks):
         assert res["backend"] == "gloo" and res["refused"] and res["refused"] == res["blocker"]
     print(f"[mesh16b] run_rounds on the gloo group refused: {ranks[0]['refused']!r}")
@@ -4768,19 +4923,47 @@ def steps17a():
     _, out["train_ms2"] = _timed(lambda: plain_step(theta, omega, batch) and None)
     train = bind("train", STEPS_SEQ)
     _zero_counts()
-    with recording_first_k1() as rec:
-        got, out["train_mesh_ms"] = _timed(lambda: train.fn(theta, omega, batch))
+    # the first mesh step's own peak, from what is live before it (its
+    # arguments), against which phase 20 holds the dry run's prediction;
+    # the K1 record is taken on the second step, after this peak is read
+    peak_plain = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out["step_base"] = torch.cuda.memory_allocated()
+    got, out["train_mesh_ms"] = _timed(lambda: train.fn(theta, omega, batch))
+    out["step_peak"] = torch.cuda.max_memory_allocated()
     out["train_bitwise"] = _bitwise(on_host(got), plain)
     out["losses"] = {k: float(v.full_tensor()) for k, v in got[2].items()}
     del got
-    _, out["train_mesh_ms2"] = _timed(lambda: train.fn(theta, omega, batch) and None)
+    with recording_first_k1() as rec:
+        _, out["train_mesh_ms2"] = _timed(lambda: train.fn(theta, omega, batch) and None)
     out["launches"] = {k: v for k, v in _build.launch_counts().items() if v}
     th, om, gt, go, eta, lam, kt, ko = rec[0]
     pt, po = ref.prox_update_ref_(th.clone(), om.clone(), gt, go, eta, lam)
     out["k1"] = {"n": th.numel(), "bitwise": torch_equal(kt, pt) and torch_equal(ko, po),
                  "max_abs_err": float(max((kt - pt).abs().max(), (ko - po).abs().max()))}
     del plain, rec, th, om, gt, go, kt, ko, pt, po
-    out["peak_train"] = torch.cuda.max_memory_allocated()
+    # a third mesh step, on arguments placed beforehand: the step the dry
+    # run models (its arguments already in their shardings, as the
+    # reference's compiled step takes them), where the steps above first
+    # place whole tensors, a copy of them; its launches are not counted.
+    # What the steps above left to the cyclic collector is freed first, so
+    # that it is not freed inside the step and taken off its peak
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    out["gc_freed"] = held - before
+    placed = [steps._put_tree(x, sh) for x, sh in zip((theta, omega, batch),
+                                                       train.in_shardings)]
+    torch.cuda.synchronize()
+    out["placed_bytes"] = torch.cuda.memory_allocated() - before
+    torch.cuda.reset_peak_memory_stats()
+    out["placed_base"] = torch.cuda.memory_allocated()
+    got = train.fn(*placed)
+    torch.cuda.synchronize()
+    out["placed_peak"] = torch.cuda.max_memory_allocated()
+    del got, placed
+    out["peak_train"] = max(peak_plain, torch.cuda.max_memory_allocated())
 
     (logits, cache), out["prefill_ms"] = _timed(lambda: steps.prefill_step(model)(theta, batch))
     (mlogits, mcache), out["prefill_mesh_ms"] = _timed(
@@ -4811,7 +4994,7 @@ def steps17a():
     mpsi, out["repr_mesh_ms"] = _timed(lambda: bind("repr", STEPS_SEQ).fn(theta, batch))
     out["repr_bitwise"] = _bitwise(psi, mpsi)
     out["repr_finite"] = all(bool(torch.isfinite(x).all()) for x in trees.leaves(psi))
-    out["peak"] = torch.cuda.max_memory_allocated()
+    out["peak"] = max(out["peak_train"], torch.cuda.max_memory_allocated())
     return out
 
 
@@ -4977,7 +5160,8 @@ def phase_steps_mesh(smi):
     print(f"[steps17a] train (StoCFL bi-level step, both gradients, K1 on the local shards): "
           f"no mesh {a['train_ms']:.1f} / {a['train_ms2']:.1f} ms, mesh "
           f"{a['train_mesh_ms']:.1f} / {a['train_mesh_ms2']:.1f} ms (host clock, first / "
-          f"second call; {smi}); the first call's outputs bitwise equal {a['train_bitwise']}; "
+          f"second call, the second with the K1 record; {smi}); the first call's outputs "
+          f"bitwise equal {a['train_bitwise']}; "
           f"losses {a['losses']}; launches on the two mesh steps {a['launches']}")
     k1 = a["k1"]
     print(f"[steps17a] K1 on the mesh step's first launch's operands (n={k1['n']}): bitwise "
@@ -4992,6 +5176,10 @@ def phase_steps_mesh(smi):
           f"mesh {a['repr_mesh_ms']:.1f} ms; bitwise equal {a['repr_bitwise']}, finite "
           f"{a['repr_finite']}")
     print(f"[steps17a] peak device memory {gb(a['peak'])} (after train {gb(a['peak_train'])}; "
+          f"the first mesh train step alone {gb(a['step_peak'])} from {gb(a['step_base'])} "
+          f"live before it; a third on arguments placed beforehand ({gb(a['placed_bytes'])}) "
+          f"{gb(a['placed_peak'])} from {gb(a['placed_base'])}, after gc.collect() freed "
+          f"{gb(a['gc_freed'])}; "
           f"torch.cuda.max_memory_allocated; {smi})")
     assert a["train_bitwise"] and a["prefill_bitwise"] and all(a["decode_bitwise"])
     assert a["repr_bitwise"] and a["repr_finite"] and k1["bitwise"]
@@ -5030,7 +5218,7 @@ def phase_steps_mesh(smi):
     assert ranks[1][0]["tokens"] == ranks[2][0]["tokens"]
     shutil.rmtree(root, ignore_errors=True)
     print(f"[steps17] phase 17 took {time.perf_counter() - t_phase:.1f} s")
-    return a["launches"].get("prox_update.launches", 0)
+    return a["launches"].get("prox_update.launches", 0), a
 
 
 # ----------------------------------------------------------------- phase 18
@@ -5868,6 +6056,169 @@ def phase_19(dev, smi, bw, screen, warm_runs):
             for k in ("prox_update", "cosine_sim")}
 
 
+# ----------------------------------------------------------------- phase 20
+DRY20_FLAG = "--dryrun20"         # runs dryrun20_main, phase 20's child
+DRY20_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+DRY20_TIMEOUT_S = 900
+DRY20_SMALL = ("qwen2-1.5b", "falcon-mamba-7b")   # smoke configs, traced and run on the card
+DRY20_SMALL_BATCH, DRY20_SMALL_SEQ = 4, 64
+
+
+def dryrun20_main(spec) -> int:
+    """Phase 20's child (``chip_smoke.py --dryrun20 SPEC``): the dry run
+    (``repro_torch.launch.dryrun``) on fake CUDA tensors over a fake world
+    of 512 ranks, probes extrapolated: qwen2-1.5b on the single (32, 8)
+    mesh for all four shapes, falcon-mamba-7b train_4k on the multi (2,
+    32, 8) mesh with ``use_pallas`` (K1, K5 and the ``pod`` axis); one
+    2-layer falcon-mamba trace on that mesh, whose hand-written kernels'
+    ops are counted; and 17a's own configuration (qwen2-1.5b full width in
+    fp32, 2 x 256 tokens) on a 1 x 1 fake mesh, its predicted peak. Writes
+    the results as JSON to ``spec["out"]``."""
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh, make_production_mesh
+    from repro_torch.models.config import INPUT_SHAPES, InputShape
+    from repro_torch.utils import trees
+
+    t0 = time.perf_counter()
+    single = make_production_mesh(device="cuda")
+    multi = make_production_mesh(multi_pod=True, device="cuda")
+    recs = [dryrun.run_one("qwen2-1.5b", s, False, None, mesh=single) for s in DRY20_SHAPES]
+    recs.append(dryrun.run_one("falcon-mamba-7b", "train_4k", True, None, mesh=multi,
+                               overrides={"use_pallas": True}))
+    cfg = get_config("falcon-mamba-7b").with_(n_layers=2, use_pallas=True)
+    kernels = dryrun.trace_step(cfg, INPUT_SHAPES["train_4k"], multi, "train")["kernels"]
+    cfg17, _ = serve_setting("qwen2-1.5b")
+    one = fake_mesh((1, 1), ("data", "model"), "cuda")
+    m17 = dryrun.trace_step(cfg17, InputShape("train", STEPS_SEQ, STEPS_BATCH, "train"), one,
+                            "train")
+    mem = ("argument_bytes", "temp_bytes", "output_bytes")
+    out = {"records": recs, "kernels": kernels, "patched": dryrun.patched_sites(),
+           "pred17": {k: m17[k] for k in mem}, "kernels17": m17["kernels"],
+           "seconds": time.perf_counter() - t0, "torch": torch.__version__,
+           "cuda_allocated": torch.cuda.memory_allocated(), "small": {}}
+    # the memory model on real tensors: smoke configs' train steps without a
+    # mesh, traced and then run on the card (a few MB beside the phases the
+    # parent runs; this process's peak counter is its own)
+    for arch in DRY20_SMALL:
+        cfg, model = serve_setting(arch, smoke=True)
+        shape = InputShape("train", DRY20_SMALL_SEQ, DRY20_SMALL_BATCH, "train")
+        pred = dryrun.trace_step(cfg, shape, None, "train", device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        theta = model.init(g, "cuda")
+        omega = trees.tree_map(lambda x: x.clone(), theta)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (DRY20_SMALL_BATCH, DRY20_SMALL_SEQ),
+                                         generator=g, device="cuda", dtype=torch.int32)}
+        step = dryrun._unbound(model, "train", 0.1, 0.05)
+        step(theta, omega, batch)                       # the kernels' first launch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = step(theta, omega, batch)
+        torch.cuda.synchronize()
+        out["small"][arch] = {"pred": {k: pred[k] for k in mem}, "base": base,
+                              "peak": torch.cuda.max_memory_allocated()}
+        del res, theta, omega, batch
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def start_dryrun20():
+    """Start phase 20's child after phase 8's child, beside phases 9-16
+    (it needs the host, a core, and on the card only its context, which
+    phase 8's and 17's near-full card should not have to hold);
+    returns (process, results path, start time)."""
+    import tempfile
+    sys.stdout.flush()
+    root = tempfile.mkdtemp(prefix="dryrun20_")
+    out = os.path.join(root, "dryrun20.json")
+    with open(os.path.join(root, "log.txt"), "wb") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), DRY20_FLAG,
+                                 json.dumps({"out": out})], stdout=log, stderr=subprocess.STDOUT)
+    return proc, out, time.perf_counter()
+
+
+def stop_child(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def finish_dryrun20(dry_run) -> dict:
+    """Wait for phase 20's child (before phase 17, whose ranks fill the
+    card) and read its results; the seconds waited are added."""
+    proc, path, t_start = dry_run
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=max(DRY20_TIMEOUT_S - (t0 - t_start), 1.0))
+    except subprocess.TimeoutExpired:
+        stop_child(proc)
+        raise AssertionError(f"phase 20's child outlasted {DRY20_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        with open(os.path.join(os.path.dirname(path), "log.txt"), "rb") as f:
+            raise AssertionError(f"phase 20's child exited with {proc.returncode}:\n"
+                                 + f.read().decode(errors="replace")[-6000:])
+    with open(path) as f:
+        return dict(json.load(f), waited=time.perf_counter() - t0)
+
+
+def phase_dryrun(smi, res, a17):
+    """Phase 20: the dry run's records (a model of a cluster of 256 or 512
+    H100s, not a measurement), each ``ok``, and 17a's predicted peak beside
+    the peak its first mesh train step measured (``a17``, ``steps17a``'s
+    results: that step alone, from its arguments and what else was live)."""
+    gb = lambda n: f"{n / 1e9:.3f} GB"
+    print(f"[dryrun20] child (torch {res['torch']}): {res['seconds']:.1f} s beside phases "
+          f"9-16, waited {res['waited']:.1f} s before phase 17; DTensor internals patched "
+          f"{res['patched']}; its CUDA allocations {res['cuda_allocated']} bytes (fake "
+          f"tensors hold none)")
+    for r in res["records"]:
+        assert r["status"] == "ok", r
+        coll = r["collective_bytes_per_device"]
+        print(f"[dryrun20] {r['arch']} {r['shape']} {r['mesh']} ({r['variant']}, "
+              f"{r['n_devices']} {r['device']} ranks, {r['cost_source']}, trace "
+              f"{r['lower_s']} s + probes {r['probe_s']} s): per device FLOPs "
+              f"{r['flops_per_device']:.4e}, bytes {r['bytes_per_device']:.4e} (unfused), "
+              f"collective bytes {coll['total']:.4e} {r['collective_bytes_by_axis']}, "
+              f"arguments {gb(r['memory']['argument_bytes'])}, temp "
+              f"{gb(r['memory']['temp_bytes'])}; terms ms "
+              + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in r["terms"].items())
+              + f", dominant {r['dominant']}; useful FLOPs ratio {r['useful_flops_ratio']:.4f} "
+              f"(a model of a cluster of {r['n_devices']} H100s, not a measurement)")
+    k = res["kernels"]
+    print(f"[dryrun20] falcon-mamba-7b at 2 layers, train_4k, multi, use_pallas, on fake CUDA "
+          f"tensors: the hand-written kernels' ops {k} (each launch one op, its shape-only "
+          f"path)")
+    assert k.get("prox_update_", 0) > 0 and k.get("ssm_scan_fwd", 0) > 0, k
+    assert k.get("ssm_scan_bwd", 0) > 0, k
+    p = res["pred17"]
+    pred = p["argument_bytes"] + p["temp_bytes"]
+    base, peak = a17["step_base"], a17["step_peak"]
+    print(f"[dryrun20] 17a's configuration (qwen2-1.5b fp32, {STEPS_BATCH} x {STEPS_SEQ}, 1 x 1 "
+          f"mesh): predicted arguments {gb(p['argument_bytes'])} + temp {gb(p['temp_bytes'])} "
+          f"= {gb(pred)} against 17a's first mesh train step: {gb(base)} live before it, "
+          f"peak {gb(peak)}, temp {gb(peak - base)} (torch.cuda.max_memory_allocated; {smi}): "
+          f"predicted / measured peak {pred / peak:.4f}, arguments {p['argument_bytes'] / base:.4f}, "
+          f"temp {p['temp_bytes'] / (peak - base):.4f}; against its step on arguments "
+          f"placed beforehand (the dry run's model: {gb(a17['placed_bytes'])} placed), temp "
+          f"{gb(a17['placed_peak'] - a17['placed_base'])}: predicted / measured temp "
+          f"{p['temp_bytes'] / (a17['placed_peak'] - a17['placed_base']):.4f}, arguments "
+          f"{p['argument_bytes'] / a17['placed_bytes']:.4f}; K1 ops on the trace "
+          f"{res['kernels17']}")
+    for arch, x in res["small"].items():
+        q, base, peak = x["pred"], x["base"], x["peak"]
+        pred = q["argument_bytes"] + q["temp_bytes"]
+        print(f"[dryrun20] {arch} smoke, fp32, a train step of {DRY20_SMALL_BATCH} x "
+              f"{DRY20_SMALL_SEQ} tokens without a mesh: predicted arguments "
+              f"{q['argument_bytes']} + temp {q['temp_bytes']} bytes against {base} live before "
+              f"the step on the card and a peak of {peak} (temp {peak - base}; "
+              f"torch.cuda.max_memory_allocated): predicted / measured peak "
+              f"{pred / peak:.4f}, temp {q['temp_bytes'] / max(peak - base, 1):.4f}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5893,6 +6244,8 @@ def main() -> int:
         return steps18_rank_main(json.loads(sys.argv[2]))
     if sys.argv[1:2] == [WARM_FLAG]:
         return warm_start_main(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == [DRY20_FLAG]:
+        return dryrun20_main(json.loads(sys.argv[2]))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -5902,10 +6255,20 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    from repro_torch.kernels import cosine_sim, prox_update, resolve_roots
-
     marks = [("start", time.perf_counter())]
     mark = lambda tag: marks.append((tag, time.perf_counter()))
+    dry_run = []
+    try:
+        return _phases(dev, name, smi, marks, mark, t_start, dry_run)
+    finally:
+        for run in dry_run:
+            stop_child(run[0])
+
+
+def _phases(dev, name, smi, marks, mark, t_start, dry_run) -> int:
+    import torch
+
+    from repro_torch.kernels import cosine_sim, prox_update, resolve_roots
     phase_build()
     mark("1")
     kernels = phase_kernels(dev, card_peaks(name))
@@ -5944,6 +6307,7 @@ def main() -> int:
         kernels[k]["launches"] = launches3[k]
     phase_llm_parity(expect)
     mark("8 parity")
+    dry_run.append(start_dryrun20())
     phase_llm_smoke(dev)
     mark("9")
     kernels["prox_theta"]["launches"] = phase_baselines(dev)
@@ -5991,8 +6355,10 @@ def main() -> int:
     for k, n in phase_mesh(smi).items():
         kernels[k]["launches"] += n
     mark("16")
+    dry = finish_dryrun20(dry_run[0])
     hand_over_card("steps17")
-    kernels["prox_update"]["launches"] += phase_steps_mesh(smi)
+    k1_17, a17 = phase_steps_mesh(smi)
+    kernels["prox_update"]["launches"] += k1_17
     mark("17")
     hand_over_card("steps18")
     warm_runs = start_warm_pair()
@@ -6010,6 +6376,8 @@ def main() -> int:
     for k, n in phase_19(dev, smi, card_peaks(name)[0], screen, warm_runs).items():
         kernels[k]["launches"] += n
     mark("19")
+    phase_dryrun(smi, dry, a17)
+    mark("20")
     print("[phases] seconds: " + ", ".join(
         f"{tag} {t - marks[i][1]:.1f}" for i, (tag, t) in enumerate(marks[1:])))
     print(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")

@@ -217,10 +217,14 @@ _UNINITIALISED = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
                             "resize_", "resize_as_"})
 
 
-def _new_values(func, out):
+def _new_values(func, out, args=()):
     """The tensors among ``out`` that ``func`` wrote: fresh results and
-    in-place outputs, not views of its inputs."""
+    in-place outputs, not views of its inputs; for an op that returns
+    nothing, the arguments it writes (K1's ``repro_torch::prox_update_``)."""
     returns = func._schema.returns
+    if not returns:
+        return [a for a, spec in zip(args, func._schema.arguments)
+                if spec.alias_info is not None and spec.alias_info.is_write]
     if len(returns) == 1:
         alias = returns[0].alias_info
         if alias is not None and not alias.is_write:
@@ -240,7 +244,7 @@ class _NanMode(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         if func.overloadpacket.__name__ not in _UNINITIALISED:
-            events.check_nan(str(func), *[t for t in _new_values(func, out)
+            events.check_nan(str(func), *[t for t in _new_values(func, out, args)
                                              if isinstance(t, torch.Tensor)])
         return out
 

@@ -196,12 +196,15 @@ def save_server_state(dirpath: str, state, block: bool = True) -> Optional[Futur
         cluster_file, cluster_arrays = None, None
 
     # the async buffer: device rows to async_buffer.npz, the entries
-    # (slots, rounds, seq order, f32 weights) to the manifest
+    # (slots, rounds, seq order, f32 weights) to the manifest; rows held on
+    # their owners under a mesh are gathered whole first, on every rank, so
+    # the file is the one a run without a mesh writes
     buf = state.buffer
     buffer_arrays = None
     if buf is None:
         manifest["async_buffer"] = None
     else:
+        buf = buf.gathered()
         comps = [k for k, v in (("payload", buf.payload), ("aux", buf.aux),
                                 ("psi", buf.psi)) if v is not None]
         manifest["async_buffer"] = {
@@ -243,7 +246,8 @@ def load_server_state(dirpath: str, state, mesh=None):
     tensors (on the engine's device, in its dtypes), partition (on the
     engine's device too), history, rng position and async buffer. A
     checkpoint without an async buffer loads with ``buffer=None``. Under a
-    mesh every rank loads the same files onto its own context. With a
+    mesh every rank loads the same files onto its own context, and keeps
+    the buffer rows it owns (``AsyncBuffer.place`` on the engine's mesh). With a
     client-axis ``mesh`` given here (serving's: ``ServeEngine(mesh=...)``)
     the bank comes back placed (``ClusterBank.placed``): only the rows of
     this rank's ``row_split`` of the sorted roots reach the device."""
@@ -299,7 +303,7 @@ def load_server_state(dirpath: str, state, mesh=None):
             aux=parts.get("aux"), psi=parts.get("psi"),
             entries=tuple(_Entry(int(s), int(c), int(d), int(a), int(q), float(w))
                           for s, c, d, a, q, w in abm["entries"]),
-            next_seq=int(abm["next_seq"]))
+            next_seq=int(abm["next_seq"])).place(state.ctx.mesh)
     return state.replace(
         buffer=buffer, strategy=man["strategy"], round=man["round"],
         rng_state=man["rng_state"], rng_key=rng_key,

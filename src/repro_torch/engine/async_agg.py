@@ -37,6 +37,16 @@ that doubles on overflow; its entry bookkeeping stays on the host. Every
 transition returns a new buffer: a write copies the row bank it scatters
 into (once per dispatch, 0.31 GB at 256 rows of the 153,610-parameter
 MLP, θ and ω), so a state a transition started from keeps its rows.
+
+Under a client-axis mesh (``AsyncBuffer.place``) the row banks live on
+their owners, the client arena's layout (``sharding.RowOwners``): slot
+``s`` on rank ``s % N`` only, as its local row ``s // N``, so a rank
+holds ``capacity / N`` rows and copies only those at a write. A write
+sends each cohort row from the rank whose slice of the cohort trained it
+to the slot's owner; a flush and the handshake's read gather their slots
+with one byte-sum ``all_reduce`` a leaf, bit for bit; a doubling is a
+zero-extension of every rank's own rows. Where the capacity does not
+divide the ranks, every rank keeps the whole bank.
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ from typing import Any, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.sharding.specs import RowOwners, place_buffer_rows, place_cohort, row_owners
 from repro_torch.utils import trees
 
 __all__ = ["AsyncConfig", "AsyncBuffer", "FlushBatch", "run_round_async",
@@ -123,30 +134,24 @@ def _slots(slots, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(np.asarray(slots, np.int64), device=like.device)
 
 
-def _zeros_rows(updates, capacity: int):
+def _zeros_rows(updates, rows: int):
     return trees.tree_map(
-        lambda u: u.new_zeros((capacity,) + tuple(u.shape[1:])), updates)
+        lambda u: u.new_zeros((rows,) + tuple(u.shape[1:])), updates)
 
 
-def _grow_rows(rows, capacity: int):
+def _grow_rows(rows, n: int):
     def leaf(r):
-        out = r.new_zeros((capacity,) + tuple(r.shape[1:]))
+        out = r.new_zeros((n,) + tuple(r.shape[1:]))
         out[: r.shape[0]].copy_(r)
         return out
 
     return trees.tree_map(leaf, rows)
 
 
-def _scatter_rows(rows, slots, updates):
-    """A copy of ``rows`` with ``updates`` written at ``slots``."""
-    idx = _slots(slots, trees.leaves(rows)[0])
-    return trees.tree_map(
-        lambda r, u: r.clone().index_copy_(0, idx, u.to(r.dtype)), rows, updates)
-
-
-def _gather_rows(rows, slots):
-    idx = _slots(slots, trees.leaves(rows)[0])
-    return trees.tree_map(lambda r: torch.index_select(r, 0, idx), rows)
+def _gather_rows(rows, slots, owners: RowOwners = RowOwners()):
+    """The rows at ``slots`` of a bank held as ``owners`` gives, whole on
+    every rank and bit for bit (``RowOwners.gather``)."""
+    return owners.gather(rows, _slots(slots, trees.leaves(rows)[0]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,7 +161,8 @@ class AsyncBuffer:
     Device rows: ``payload`` (trained per-client model rows: StoCFL's θᵢ,
     FedAvg's local params), ``aux`` (StoCFL's ωᵢ rows) and ``psi`` (fp32
     Ψ rows, the handshake the partition observes from), each a tree of
-    ``(capacity, ...)`` tensors made at the first write. Host
+    ``(capacity, ...)`` tensors made at the first write, or of ``(capacity
+    / N, ...)`` on a mesh's rank (``owners``, set by ``place``). Host
     bookkeeping: the in-flight entries (seq order) and the insertion
     counter."""
     capacity: int
@@ -165,6 +171,7 @@ class AsyncBuffer:
     psi: Any = None
     entries: Tuple[_Entry, ...] = ()
     next_seq: int = 0
+    owners: RowOwners = RowOwners()
 
     @classmethod
     def fresh(cls, capacity: int) -> "AsyncBuffer":
@@ -179,6 +186,17 @@ class AsyncBuffer:
     def in_flight(self) -> int:
         """Entries dispatched and not yet flushed."""
         return len(self.entries)
+
+    @property
+    def held(self) -> int:
+        """The rows of each bank this rank holds."""
+        return self.owners.held(self.capacity)
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes of the row banks this rank holds."""
+        return sum(x.numel() * x.element_size() for t in (self.payload, self.aux, self.psi)
+                   if t is not None for x in trees.leaves(t))
 
     def reserve(self, cids: Sequence[int], dispatch: int,
                 arrivals: Sequence[int], weights: Sequence[float]):
@@ -200,42 +218,64 @@ class AsyncBuffer:
                 np.asarray(free, np.int32))
 
     def _grow(self, capacity: int) -> "AsyncBuffer":
-        grow = lambda t: None if t is None else _grow_rows(t, capacity)
+        """The buffer at ``capacity`` rows. On its owners every rank
+        zero-extends its own rows (slot s stays at local row s // N); a
+        whole bank stays whole."""
+        grow = lambda t: None if t is None else _grow_rows(t, self.owners.held(capacity))
         return self.replace(capacity=capacity, payload=grow(self.payload),
                             aux=grow(self.aux), psi=grow(self.psi))
 
+    def _bank(self, rows, like):
+        return rows if rows is not None else _zeros_rows(like, self.held)
+
     def write_psi(self, slots, rows: torch.Tensor) -> "AsyncBuffer":
-        """Scatter the handshake's Ψ rows (fp32) into the Ψ bank."""
+        """Scatter the handshake's Ψ rows (fp32, every slot's row on every
+        rank) into the Ψ bank, each on its owner."""
         rows = rows.to(torch.float32)
-        psi = self.psi if self.psi is not None else _zeros_rows(rows, self.capacity)
-        return self.replace(psi=_scatter_rows(psi, slots, rows))
+        return self.replace(psi=self.owners.scatter(self._bank(self.psi, rows), slots, rows))
 
     def read_psi(self, slots) -> torch.Tensor:
-        """The Ψ rows at ``slots``, bit for bit what ``write_psi`` stored."""
-        return _gather_rows(self.psi, slots)
+        """The Ψ rows at ``slots`` on every rank, bit for bit what
+        ``write_psi`` stored."""
+        return _gather_rows(self.psi, slots, self.owners)
 
-    def write(self, slots, payload, aux=None) -> "AsyncBuffer":
+    def write(self, slots, payload, aux=None, split=None) -> "AsyncBuffer":
         """Scatter a dispatch's trained rows (leading axis = cohort) into
-        the buffer; the flush gathers them back bit for bit."""
-        p = self.payload if self.payload is not None else _zeros_rows(payload, self.capacity)
-        p = _scatter_rows(p, slots, payload)
+        the buffer; the flush gathers them back bit for bit. Under a mesh
+        ``payload`` / ``aux`` hold the rows of ``split``, this rank's
+        ``row_split`` of the cohort (``RowOwners.scatter`` sends each to its
+        slot's owner)."""
+        p = self.owners.scatter(self._bank(self.payload, payload), slots, payload, split)
         a = self.aux
         if aux is not None:
-            a = _scatter_rows(a if a is not None else _zeros_rows(aux, self.capacity),
-                              slots, aux)
+            a = self.owners.scatter(self._bank(a, aux), slots, aux, split)
         return self.replace(payload=p, aux=a)
 
     def place(self, mesh) -> "AsyncBuffer":
-        """The buffer on a client-axis mesh's rank. Every rank keeps every
-        row (each dispatch writes every rank's rows, gathered), so the row
-        banks only move to the rank's device; a flush's rows are split
-        over the ranks where they are merged (``run_round_async``,
-        ``sharding.place_buffer_rows``). No-op without a mesh."""
+        """A whole buffer (fresh, or loaded from a checkpoint) on a
+        client-axis mesh's rank: each row bank on its owners
+        (``sharding.place_buffer_rows``: slot s on rank s mod N, capacity /
+        N rows a rank, on the rank's device), or whole where the capacity
+        does not divide the ranks. A flush's rows are split over the ranks
+        where they are merged (``run_round_async``). No-op without a
+        mesh."""
         if mesh is None:
             return self
-        from repro_torch.sharding import specs
-        pl = lambda t: None if t is None else specs.place_replicated(t, mesh)
-        return self.replace(payload=pl(self.payload), aux=pl(self.aux), psi=pl(self.psi))
+        pl = lambda t: None if t is None else trees.tree_map(
+            lambda x: x.contiguous(), place_buffer_rows(t, mesh))
+        return self.replace(payload=pl(self.payload), aux=pl(self.aux), psi=pl(self.psi),
+                            owners=row_owners(self.capacity, mesh))
+
+    def gathered(self) -> "AsyncBuffer":
+        """This buffer with every row bank whole on every rank, bit for bit
+        (one ``RowOwners.gather`` a leaf; every rank calls it), as a
+        checkpoint writes it."""
+        if not self.owners.sharded:
+            return self
+        every = np.arange(self.capacity)
+        whole = lambda t: None if t is None else _gather_rows(t, every, self.owners)
+        return self.replace(payload=whole(self.payload), aux=whole(self.aux),
+                            psi=whole(self.psi), owners=RowOwners())
 
     def flush(self, t: int, staleness_cap: int, left=frozenset()):
         """Split the in-flight entries at round ``t`` into merged, kept and
@@ -245,7 +285,8 @@ class AsyncBuffer:
         ``t - dispatch <= staleness_cap``, gathered in seq order. Dropped
         stale: arrived entries over the cap, and entries whose delay alone
         exceeds it. Dropped left: entries of departed clients. Everything
-        else stays buffered."""
+        else stays buffered. On a mesh every rank receives the merged rows
+        whole (a byte-sum gather from their owners)."""
         merge, keep, stale, gone = [], [], [], []
         for e in self.entries:                   # seq order == draw order
             if e.arrival <= t:
@@ -267,8 +308,8 @@ class AsyncBuffer:
             return buf, None, drops
         idx = [e.slot for e in merge]
         batch = FlushBatch(
-            payload=_gather_rows(self.payload, idx),
-            aux=None if self.aux is None else _gather_rows(self.aux, idx),
+            payload=_gather_rows(self.payload, idx, self.owners),
+            aux=None if self.aux is None else _gather_rows(self.aux, idx, self.owners),
             cids=np.asarray([e.cid for e in merge], np.int64),
             weight=np.asarray([e.weight for e in merge], np.float32),
             staleness=np.asarray([t - e.dispatch for e in merge], np.int64))
@@ -298,8 +339,9 @@ def run_round_async(state, client_ids: Optional[Sequence[int]] = None, delays=No
 
     The record adds ``merged``, ``dropped_stale``, ``dropped_left``,
     ``in_flight`` and ``max_staleness`` to the strategy's metrics. Under a
-    client-axis mesh every rank keeps the whole buffer and merges its
-    slice of each flush (``AsyncBuffer.place``). Raises
+    client-axis mesh a fresh buffer is placed on its owners (each rank
+    holds capacity / N rows, ``AsyncBuffer.place``) and every rank merges
+    its slice of each flush. Raises
     ``NotImplementedError`` for strategies without async hooks (ditto,
     ifca, cfl) and ``ValueError`` on an empty cohort."""
     from repro_torch.engine.api import sample_clients
@@ -342,10 +384,9 @@ def run_round_async(state, client_ids: Optional[Sequence[int]] = None, delays=No
             if ctx.mesh is not None:
                 # this rank's slice of the flushed rows: the merge sums it
                 # and all-reduces the partial sums
-                from repro_torch.sharding import specs
                 batch = dataclasses.replace(
-                    batch, payload=specs.place_buffer_rows(batch.payload, ctx.mesh),
-                    aux=specs.place_buffer_rows(batch.aux, ctx.mesh))
+                    batch, payload=place_cohort(batch.payload, ctx.mesh),
+                    aux=place_cohort(batch.aux, ctx.mesh))
             w_eff = staleness_weights(batch.weight, batch.staleness, acfg.staleness_decay)
             state, srec = strat.async_merge(ctx, state, batch, w_eff)
             rec.update(srec)

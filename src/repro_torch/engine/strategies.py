@@ -562,8 +562,9 @@ class StoCFLStrategy(Strategy):
         reads them back from there; the cohort's (θᵢ, ωᵢ) rows land in
         ``slots``. With ``fused_step`` those rows are views of the flat
         (C, P) buffer K1 wrote; the write copies them out. Under a mesh
-        every rank's rows are gathered first: each rank keeps the whole
-        buffer."""
+        each rank passes its slice's rows and the buffer sends each to its
+        slot's owner (``AsyncBuffer.write``); the Ψ rows, which every rank
+        has, are written on their owners and read back gathered."""
         client_ids = np.asarray(client_ids)
         at = {int(c): int(s) for c, s in zip(client_ids, slots)}
 
@@ -577,7 +578,7 @@ class StoCFLStrategy(Strategy):
         clusters, models, _merges, thetas_i, omegas_i = self._train(
             ctx, state, client_ids, handshake)
         split = _split(ctx, len(client_ids))
-        buf = buf.write(slots, _gather(split, thetas_i), _gather(split, omegas_i))
+        buf = buf.write(slots, thetas_i, omegas_i, split)
         return state.replace(models=models, clusters=clusters), buf
 
     def async_merge(self, ctx, state, batch, weights):
@@ -861,12 +862,12 @@ class FedAvgStrategy(Strategy):
 
     def async_dispatch(self, ctx, state, client_ids, buf, slots):
         """Broadcast ω and run the cohort's local SGD (the round's update),
-        the local params scattered into ``slots`` (under a mesh, every
-        rank's rows: each rank keeps the whole buffer)."""
+        the local params scattered into ``slots`` (under a mesh, this
+        rank's slice of them, sent to the slots' owners)."""
         ids = np.asarray(client_ids)
         split = _split(ctx, len(ids))
         outs = self._upd(ctx)(state.omega, _cohort_data(ctx, split, ids))
-        return state, buf.write(slots, _gather(split, outs))
+        return state, buf.write(slots, outs, split=split)
 
     def async_merge(self, ctx, state, batch, weights):
         """The weighted mean of the flushed local params under the

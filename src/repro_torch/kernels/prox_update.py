@@ -7,6 +7,9 @@ wrapper launches its kernel or raises; on a CPU tensor it runs the plain
 version in place (``ref.prox_update_ref_``, ``ref.prox_theta_ref_``), so
 both devices give the same contract. Under ``analysis.sanitize.nan_guard``
 a launch's outputs are checked (a ctypes launch passes no dispatcher).
+The bi-level step is a dispatcher op with a shape-only path for fake
+tensors (``prox_update_flat``); the local-SGD form, which no traced step
+runs, is a plain function.
 """
 from __future__ import annotations
 
@@ -39,15 +42,29 @@ def _check(theta, omega, g_theta, g_omega):
 
 def prox_update_flat(theta, omega, g_theta, g_omega, eta: float, lam: float):
     """θ ← θ − η(g_θ + λ(θ − ω)), ω ← ω − η g_ω on flat vectors, written
-    into ``theta`` and ``omega``; returns ``(theta, omega)``."""
-    global launches
+    into ``theta`` and ``omega``; returns ``(theta, omega)``.
+
+    One dispatcher op, ``repro_torch::prox_update_`` (its two written
+    operands declared mutated), so that a trace over fake tensors
+    (``launch.dryrun``) sees the kernel as one op with its own operands,
+    through the op's shape-only path; on real tensors the op runs the
+    launch below (or the plain version on the CPU)."""
     _check(theta, omega, g_theta, g_omega)
+    _prox_update_op(theta, omega, g_theta, g_omega, float(eta), float(lam))
+    return theta, omega
+
+
+@torch.library.custom_op("repro_torch::prox_update_", mutates_args=("theta", "omega"))
+def _prox_update_op(theta: torch.Tensor, omega: torch.Tensor, g_theta: torch.Tensor,
+                    g_omega: torch.Tensor, eta: float, lam: float) -> None:
+    global launches
     if theta.device.type == "cpu":
-        return ref.prox_update_ref_(theta, omega, g_theta, g_omega, eta, lam)
+        ref.prox_update_ref_(theta, omega, g_theta, g_omega, eta, lam)
+        return
     if theta.device.type != "cuda":
         raise ValueError(f"no kernel for device {theta.device}")
     if theta.numel() == 0:
-        return theta, omega
+        return
     lib = _build.load()
     stream = torch.cuda.current_stream(theta.device).cuda_stream
     name = _ENTRY[theta.dtype]
@@ -58,7 +75,12 @@ def prox_update_flat(theta, omega, g_theta, g_omega, eta: float, lam: float):
     _build.check(err, name)
     launches += 1
     events.check_nan("prox_update", theta, omega)
-    return theta, omega
+
+
+@_prox_update_op.register_fake
+def _prox_update_shape(theta, omega, g_theta, g_omega, eta, lam) -> None:
+    """The op on fake tensors: it writes its operands in place and makes
+    nothing."""
 
 
 def _span(t: torch.Tensor):

@@ -18,7 +18,10 @@ On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version in ``ref`` (``ssm_scan_states_ref``,
 ``ssm_scan_bwd_ref``), with the same contract. Under
 ``analysis.sanitize.nan_guard`` a launch's outputs are checked (a ctypes
-launch passes no dispatcher).
+launch passes no dispatcher). Each direction is one dispatcher op
+(``repro_torch::ssm_scan_fwd`` / ``ssm_scan_bwd``) with a shape-only path,
+so a trace over fake tensors (``launch.dryrun``) sees each as one op with
+its own operands and results.
 """
 from __future__ import annotations
 
@@ -70,9 +73,17 @@ def _shape_ok(B: int, N: int) -> None:
 
 def scan_fwd(dA, dBx, C):
     """(dA, dBx (B, S, D, N), C (B, S, N)) -> (y (B, S, D), hs (B, ⌈S/CHUNK⌉,
-    D, N)), fp32: the scan's output and the state entering each chunk."""
-    global fwd_launches
+    D, N)), fp32: the scan's output and the state entering each chunk.
+    One dispatcher op, ``repro_torch::ssm_scan_fwd``, with a shape-only
+    path for fake tensors (``launch.dryrun``)."""
     _check(dA, dBx, C)
+    return tuple(_scan_fwd_op(dA, dBx, C))
+
+
+@torch.library.custom_op("repro_torch::ssm_scan_fwd", mutates_args=())
+def _scan_fwd_op(dA: torch.Tensor, dBx: torch.Tensor,
+                 C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    global fwd_launches
     if not _on_card(dA):
         return ref.ssm_scan_states_ref(dA, dBx, C, CHUNK)
     dA, dBx, C = _f32(dA, "dA"), _f32(dBx, "dBx"), _f32(C, "C")
@@ -92,11 +103,27 @@ def scan_fwd(dA, dBx, C):
     return y, hs
 
 
+@_scan_fwd_op.register_fake
+def _scan_fwd_shape(dA, dBx, C):
+    """The forward's outputs on fake tensors: y and the chunk states, fp32."""
+    B, S, D, N = dA.shape
+    return (dA.new_empty((B, S, D), dtype=torch.float32),
+            dA.new_empty((B, -(-S // CHUNK), D, N), dtype=torch.float32))
+
+
 def scan_bwd(dA, dBx, C, hs, g_y):
     """Gradients ``(g_dA, g_dBx, g_C)`` of the scan at (dA, dBx, C), given
-    the forward's saved states ``hs`` and the output's gradient ``g_y``."""
-    global bwd_launches
+    the forward's saved states ``hs`` and the output's gradient ``g_y``.
+    One dispatcher op, ``repro_torch::ssm_scan_bwd``, with a shape-only
+    path for fake tensors."""
     _check(dA, dBx, C)
+    return tuple(_scan_bwd_op(dA, dBx, C, hs, g_y))
+
+
+@torch.library.custom_op("repro_torch::ssm_scan_bwd", mutates_args=())
+def _scan_bwd_op(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor, hs: torch.Tensor,
+                 g_y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    global bwd_launches
     if not _on_card(dA):
         return ref.ssm_scan_bwd_ref(dA, dBx, C, hs, g_y, CHUNK)
     dA, dBx, C = _f32(dA, "dA"), _f32(dBx, "dBx"), _f32(C, "C")
@@ -121,6 +148,14 @@ def scan_bwd(dA, dBx, C, hs, g_y):
     bwd_launches += 1
     events.check_nan("ssm_scan_bwd", g_dA, g_dBx, g_C)
     return g_dA, g_dBx, g_C
+
+
+@_scan_bwd_op.register_fake
+def _scan_bwd_shape(dA, dBx, C, hs, g_y):
+    """The backward's gradients on fake tensors, fp32, in their operands'
+    shapes."""
+    f32 = lambda x: x.new_empty(x.shape, dtype=torch.float32)
+    return f32(dA), f32(dBx), f32(C)
 
 
 class SSMScan(torch.autograd.Function):

@@ -20,6 +20,14 @@ is asked for; a CUDA mesh without a GPU raises.
 ``make_host_mesh`` builds the 2-D ``("data", "model")`` mesh the LLM
 parameter rule table places over (``sharding.param_shardings``,
 ``launch.steps``).
+
+``make_production_mesh`` is the reference's TPU v5e pod layout mapped to
+H100 nodes of 8 GPUs, with the model axis inside a node's NVLink domain:
+single ``("data", "model")`` = (32, 8), 256 GPUs; multi ``("pod", "data",
+"model")`` = (2, 32, 8), 512. No such cluster exists here: the mesh is
+built over a fake process group (``fake_mesh``: torch's ``fake`` backend,
+whose collectives return at once and move nothing), for the dry run
+(``launch.dryrun``), which traces a step on fake tensors over it.
 """
 from __future__ import annotations
 
@@ -94,3 +102,46 @@ def make_host_mesh(model_parallel: int = 1, device=None) -> DeviceMesh:
     mesh = DeviceMesh(kind, ranks, mesh_dim_names=("data", "model"))
     check_model_axis(mesh)
     return mesh
+
+
+# the reference's production meshes (launch/mesh.py) on H100 nodes of 8 GPUs
+PRODUCTION = {False: ((32, 8), ("data", "model")),
+              True: ((2, 32, 8), ("pod", "data", "model"))}
+FAKE_WORLD = 512        # the largest production mesh: one fake world serves both
+
+
+def fake_world(n: int = FAKE_WORLD) -> None:
+    """Make the default process group a fake one of ``n`` ranks, this
+    process rank 0 (``torch.testing._internal.distributed.fake_pg``: its
+    collectives complete at once and move nothing). A fake group of at
+    least ``n`` ranks already in place is kept; any other group raises."""
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() < n:
+            raise RuntimeError(f"a fake mesh of {n} ranks needs a fake default group of at "
+                               f"least {n} ranks, found {dist.get_backend()!r} of "
+                               f"{dist.get_world_size()}")
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+
+
+def fake_mesh(shape, axes, device=None) -> DeviceMesh:
+    """A ``DeviceMesh`` of ``shape`` with axis names ``axes`` over the first
+    ranks of a fake world (``fake_world``), seen from rank 0. Build it
+    before entering a ``FakeTensorMode``: its groups are made from real
+    tensors. ``device`` as ``make_client_mesh``."""
+    kind = _device_type(device)
+    n = 1
+    for d in shape:
+        n *= int(d)
+    fake_world(max(n, FAKE_WORLD))
+    return DeviceMesh(kind, torch.arange(n).reshape(tuple(shape)), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(multi_pod: bool = False, device=None) -> DeviceMesh:
+    """The production mesh on H100 nodes: (32, 8) ``("data", "model")``, or
+    with ``multi_pod`` (2, 32, 8) ``("pod", "data", "model")``, over a fake
+    process group (``fake_mesh``). ``device``: ``None`` or ``"cuda"`` for a
+    CUDA mesh (its fake tensors are CUDA tensors), ``"cpu"`` for CPU."""
+    shape, axes = PRODUCTION[bool(multi_pod)]
+    return fake_mesh(shape, axes, device)

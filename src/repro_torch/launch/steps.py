@@ -78,12 +78,14 @@ def param_specs(model: Model):
 
 def _value_and_grad(loss_fn, params, batch):
     """(loss, d loss / d params) by reverse mode; the gradient tree has
-    ``params``' structure."""
+    ``params``' structure, zeros for a leaf the loss does not read (as
+    ``jax.grad`` gives: a hybrid cut below its first shared block)."""
     leaves = [x.detach().requires_grad_(True) for x in trees.leaves(params)]
     with torch.enable_grad():
         loss = loss_fn(trees.from_leaves(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), trees.from_leaves(params, list(grads))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    return loss.detach(), trees.from_leaves(params, grads)
 
 
 def _like(g, p):

@@ -83,6 +83,9 @@ def _n(stack) -> int:
 def _enc_body(cfg, h, p):
     p = unshard_fsdp(p)
     h = h + attn.bidir_attention(p["attn"], layernorm(p["attn_norm"], h), cfg)
+    # under a mesh the residual by rows only: DTensor may split the 1,500
+    # encoder positions unevenly, and its product then views a padded shard
+    h = shard(h, "batch", None, None)
     return h + gelu_mlp(p["mlp"], layernorm(p["mlp_norm"], h))
 
 

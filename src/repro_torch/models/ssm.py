@@ -207,6 +207,11 @@ def _mamba2_core(params, x, cfg, h0=None, conv_tail=None):
 
     if h0 is None:
         h0 = torch.zeros((B, nh, hd, ds), dtype=f32, device=x.device)
+    # under a mesh: rows on the client axes, heads on tp, the sequence
+    # whole (DTensor may otherwise split it, which the scan's per-step
+    # unbind cannot take)
+    dA = shard(dA, "batch", None, "tp", None, None)
+    dBx = shard(dBx, "batch", None, "tp", None, None)
     h_all, h_last = _chunked_scan(dA, dBx, h0, cfg.ssm_chunk)
     y = torch.einsum("bsnhd,bsd->bsnh", h_all, Cc.to(f32))
     y = y + params["d_skip"].to(f32)[:, None] * xh

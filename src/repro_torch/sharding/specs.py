@@ -16,11 +16,12 @@ all-reduce. The port runs one process per rank on a 1-D ``DeviceMesh``
   ``psum_segments`` and the engine's ``bilevel.aggregate_segments`` both
   run);
 * where every rank needs every row (Ditto's personal rows, IFCA's
-  losses, CFL's split statistics, the async buffer's rows), the rows come
-  back through an ``all_reduce`` of a zero-filled full stack, summed as
-  bytes so the result is the rows bit for bit (``RowSplit.gather``);
+  losses, CFL's split statistics), the rows come back through an
+  ``all_reduce`` of a zero-filled full stack, summed as bytes so the
+  result is the rows bit for bit (``RowSplit.gather``);
 * a stack that lives only on the ranks that own its rows (the client
-  arena's rows, ``ClientArena.place``) is read through ``RowOwners``:
+  arena's rows, ``ClientArena.place``; the async buffer's row banks,
+  ``place_buffer_rows``) is read through ``RowOwners``:
   each row on one rank, by a stride, and a gather of any rows is the
   same byte sum (``RowOwners.gather``);
 * everything else is replicated: every rank computes it from the same
@@ -71,6 +72,7 @@ import threading
 from collections.abc import Mapping
 from typing import Any, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
@@ -198,11 +200,13 @@ def model_axis_blocker(mesh) -> Optional[str]:
     unless the caller has registered CUDA kernels for those collectives
     (``torch.library.Library("_c10d_functional", "IMPL")``) that run the
     group's own blocking ones. A CPU mesh, or anything that is not a
-    ``DeviceMesh`` on CUDA, passes."""
+    ``DeviceMesh`` on CUDA, passes, and so does a ``fake`` group (torch's
+    fake backend, ``launch.dryrun``'s: its collectives move nothing, so
+    nothing can crash)."""
     if getattr(mesh, "device_type", None) != "cuda":
         return None
     backend = str(dist.get_backend(mesh.get_group(0)))
-    if backend == "nccl":
+    if backend in ("nccl", "fake"):
         return None
     routed = lambda op: torch._C._dispatch_has_kernel_for_dispatch_key(
         f"_c10d_functional::{op}", "CUDA")
@@ -388,6 +392,62 @@ class RowOwners:
 
         return trees.tree_map(leaf, held)
 
+    def scatter(self, held, slots, updates, split: Optional[RowSplit] = None):
+        """A copy of ``held`` (this rank's rows of the stack) with cohort
+        row ``i`` of ``updates`` written at global row ``slots[i]``, bit
+        for bit up to the stack's dtype. ``slots`` are host ints, or, with
+        the stack whole, a device tensor, used as it is (no host read).
+
+        ``updates`` holds the cohort rows of ``split`` (this rank's
+        contiguous share, ``row_split``; None or unsplit: every row). With
+        the stack whole on every rank a split cohort is gathered whole
+        first. With the stack on its owners each row is written on its
+        owner only: from its own share where the owner trained the row,
+        otherwise received through one byte-sum ``all_reduce`` for each
+        owner and leaf that carries just the rows that owner does not hold
+        (``RowSplit.gather``'s pattern), so no rank holds the whole cohort.
+        Every rank makes the same calls in the same order."""
+        dev = trees.leaves(held)[0].device
+        at = lambda pos: torch.as_tensor(np.asarray(pos, np.int64), device=dev)
+        split_rows = split is not None and split.sharded
+        if not self.sharded:
+            full = split.gather(updates) if split_rows else updates
+            idx = (slots.to(device=dev, dtype=torch.int64) if isinstance(slots, torch.Tensor)
+                   else at(slots))
+            return trees.tree_map(
+                lambda r, u: r.clone().index_copy_(0, idx, u.to(r.dtype)), held, full)
+        slots = np.asarray(slots, np.int64)
+        m, size = len(slots), self.size
+        k = m // size if split_rows else m
+        lo = split.lo if split_rows else 0
+        out = trees.tree_map(lambda r: r.clone(), held)
+        for q in range(size):
+            mine = np.nonzero(slots % size == q)[0]
+            if split_rows:                  # owner q trained rows [q·k, (q+1)·k)
+                local = mine[(mine >= q * k) & (mine < (q + 1) * k)]
+                moved = mine[(mine < q * k) | (mine >= (q + 1) * k)]
+            else:
+                local, moved = mine, mine[:0]
+            if q == self.rank and local.size:
+                dst, src = at(slots[local] // size), at(local - lo)
+                trees.tree_map(lambda r, u: r.index_copy_(
+                    0, dst, torch.index_select(u, 0, src).to(r.dtype)), out, updates)
+            if not moved.size:
+                continue
+            sent = moved[(moved >= lo) & (moved < lo + k)]
+            pos, src = at(np.searchsorted(moved, sent)), at(sent - lo)
+
+            def send(r, u):
+                got = u.new_zeros((moved.size,) + tuple(u.shape[1:]))
+                if sent.size:
+                    got.index_copy_(0, pos, torch.index_select(u, 0, src))
+                _sum_bytes_(got, self.mesh)
+                if q == self.rank:
+                    r.index_copy_(0, at(slots[moved] // size), got.to(r.dtype))
+
+            trees.tree_map(send, out, updates)
+        return out
+
     def send(self, x: Optional[torch.Tensor], src: int, like: torch.Tensor) -> torch.Tensor:
         """Rank ``src``'s ``x`` on every rank, bit for bit (the other
         ranks pass None; ``like`` gives the shape, dtype and device)."""
@@ -462,10 +522,27 @@ def place_replicated(tree, mesh):
     return trees.tree_map(lambda x: x.to(dev), tree)
 
 
-# an async buffer's flushed row stack (``run_round_async``) and a value
-# made inside a round step take the rule of ``place_cohort``: eager torch
-# has no trace, so the reference's three rules are one
-place_buffer_rows = place_cohort
+def place_buffer_rows(tree, mesh):
+    """This rank's rows of an async buffer's row bank (``AsyncBuffer.place``)
+    on its owners: row ``s`` on rank ``s % N`` only, as its local row ``s //
+    N`` (``row_owners`` of the leading axis, the client arena's layout), on
+    the rank's device. A power-of-two capacity at least the rank count
+    divides a power-of-two count; where the rows do not divide, or there
+    is one rank, the bank stays whole (the reference's relaxation)."""
+    if mesh is None:
+        return tree
+    dev = mesh_device(mesh)
+
+    def leaf(x):
+        if not isinstance(x, torch.Tensor) or x.dim() == 0:
+            return x
+        return row_owners(x.shape[0], mesh).take(x).to(dev)
+
+    return trees.tree_map(leaf, tree)
+
+
+# a value made inside a round step takes the rule of ``place_cohort``: eager
+# torch has no trace, so the reference's two rules are one
 constrain_cohort = place_cohort
 
 

@@ -1,27 +1,33 @@
 """One rank of a ``gloo`` world on the CPU for ``tests/test_torch_mesh.py``.
 
-    python tests/_torch_mesh_worker.py RANK WORLD ROOT
+    python tests/_torch_mesh_worker.py RANK WORLD ROOT [main|owned]
 
 Joins the world through a ``FileStore`` under ``ROOT``, builds
 ``make_client_mesh(device="cpu")`` and drives the port's engine through
-every case the test holds (each strategy's eager rounds and
-``run_rounds`` spans, churn, a checkpoint resumed across world sizes, a
-cohort that does not divide, a ragged arena, async rounds, a churn cycle
-that grows and compacts the arena, ``psum_segments``), writing a snapshot
-of the state after every round or span, the number of ``all_reduce``
-calls of the main cases (those that move the arena's rows between their
-owners counted apart), StoCFL's Ψ calls beside the new clients of the
-rank's slice of each cohort, and which arena rows the rank holds, to
-``ROOT/w{WORLD}_r{RANK}.pkl``. The world of one also runs every
+the cases the test holds. ``main`` (the default): each strategy's eager
+rounds and ``run_rounds`` spans, churn, a checkpoint resumed across
+world sizes, a cohort that does not divide, a ragged arena, async
+rounds, a churn cycle that grows and compacts the arena,
+``psum_segments``. ``owned``: async rounds whose buffer grows, loses a
+departed client's entry, flushes and is checkpointed and resumed, its
+rows on their owners. It writes a snapshot of the state after every
+round or span, the number of ``all_reduce`` calls of the main cases
+(those that move the arena's rows between their owners counted apart),
+StoCFL's Ψ calls beside the new clients of the rank's slice of each
+cohort, and which arena rows the rank holds, to
+``ROOT/{MODE}_w{WORLD}_r{RANK}.pkl``. The world of one also runs every
 case without a mesh, the reference the test holds the meshes to. The
 inputs (federations, ω₀, IFCA's hypotheses) come as numpy arrays from
 ``ROOT/inputs.pkl``, made by the test with the JAX package; this process
 imports only torch and the port.
 """
+import contextlib
+import dataclasses
 import datetime
 import os
 import pickle
 import sys
+import zipfile
 
 import numpy as np
 import torch
@@ -41,14 +47,19 @@ CYCLE_LEAVES = (0, 2, 4, 6, 8, 10, 12, 14, 1, 3)   # the 10th compacts 18 rows
 CKPT = ("stocfl", "ditto", "cfl")
 NONDIV = ("fedavg", "stocfl")
 ASYNC = ("stocfl", "fedavg")
+# buffered rounds over a buffer of 8 rows: round 0 fills it, round 1's
+# dispatch doubles it before the first flush merges (every 2nd round), and
+# the first cohort member leaves with its row in flight
+OWNED_CFG = dict(buffer_capacity=8, flush_every=2, staleness_cap=4)
+OWNED_DELAYS = ([0, 1, 0, 2, 0, 1, 0, 1], [1, 0, 0, 0, 2, 0, 0, 0], [0, 2, 0, 0, 1, 0, 0, 0])
 
 
 def loss(p, b):
     return simple.loss_fn(p, b, TASK)
 
 
-def cfg(name, scan=True):
-    kw = dict(lr=0.1, local_steps=2, sample_rate=0.5, seed=0, rng_backend="device")
+def cfg(name, scan=True, **extra):
+    kw = dict(lr=0.1, local_steps=2, sample_rate=0.5, seed=0, rng_backend="device", **extra)
     if name == "stocfl":
         kw.update(tau=0.3, cluster_backend="device" if scan else "numpy")
     if name == "ifca":
@@ -94,6 +105,46 @@ def layout(arena) -> dict:
             "live": sorted(live), "rows": rows, "mask_rows": int(arena.mask.shape[0])}
 
 
+@contextlib.contextmanager
+def recording_writes():
+    """Within the block, every ``AsyncBuffer.write`` / ``write_psi`` call's
+    slots and rows, the cohort's rows gathered whole from every rank's
+    slice (a collective), as numpy, appended to the yielded list."""
+    from repro_torch.engine.async_agg import AsyncBuffer
+    real_write, real_psi, writes = AsyncBuffer.write, AsyncBuffer.write_psi, []
+    flat = lambda tree: {k: v.numpy() for k, v in
+                         (tree.items() if isinstance(tree, dict) else [("", tree)])}
+
+    def write(self, slots, payload, aux=None, split=None):
+        whole = lambda t: t if split is None or not split.sharded else split.gather(t)
+        writes.append((np.asarray(slots), {"payload": flat(whole(payload))}
+                       | ({} if aux is None else {"aux": flat(whole(aux))})))
+        return real_write(self, slots, payload, aux, split)
+
+    def write_psi(self, slots, rows):
+        writes.append((np.asarray(slots), {"psi": flat(rows.to(torch.float32))}))
+        return real_psi(self, slots, rows)
+
+    AsyncBuffer.write, AsyncBuffer.write_psi = write, write_psi
+    try:
+        yield writes
+    finally:
+        AsyncBuffer.write, AsyncBuffer.write_psi = real_write, real_psi
+
+
+def buffer_rows(buf) -> dict:
+    """What a rank holds of the async buffer (its rows and their bytes, the
+    capacity, the entries) and the whole buffer, gathered from every rank's
+    rows (a collective: every rank calls it)."""
+    flat = lambda tree: {k: v.numpy() for k, v in
+                         (tree.items() if isinstance(tree, dict) else [("", tree)])}
+    comps = lambda b: {c: flat(getattr(b, c)) for c in ("payload", "aux", "psi")
+                       if getattr(b, c) is not None}
+    return {"held": buf.held, "capacity": buf.capacity, "nbytes": buf.nbytes,
+            "entries": [tuple(e) for e in buf.entries], "mine": comps(buf),
+            "whole": comps(buf.gathered())}
+
+
 def counting_psi(st):
     """``st``'s context with its Ψ counting its calls in ``calls[0]``."""
     calls, real = [0], st.ctx.extractor
@@ -111,9 +162,10 @@ class Runner:
         self.inputs = inputs
         self.psi = {}       # StoCFL's Ψ calls (and what they should be) by case
 
-    def init(self, name, mesh, clients="clients", scan=True):
+    def init(self, name, mesh, clients="clients", scan=True, **extra):
         params = {k: torch.as_tensor(v) for k, v in self.inputs["params"].items()}
-        st = engine.init(name, loss, params, list(self.inputs[clients]), cfg(name, scan),
+        st = engine.init(name, loss, params, list(self.inputs[clients]),
+                         cfg(name, scan, **extra),
                          device="cpu", arena=True, mesh=mesh)
         if name == "ifca":
             st = st.replace(models=engine.ClusterBank.from_dict(
@@ -190,18 +242,54 @@ class Runner:
             snaps.append(snapshot(st))
         return snaps
 
+    def owned(self, name, mesh, path):
+        """``OWNED_DELAYS``' rounds over ``OWNED_CFG``'s buffer, the first
+        member of round 0's cohort leaving after it and the state saved to
+        ``path`` there; then the same rounds resumed from ``path``. Returns
+        the uninterrupted run's (snapshot, buffer) pairs and the resumed
+        run's snapshots."""
+        acfg = engine.AsyncConfig(**OWNED_CFG)
+        st, out = self.init(name, mesh, scan=False, async_cfg=acfg), []
+        for t, delays in enumerate(OWNED_DELAYS):
+            with recording_writes() as writes:
+                st, _ = engine.run_round_async(st, delays=delays)
+            if t == 0:
+                st = engine.leave(st, st.buffer.entries[0].cid)
+                save_server_state(path, st)
+                # the same state, its buffer gathered whole, saved by a
+                # writer without a mesh: the file the mesh's must equal
+                whole = st.replace(ctx=dataclasses.replace(st.ctx, mesh=None),
+                                   buffer=st.buffer.gathered())
+                if mesh is not None and dist.get_rank() == 0:
+                    save_server_state(path + "_whole", whole)
+            out.append((snapshot(st), dict(buffer_rows(st.buffer), writes=writes)))
+        st = load_server_state(path, self.init(name, mesh, scan=False, async_cfg=acfg))
+        resumed = []
+        for delays in OWNED_DELAYS[1:]:
+            st, _ = engine.run_round_async(st, delays=delays)
+            resumed.append(snapshot(st))
+        return out, resumed
 
-def main() -> int:
-    rank, world, root = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(root, f"store{world}"),
-                                                         world),
-                            rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=60))
-    mesh = make_client_mesh(device="cpu")
-    with open(os.path.join(root, "inputs.pkl"), "rb") as f:
-        inputs = pickle.load(f)
-    run = Runner(inputs)
+
+def owned_cases(run, world, root, mesh) -> dict:
+    """The buffer with its rows on their owners (``Runner.owned``) for
+    each async strategy, and the ``async_buffer.npz`` each run saved."""
+    out = {}
+    meshes = [("mesh", mesh)] + ([("nomesh", None)] if world == 1 else [])
+    for tag, m in meshes:
+        for name in ASYNC:
+            path = os.path.join(root, f"ck_owned_{name}_w{world}_{tag}")
+            out[f"owned/{name}/{tag}"] = run.owned(name, m, path)
+            for suffix in ("", "_whole") if m is not None else ("",):
+                dist.barrier()
+                with zipfile.ZipFile(os.path.join(path + suffix, "async_buffer.npz")) as f:
+                    out[f"owned/{name}/{tag}/file{suffix}"] = {k: f.read(k)
+                                                               for k in f.namelist()}
+    return out
+
+
+def main_cases(run, world, root, mesh, inputs) -> dict:
+    """Every case but the owned buffer's, as ``main`` writes them."""
     out = {}
 
     # every all_reduce the engine makes, counted per case; those that move
@@ -275,8 +363,25 @@ def main() -> int:
     rows = torch.arange(4 * world + 1, dtype=torch.float32)[:, None].expand(-1, 3)
     out["place"] = [specs.place_cohort(rows[:4 * world].contiguous(), mesh).numpy(),
                     specs.place_cohort(rows.contiguous(), mesh).numpy()]
+    return out
 
-    with open(os.path.join(root, f"w{world}_r{rank}.pkl"), "wb") as f:
+
+def main() -> int:
+    rank, world, root = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    mode = sys.argv[4] if len(sys.argv) > 4 else "main"
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(root, f"store_{mode}{world}"), world), rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=60))
+    mesh = make_client_mesh(device="cpu")
+    with open(os.path.join(root, "inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    run = Runner(inputs)
+    if mode == "owned":
+        out = owned_cases(run, world, root, mesh)
+    else:
+        out = main_cases(run, world, root, mesh, inputs)
+    with open(os.path.join(root, f"{mode}_w{world}_r{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     dist.destroy_process_group()
     return 0

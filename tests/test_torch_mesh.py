@@ -17,7 +17,9 @@ contract.
   boundaries, a churn cycle that doubles the arena and compacts it, a
   checkpoint saved at one world size and resumed at another (and with no
   mesh), a cohort that does not divide the ranks, a ragged arena, async
-  rounds, ``psum_segments`` against the dense sum and its fallback; and,
+  rounds, async rounds whose buffer grows, loses a departed client's
+  entry, flushes and resumes from a checkpoint with its rows on their
+  owners, ``psum_segments`` against the dense sum and its fallback; and,
   for each strategy, the world of one against the JAX engine under
   ``repro.launch.mesh.make_client_mesh(1)`` within 1e-5.
 - The arena's rows live on their owners: at 2 and 4 ranks each rank holds
@@ -31,7 +33,8 @@ Each world is a set of processes (``tests/_torch_mesh_worker.py``) that
 join through a ``FileStore`` under the test's temporary directory, run
 every case once and write their snapshots; a module-scoped fixture runs
 the worlds one after another (a world resumes the checkpoint the
-previous one saved) and every test reads their results. A world that
+previous one saved) and every test reads their results. The owned
+buffer's cases run in worlds of their own (``owned_worlds``). A world that
 does not finish within its timeout fails the tests instead of hanging.
 """
 import dataclasses
@@ -57,7 +60,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 WORKER = os.path.join(HERE, "_torch_mesh_worker.py")
 SRC = os.path.join(os.path.dirname(HERE), "src")
 WORLDS = (1, 2, 4)
-WORLD_TIMEOUT = 60.0          # seconds a world may take before it fails
+# seconds a world may take before it fails: a world takes 5-7 s on an
+# idle 8-core host and up to 34 s beside 24 busy processes
+WORLD_TIMEOUT = 120.0
 RTOL, ATOL = 2e-5, 1e-6
 REF_ATOL = 1e-5
 ALL = ("stocfl", "fedavg", "fedprox", "ditto", "ifca", "cfl")
@@ -105,9 +110,9 @@ def _inputs():
                      "seg": rng.integers(0, 4, size=16)}}
 
 
-def _run_world(root, world):
+def _run_world(root, world, mode="main"):
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, WORKER, str(r), str(world), root],
+    procs = [subprocess.Popen([sys.executable, WORKER, str(r), str(world), root, mode],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for r in range(world)]
     deadline = time.monotonic() + WORLD_TIMEOUT
@@ -119,7 +124,7 @@ def _run_world(root, world):
     except subprocess.TimeoutExpired:
         for p in procs:
             p.kill()
-        pytest.fail(f"the world of {world} did not finish within {WORLD_TIMEOUT} s")
+        pytest.fail(f"the {mode} world of {world} did not finish within {WORLD_TIMEOUT} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -128,7 +133,7 @@ def _run_world(root, world):
         assert p.returncode == 0, f"world {world} rank {r} failed:\n{logs[r]}"
     out = []
     for r in range(world):
-        with open(os.path.join(root, f"w{world}_r{r}.pkl"), "rb") as f:
+        with open(os.path.join(root, f"{mode}_w{world}_r{r}.pkl"), "rb") as f:
             out.append(pickle.load(f))
     return out
 
@@ -144,6 +149,16 @@ def worlds(tmp_path_factory, inputs):
     with open(os.path.join(root, "inputs.pkl"), "wb") as f:
         pickle.dump(inputs, f)
     return {w: _run_world(root, w) for w in WORLDS}
+
+
+@pytest.fixture(scope="module")
+def owned_worlds(tmp_path_factory, inputs):
+    """The worlds of the buffer with its rows on their owners, apart from
+    ``worlds`` so that each world keeps its own timeout."""
+    root = str(tmp_path_factory.mktemp("owned"))
+    with open(os.path.join(root, "inputs.pkl"), "wb") as f:
+        pickle.dump(inputs, f)
+    return {w: _run_world(root, w, "owned") for w in WORLDS}
 
 
 # ------------------------------------------------------------ comparison
@@ -342,9 +357,77 @@ def test_ragged_arena(worlds, world):
 @pytest.mark.parametrize("name,world", [(n, w) for n in ("stocfl", "fedavg")
                                         for w in WORLDS])
 def test_async_rounds(worlds, name, world):
-    """Buffered rounds with late reports: every rank keeps the whole
-    buffer and merges its slice of each flush."""
+    """Buffered rounds with late reports: the buffer's rows on their
+    owners, every rank merging its slice of each flush."""
     _hold(worlds, f"async/{name}", world)
+
+
+def _owned(worlds, name, world, tag="mesh"):
+    return [w[f"owned/{name}/{tag}"] for w in worlds[world]]
+
+
+@pytest.mark.parametrize("name,world", [(n, w) for n in ("stocfl", "fedavg")
+                                        for w in WORLDS])
+def test_async_buffer_rows_live_on_their_owners(owned_worlds, name, world):
+    """A buffer of 8 rows that round 1 doubles, a departure with its row in
+    flight, flushes every 2nd round: each rank holds capacity / N rows of
+    each bank, slot s on rank s mod N (its rows are the whole buffer's
+    rows s ≡ rank), and its bytes are 1/N of the run without a mesh. The
+    buffer moves rows bit for bit: gathered whole, it holds at each slot
+    the row the cohort trained for it, as every rank's slice gives it
+    (and each handshake's Ψ row), in every round. Against the run without
+    a mesh the entries and every integer of the state are exact, and
+    floats bitwise on a mesh of one rank, within the reduction-order
+    tolerance on more (a slice's rows train in a batch of another size,
+    and a flush sums partial sums in another order)."""
+    worlds = owned_worlds
+    (ref, _), ranks = worlds[1][0][f"owned/{name}/nomesh"], _owned(worlds, name, world)
+    ranks = [r[0] for r in ranks]
+    for t, (want_state, want) in enumerate(ref):
+        assert want["held"] == want["capacity"]
+        for rank, rounds in enumerate(ranks):
+            state, got = rounds[t]
+            _match(want_state, state, exact=world == 1)
+            assert got["capacity"] == want["capacity"] and got["entries"] == want["entries"]
+            assert got["held"] * world == want["capacity"], (t, got["held"])
+            assert got["nbytes"] * world == want["nbytes"], (t, got["nbytes"])
+            assert got["writes"], t
+            for slots, rows in got["writes"]:
+                for c, leaves in rows.items():
+                    for k, x in leaves.items():
+                        whole = got["whole"][c][k or next(iter(got["whole"][c]))]
+                        assert np.array_equal(whole[slots], x), (t, c, k)
+            for c, leaves in want["whole"].items():
+                for k, x in leaves.items():
+                    y = got["whole"][c][k]
+                    assert np.array_equal(got["mine"][c][k], y[rank::world]), (t, c, k)
+                    if world == 1:
+                        assert np.array_equal(x, y), (t, c, k)
+                    else:
+                        np.testing.assert_allclose(y, x, rtol=RTOL, atol=ATOL)
+    caps = [got["capacity"] for _, got in ref]
+    assert caps[0] == 8 and caps[1] == 16, caps
+    assert ref[1][0]["history"][1]["dropped_left"] == 1
+
+
+@pytest.mark.parametrize("name,world", [(n, w) for n in ("stocfl", "fedavg")
+                                        for w in WORLDS])
+def test_async_buffer_checkpoint_across_owners(owned_worlds, name, world):
+    """The checkpoint saved with the buffer's rows on their owners: each
+    member of its ``async_buffer.npz`` is byte for byte the member a writer
+    without a mesh writes for the same state (the zip's timestamps aside):
+    the buffer gathered whole, saved with no mesh; on a mesh of one rank
+    the run without a mesh's own file. The run resumed from it on the same
+    mesh is the uninterrupted run bit for bit."""
+    worlds = owned_worlds
+    for res in worlds[world]:
+        got = res[f"owned/{name}/mesh/file"]
+        for want in (res[f"owned/{name}/mesh/file_whole"],) + (
+                (worlds[1][0][f"owned/{name}/nomesh/file"],) if world == 1 else ()):
+            assert set(got) == set(want) and all(got[k] == want[k] for k in want)
+    for rounds, resumed in _owned(worlds, name, world):
+        for (state, _), again in zip(rounds[1:], resumed, strict=True):
+            _match(state, again, exact=True)
 
 
 @pytest.mark.parametrize("world", WORLDS)

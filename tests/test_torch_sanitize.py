@@ -326,7 +326,8 @@ def test_async_buffer_data_plane_zero_host_transfers():
     indices runs under ``no_transfer()``; the control plane (entries,
     staleness weights) is host-side by design."""
     from repro_torch.core import bilevel
-    from repro_torch.engine.async_agg import _gather_rows, _scatter_rows
+    from repro_torch.engine.async_agg import _gather_rows
+    from repro_torch.sharding.specs import RowOwners
     st = _init("fedavg", _fed(), async_cfg=engine.AsyncConfig())
     st, _ = engine.run_round_async(st)
     rows = st.buffer.payload
@@ -334,7 +335,7 @@ def test_async_buffer_data_plane_zero_host_transfers():
     upd = trees.tree_map(lambda r: r[:4], rows)
     w = torch.ones(4)
     with sanitize.no_transfer():
-        rows2 = _scatter_rows(rows, slots, upd)
+        rows2 = RowOwners().scatter(rows, slots, upd)
         merged = bilevel.aggregate_stacked(_gather_rows(rows2, slots), w)
     assert merged is not None
 
